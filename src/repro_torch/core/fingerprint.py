@@ -1,0 +1,51 @@
+"""Fingerprint primitives for HPDedup.
+
+A fingerprint identifies the content of a fixed-size block. The paper uses
+MD5/SHA-1 on 4 KB disk blocks; on the GPU data plane we use the lane-parallel
+128-bit mix hash of ``repro_torch.kernels.fingerprint``. On the host control
+plane (trace replay, tests) fingerprints are plain Python ints.
+
+This module holds the host-side helpers shared by the engines: a deterministic
+block hash (blake2b-64, used where real content exists but the device kernel
+is not in the loop) and the record dtype used by trace replay.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Union
+
+import numpy as np
+
+# Trace record layout shared by the generator and the engines.
+#   ts     : request timestamp (monotonic merge key)
+#   stream : tenant/VM id
+#   op     : 0 = write, 1 = read
+#   lba    : logical block address within the stream's volume
+#   fp     : content fingerprint (uint64; 0 is reserved for "no content")
+TRACE_DTYPE = np.dtype(
+    [
+        ("ts", np.int64),
+        ("stream", np.int32),
+        ("op", np.int8),
+        ("lba", np.int64),
+        ("fp", np.uint64),
+    ]
+)
+
+OP_WRITE = 0
+OP_READ = 1
+
+BLOCK_SIZE_BYTES = 4096  # the paper's 4 KB block
+
+
+def host_fingerprint(block: Union[bytes, np.ndarray]) -> int:
+    """Deterministic 64-bit content fingerprint for host-side paths."""
+    if isinstance(block, np.ndarray):
+        block = np.ascontiguousarray(block).tobytes()
+    digest = hashlib.blake2b(block, digest_size=8).digest()
+    return int.from_bytes(digest, "little") or 1  # avoid reserved 0
+
+
+def empty_trace(n: int) -> np.ndarray:
+    return np.zeros(n, dtype=TRACE_DTYPE)

@@ -1,0 +1,248 @@
+"""Inline deduplication engine (paper §III-B).
+
+The write path: fingerprint each incoming block, look it up in the
+fingerprint cache; on a hit the block joins the stream's *pending duplicate
+run* (dedup applies only if the LBA-sequential run reaches the stream's
+spatial threshold T — iDedup semantics with HPDedup's per-stream adaptive T);
+on a miss the block is written to the store and its fingerprint is offered to
+the cache under the LDSS admission/eviction policy.
+
+The engine also feeds the stream locality estimator (every write) and the
+spatial threshold's V_w/V_r histograms (run lengths).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+from .cache import GlobalCache, PrioritizedCache
+from .ldss import StreamLocalityEstimator
+from .statetree import from_pairs, pairs
+from .store import BlockStore
+from .threshold import SpatialThreshold
+
+
+@dataclass
+class InlineMetrics:
+    writes: int = 0
+    reads: int = 0
+    inline_dups: int = 0          # duplicate writes eliminated inline
+    cache_hits: int = 0           # fingerprint-cache hits (pre-threshold)
+    broken_runs: int = 0          # dup runs below threshold -> written anyway
+    cache_inserted: int = 0       # fingerprints admitted to the cache (set at flush)
+    per_stream_dups: Dict[int, int] = field(default_factory=dict)
+    per_stream_writes: Dict[int, int] = field(default_factory=dict)
+
+    def inline_ratio(self, total_dup_writes: int) -> float:
+        """Paper's 'inline deduplication ratio': share of duplicate writes
+        identified inline."""
+        return self.inline_dups / total_dup_writes if total_dup_writes else 0.0
+
+    def snapshot(self) -> dict:
+        return {
+            "writes": self.writes,
+            "reads": self.reads,
+            "inline_dups": self.inline_dups,
+            "cache_hits": self.cache_hits,
+            "broken_runs": self.broken_runs,
+            "cache_inserted": self.cache_inserted,
+            "per_stream_dups": pairs(self.per_stream_dups),
+            "per_stream_writes": pairs(self.per_stream_writes),
+        }
+
+    @classmethod
+    def from_snapshot(cls, tree: dict) -> "InlineMetrics":
+        return cls(
+            writes=int(tree["writes"]),
+            reads=int(tree["reads"]),
+            inline_dups=int(tree["inline_dups"]),
+            cache_hits=int(tree["cache_hits"]),
+            broken_runs=int(tree["broken_runs"]),
+            cache_inserted=int(tree["cache_inserted"]),
+            per_stream_dups=from_pairs(tree["per_stream_dups"], value=int),
+            per_stream_writes=from_pairs(tree["per_stream_writes"], value=int),
+        )
+
+
+@dataclass
+class _PendingRun:
+    """LBA-sequential duplicate run awaiting the threshold decision."""
+
+    start_lba: int = 0
+    next_lba: int = 0
+    items: List[Tuple[int, int, int]] = field(default_factory=list)  # (lba, fp, pba)
+
+
+class InlineDedupEngine:
+    """HPDedup inline phase over a shared BlockStore."""
+
+    def __init__(
+        self,
+        store: BlockStore,
+        cache_entries: int = 32768,
+        policy: str = "lru",
+        sampling_rate: float = 0.15,
+        interval_factor: float = 0.5,
+        adaptive_threshold: bool = True,
+        fixed_threshold: int = 4,
+        use_jax_estimator: bool = False,
+        use_unseen: bool = True,
+        prioritized: bool = True,
+        seed: int = 0,
+        *,
+        device="cuda",
+    ):
+        self.store = store
+        self.metrics = InlineMetrics()
+        self.adaptive_threshold = adaptive_threshold
+        self.fixed_threshold = fixed_threshold
+        if prioritized:
+            self.cache = PrioritizedCache(cache_entries, policy=policy, seed=seed, device=device)
+            self.estimator: Optional[StreamLocalityEstimator] = StreamLocalityEstimator(
+                cache_entries,
+                sampling_rate=sampling_rate,
+                interval_factor=interval_factor,
+                use_unseen=use_unseen,
+                batched_solver=use_jax_estimator,
+                on_ldss=self._on_ldss,
+                seed=seed,
+                device=device,
+            )
+        else:
+            self.cache = GlobalCache(cache_entries, policy=policy, device=device)
+            self.estimator = None
+        self.thresholds = SpatialThreshold()
+        self._pending: Dict[int, _PendingRun] = {}
+        self._read_runs: Dict[int, Tuple[int, int]] = {}  # stream -> (next_lba, len)
+
+    # -- LDSS callback ---------------------------------------------------------
+    def _on_ldss(self, predicted: Dict[int, float]) -> None:
+        self.cache.set_ldss(predicted)
+        if self.adaptive_threshold:
+            self.thresholds.update_all()
+
+    def threshold_of(self, stream: int) -> int:
+        if not self.adaptive_threshold:
+            return self.fixed_threshold
+        return self.thresholds.get(stream)
+
+    # -- request path ------------------------------------------------------------
+    def on_read(self, stream: int, lba: int) -> Optional[int]:
+        self.metrics.reads += 1
+        self.thresholds.record_request(stream, is_read=True)
+        self.flush_stream(stream)  # reads interleave the write run
+        nxt = self._read_runs.get(stream)
+        if nxt is not None and nxt[0] == lba:
+            self._read_runs[stream] = (lba + 1, nxt[1] + 1)
+        else:
+            if nxt is not None:
+                self.thresholds.record_read_run(stream, nxt[1])
+            self._read_runs[stream] = (lba + 1, 1)
+        return self.store.read(stream, lba)
+
+    def on_write(self, stream: int, lba: int, fp: int) -> bool:
+        """Process a write; returns True if deduplicated inline."""
+        self.metrics.writes += 1
+        self.metrics.per_stream_writes[stream] = self.metrics.per_stream_writes.get(stream, 0) + 1
+        self.thresholds.record_request(stream, is_read=False)
+
+        pba = self.cache.lookup(stream, fp)
+        hit = pba is not None
+        if self.estimator is not None:
+            self.estimator.observe_write(stream, fp, was_inline_dup=hit)
+
+        run = self._pending.get(stream)
+        if hit:
+            self.metrics.cache_hits += 1
+            if run is not None and lba == run.next_lba:
+                run.items.append((lba, fp, pba))
+                run.next_lba = lba + 1
+            else:
+                if run is not None:
+                    self._decide_run(stream, run)
+                self._pending[stream] = _PendingRun(lba, lba + 1, [(lba, fp, pba)])
+            # run continues; decision deferred. Report optimistically: the
+            # definitive accounting happens at flush (see _decide_run).
+            return True
+
+        # miss: close any pending run, then write through
+        if run is not None:
+            self._decide_run(stream, run)
+            self._pending.pop(stream, None)
+        self._write_block(stream, lba, fp)
+        return False
+
+    # -- run decision ---------------------------------------------------------
+    def _decide_run(self, stream: int, run: _PendingRun) -> None:
+        t = self.threshold_of(stream)
+        length = len(run.items)
+        self.thresholds.record_dup_run(stream, length)
+        if length >= t:
+            for lba, fp, pba in run.items:
+                # TOCTOU guard (found by hypothesis): between the cache hit
+                # and this deferred decision, every LBA referencing ``pba``
+                # may have been overwritten, freeing it.  A stale PBA must be
+                # treated as a miss or the LBA map would point at freed disk.
+                if self.store.fp_of_pba.get(pba) != fp:
+                    self._write_block(stream, lba, fp)
+                    continue
+                self.store.map_duplicate(stream, lba, pba)
+                self.metrics.inline_dups += 1
+                self.metrics.per_stream_dups[stream] = (
+                    self.metrics.per_stream_dups.get(stream, 0) + 1
+                )
+        else:
+            # below threshold: write the blocks (fragmentation control);
+            # post-processing will reclaim them later.
+            self.metrics.broken_runs += 1
+            for lba, fp, pba in run.items:
+                self._write_block(stream, lba, fp)
+
+    def _write_block(self, stream: int, lba: int, fp: int) -> None:
+        pba = self.store.write_new_block(stream, lba, fp)
+        self.cache.admit(stream, fp, pba)
+
+    # -- lifecycle ---------------------------------------------------------------
+    def flush_stream(self, stream: int) -> None:
+        run = self._pending.pop(stream, None)
+        if run is not None:
+            self._decide_run(stream, run)
+
+    def flush(self) -> None:
+        for stream in list(self._pending.keys()):
+            self.flush_stream(stream)
+        for stream, (_, length) in list(self._read_runs.items()):
+            if length:
+                self.thresholds.record_read_run(stream, length)
+        self._read_runs.clear()
+
+    # -- snapshot/restore ----------------------------------------------------------
+    def snapshot(self) -> dict:
+        """Inline-phase state mid-replay: pending duplicate runs and open
+        read runs are captured in insertion order — a restored engine flushes
+        them in the same order the live one would have, so PBA allocation and
+        eviction draws stay bit-identical."""
+        return {
+            "metrics": self.metrics.snapshot(),
+            "cache": self.cache.snapshot(),
+            "estimator": None if self.estimator is None else self.estimator.state_dict(),
+            "thresholds": self.thresholds.snapshot(),
+            "pending": [
+                [s, run.start_lba, run.next_lba, [list(it) for it in run.items]]
+                for s, run in self._pending.items()
+            ],
+            "read_runs": [[s, nxt, length] for s, (nxt, length) in self._read_runs.items()],
+        }
+
+    def load_snapshot(self, tree: dict) -> None:
+        self.metrics = InlineMetrics.from_snapshot(tree["metrics"])
+        self.cache.load_snapshot(tree["cache"])
+        if self.estimator is not None and tree["estimator"] is not None:
+            self.estimator.load_state(tree["estimator"])
+        self.thresholds.load_snapshot(tree["thresholds"])
+        self._pending = {
+            int(s): _PendingRun(int(a), int(b), [(int(l), int(f), int(p)) for l, f, p in items])
+            for s, a, b, items in tree["pending"]
+        }
+        self._read_runs = {int(s): (int(nxt), int(length)) for s, nxt, length in tree["read_runs"]}

@@ -1,0 +1,77 @@
+"""Post-processing deduplication engine (paper §III-C).
+
+Runs in idle time: scans the on-disk fingerprint table for fingerprints
+stored at more than one PBA (duplicates the inline cache missed), collapses
+each onto its canonical PBA, remaps LBAs, decrements refcounts and lets the
+garbage collector reclaim the extra blocks.  After a full pass the store is
+*exactly* deduplicated: one PBA per unique fingerprint.
+
+Budgeting: ``run(max_merges=...)`` bounds one invocation so foreground work
+can interleave (the paper's resource-contention concern); ``run_to_exact``
+loops until no duplicate fingerprints remain.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+from .store import BlockStore
+
+
+@dataclass
+class PostProcessMetrics:
+    passes: int = 0
+    merges: int = 0
+    blocks_reclaimed: int = 0
+
+    def snapshot(self) -> dict:
+        return {
+            "passes": self.passes,
+            "merges": self.merges,
+            "blocks_reclaimed": self.blocks_reclaimed,
+        }
+
+    @classmethod
+    def from_snapshot(cls, tree: dict) -> "PostProcessMetrics":
+        return cls(
+            passes=int(tree["passes"]),
+            merges=int(tree["merges"]),
+            blocks_reclaimed=int(tree["blocks_reclaimed"]),
+        )
+
+
+class PostProcessEngine:
+    def __init__(self, store: BlockStore):
+        self.store = store
+        self.metrics = PostProcessMetrics()
+
+    def run(self, max_merges: Optional[int] = None) -> Dict[int, int]:
+        """One scan over the fingerprint table.
+
+        ``max_merges`` budgets *this* invocation (repeated idle windows each
+        get a fresh budget).  Returns {fingerprint: canonical_pba} for every
+        merged fingerprint so the caller (hybrid orchestrator) can refresh
+        stale cache entries.
+        """
+        merged: Dict[int, int] = {}
+        dups = self.store.duplicate_fingerprints()
+        for done, fp in enumerate(dups):
+            if max_merges is not None and done >= max_merges:
+                break
+            reclaimed = self.store.merge_fingerprint(fp)
+            self.metrics.merges += 1
+            self.metrics.blocks_reclaimed += reclaimed
+            canonical = self.store.lookup_fp(fp)
+            if canonical is not None:
+                merged[fp] = canonical
+        self.metrics.passes += 1
+        return merged
+
+    def run_to_exact(self) -> Dict[int, int]:
+        merged: Dict[int, int] = {}
+        while True:
+            out = self.run()
+            merged.update(out)
+            if not self.store.duplicate_fingerprints():
+                return merged

@@ -1,0 +1,124 @@
+"""Reservoir sampling (Vitter's Algorithm R) over per-stream fingerprint flows.
+
+The stream locality estimator samples the fingerprints of the last *n* write
+requests of each stream (the *estimation interval*) at rate ``p``; the sample
+feeds the FFH/unseen pipeline (``repro_torch.core.ffh`` / ``repro_torch.core.unseen``).
+
+Two implementations:
+
+* ``Reservoir`` — the classic online host-side sampler used by the inline
+  engine (one per stream; O(1) per element, O(k) memory).
+* ``reservoir_indices`` — a vectorized offline sampler used by benchmarks and
+  the batched estimation path: given interval length ``n`` and reservoir size
+  ``k``, returns the sampled positions with the exact Algorithm-R
+  distribution (every element equally likely to be retained).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+
+_DRAWS_MATCH: Optional[bool] = None
+
+
+def _vectorized_draws_match() -> bool:
+    """True when ``Generator.integers(0, array_of_highs)`` consumes the bit
+    stream exactly like per-element scalar calls (it does on current numpy's
+    Lemire path).  Checked once at runtime so a future numpy algorithm change
+    degrades ``offer_many`` to the loop instead of silently diverging from
+    the scalar oracle."""
+    global _DRAWS_MATCH
+    if _DRAWS_MATCH is None:
+        r1, r2 = np.random.default_rng(12345), np.random.default_rng(12345)
+        highs = range(17, 117)
+        seq = [int(r1.integers(0, h)) for h in highs]
+        vec = r2.integers(0, np.asarray(highs)).tolist()
+        _DRAWS_MATCH = seq == vec
+    return _DRAWS_MATCH
+
+
+class Reservoir:
+    """Online uniform sample of size ``k`` from an unbounded stream."""
+
+    def __init__(self, k: int, seed: int = 0):
+        if k <= 0:
+            raise ValueError(f"reservoir size must be positive, got {k}")
+        self.k = k
+        self.rng = np.random.default_rng(seed)
+        self.buf: List[int] = []
+        self.seen = 0
+
+    def offer(self, item: int) -> None:
+        self.seen += 1
+        if len(self.buf) < self.k:
+            self.buf.append(item)
+        else:
+            j = int(self.rng.integers(0, self.seen))
+            if j < self.k:
+                self.buf[j] = item
+
+    def offer_many(self, items) -> None:
+        """Offer a sequence of items with bitwise-identical RNG decisions to
+        calling ``offer`` once per item (the batched replay path relies on
+        this for scalar/batched equivalence)."""
+        buf, k = self.buf, self.k
+        seen = self.seen
+        fill = min(max(k - len(buf), 0), len(items))
+        if fill:
+            buf.extend(items[:fill])
+            seen += fill
+        rest = items[fill:]
+        if rest:
+            m = len(rest)
+            if _vectorized_draws_match():
+                js = self.rng.integers(0, np.arange(seen + 1, seen + m + 1)).tolist()
+            else:
+                rng_integers = self.rng.integers
+                js = [int(rng_integers(0, seen + i)) for i in range(1, m + 1)]
+            seen += m
+            for j, item in zip(js, rest):
+                if j < k:
+                    buf[j] = item
+        self.seen = seen
+
+    def sample(self) -> np.ndarray:
+        return np.asarray(self.buf, dtype=np.uint64)
+
+    def reset(self) -> None:
+        self.buf.clear()
+        self.seen = 0
+
+    def __len__(self) -> int:
+        return len(self.buf)
+
+    # --- checkpointable state (the data pipeline snapshots estimator state
+    # so restart resumes with identical sampling decisions) ---
+    def state_dict(self) -> dict:
+        return {
+            "k": self.k,
+            "buf": list(self.buf),
+            "seen": self.seen,
+            "rng": self.rng.bit_generator.state,
+        }
+
+    @classmethod
+    def from_state(cls, state: dict) -> "Reservoir":
+        r = cls(state["k"])
+        r.buf = list(state["buf"])
+        r.seen = state["seen"]
+        r.rng.bit_generator.state = state["rng"]
+        return r
+
+
+def reservoir_indices(n: int, k: int, rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Positions retained by Algorithm R after seeing ``n`` elements.
+
+    Equivalent in distribution to a uniform k-subset of ``range(n)`` when
+    ``n >= k`` (returns all positions otherwise).
+    """
+    rng = rng or np.random.default_rng(0)
+    if n <= k:
+        return np.arange(n)
+    return rng.choice(n, size=k, replace=False)

@@ -1,0 +1,43 @@
+"""JSON-safe state-tree primitives shared by every ``snapshot()`` method.
+
+The snapshot subsystem (``core.snapshot``) serializes the whole engine stack
+into a *state tree*: nested dicts/lists of JSON scalars only.  Two rules make
+the trees both portable and bit-exact to restore:
+
+* **No non-string dict keys.**  Python dicts keyed by ints (fingerprints,
+  streams, PBAs) are serialized as *pair lists* ``[[k, v], ...]`` so a
+  ``json.dumps``/``loads`` round trip neither stringifies keys nor loses
+  them.
+* **Insertion order is state.**  LRU order, pending-run order, Fenwick slot
+  assignment and PBA allocation order all feed future decisions (including
+  eviction RNG draws), so pair lists preserve dict insertion order exactly
+  and loaders rebuild dicts in that order.
+
+Helpers here are dependency-free so every core module can import them
+without cycles.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterable, List, Tuple
+
+
+def pairs(d: Dict) -> List[list]:
+    """Dict -> order-preserving ``[[key, value], ...]`` pair list."""
+    return [[k, v] for k, v in d.items()]
+
+
+def from_pairs(items: Iterable, key: Callable = int, value: Callable = None) -> Dict:
+    """Pair list -> dict, coercing keys (default ``int``) and optionally values."""
+    if value is None:
+        return {key(k): v for k, v in items}
+    return {key(k): value(v) for k, v in items}
+
+
+def kv3(d: Dict[Tuple[int, int], int]) -> List[list]:
+    """(a, b) -> v dict (e.g. the LBA map) as ``[[a, b, v], ...]`` triples."""
+    return [[a, b, v] for (a, b), v in d.items()]
+
+
+def from_kv3(items: Iterable) -> Dict[Tuple[int, int], int]:
+    return {(int(a), int(b)): int(v) for a, b, v in items}

@@ -1,0 +1,620 @@
+"""Block store: the persistent layer under both dedup phases (paper §III-B/C).
+
+Models the primary storage stack HPDedup manages:
+
+* **LBA mapping table** — (stream, LBA) -> PBA (NVRAM in the paper).
+* **On-disk fingerprint table** — fingerprint -> list of PBAs holding that
+  content (the post-processing phase scans it; >1 PBA per fingerprint means
+  inline missed a duplicate).
+* **Reference counts** — per-PBA; the garbage collector frees PBAs at 0.
+* **D-LRU data buffer** — SSD staging buffer for recently accessed blocks.
+
+Metrics exposed: live blocks, *peak* blocks (the paper's disk-capacity
+requirement figure, Fig. 7), writes issued to disk.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from typing import Callable, Dict, List, Optional, Tuple
+
+from .fp_index import FingerprintIndex
+from .statetree import from_kv3, from_pairs, kv3, pairs
+
+
+class DLRUBuffer:
+    """D-LRU staging buffer (CacheDedup's D-LRU, used for the SSD data buffer):
+    an LRU over *deduplicated* blocks — keyed by PBA so duplicate content
+    occupies one slot regardless of how many LBAs reference it."""
+
+    def __init__(self, capacity_blocks: int):
+        self.capacity = capacity_blocks
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def access(self, pba: int) -> bool:
+        hit = pba in self._lru
+        if hit:
+            self._lru.move_to_end(pba)
+            self.hits += 1
+        else:
+            self.misses += 1
+            self._lru[pba] = None
+            while len(self._lru) > self.capacity:
+                self._lru.popitem(last=False)
+        return hit
+
+    def invalidate(self, pba: int) -> None:
+        self._lru.pop(pba, None)
+
+    # -- snapshot/restore ------------------------------------------------------
+    def snapshot(self) -> dict:
+        return {"capacity": self.capacity, "lru": list(self._lru), "hits": self.hits,
+                "misses": self.misses}
+
+    def load_snapshot(self, tree: dict) -> None:
+        self.capacity = int(tree["capacity"])
+        self._lru = OrderedDict((int(p), None) for p in tree["lru"])
+        self.hits = int(tree["hits"])
+        self.misses = int(tree["misses"])
+
+
+class BlockStore:
+    """Content store with LBA mapping, fingerprint table and refcounts."""
+
+    def __init__(self, data_buffer_blocks: int = 4096, *, device="cuda"):
+        self.device = device
+        self.lba_map: Dict[Tuple[int, int], int] = {}
+        self.lbas_of_pba: Dict[int, set] = {}  # reverse index for remapping
+        self.fp_table: Dict[int, List[int]] = {}
+        # membership index over fp_table's key set (batched probes for the
+        # serving layer and the cluster; derived, rebuilt on restore)
+        self.fp_index = FingerprintIndex(device=device)
+        # incremental duplicate-candidate set: fingerprints currently stored
+        # at >1 PBA.  Replaces the full fp_table scan per post-processing
+        # pass; ``duplicate_fingerprints`` sorts it so merge order is a
+        # deterministic function of store content (and thus identical
+        # between a live engine and one restored from its snapshot).
+        self._dup_fps: set = set()
+        self.refcount: Dict[int, int] = {}
+        self.fp_of_pba: Dict[int, int] = {}
+        self.buffer = DLRUBuffer(data_buffer_blocks)
+        self._next_pba = 0
+        self.live_blocks = 0
+        self.peak_blocks = 0
+        self.disk_writes = 0
+        # staged columnar write path (batched replay): see stage_new_block
+        self._staged_writes: List[Tuple[int, int]] = []  # (fp, pba)
+        self._staged_dups: List[int] = []  # pba
+        self._reverse_dirty = False
+        # per-stream LBA watermark: strict upper bound over every LBA this
+        # store has mapped (or that the batched replay loop has certified for
+        # staging).  Lets the replay loop prove key-freshness without probing
+        # lba_map per record.  Maintained by _map and _certify-time bulk
+        # updates; an over-approximation is always safe (it only forces the
+        # slow probe).
+        self._lba_watermark: Dict[int, int] = {}
+        # True once any PBA has ever been freed; until then a cached
+        # (fp, pba) pair can never go stale, so run decisions may skip the
+        # TOCTOU revalidation.
+        self._ever_freed = False
+        # reclaim accounting + hook: freed_blocks counts every PBA the GC
+        # releases (overwrite unrefs and post-processing merges alike);
+        # on_free, when set, observes each freed PBA — the serving layer
+        # uses it to drop KV pages, the cluster to meter shard-local
+        # cleanup windows.
+        self.freed_blocks = 0
+        self.on_free: Optional[Callable[[int], None]] = None
+        # -- online GC (epoch/grace-period protocol) ---------------------------
+        # A free splits into a *logical* part (unlink the fingerprint, LBA
+        # reverse entries, refcount row — immediate, so a re-written
+        # fingerprint can never dedup against the dead block) and a
+        # *physical* part (freed_blocks / on_free / the hole joining
+        # _free_pbas).  With ``deferred_reclaim`` on, the physical part of a
+        # free that lands while any epoch is pinned parks in ``_limbo`` until
+        # every pin at or below its epoch tag drains (``collect_limbo``) —
+        # in-flight work that may still hold a reference to the PBA finishes
+        # before the slot is recycled.  Pins are process-local (writes in
+        # flight); epoch/limbo/holes are durable state and are serialized.
+        self.deferred_reclaim = False
+        self.gc_epoch = 0
+        self._epoch_lock = threading.Lock()
+        self._epoch_pins: Dict[int, int] = {}  # epoch -> outstanding pin count
+        self._limbo: List[Tuple[int, int]] = []  # (epoch tag, pba)
+        # physically reclaimed PBA slots (range holes).  ``compact`` closes
+        # them by relocating live blocks downward; only compaction ever
+        # recycles a slot — fresh writes always allocate monotonically.
+        self._free_pbas: List[int] = []
+        self.relocated_blocks = 0
+        # fires after a live block moved old -> new (the serving layer
+        # relocates the matching KV page); state is already updated.
+        self.on_relocate: Optional[Callable[[int, int], None]] = None
+
+    # -- epoch protocol ----------------------------------------------------------
+    def pin_epoch(self) -> int:
+        """Register in-flight work under the current epoch; returns the tag
+        to pass to ``unpin_epoch``.  While any pin at epoch <= t exists,
+        blocks freed at tag t are reclaimed logically but not physically."""
+        with self._epoch_lock:
+            e = self.gc_epoch
+            self._epoch_pins[e] = self._epoch_pins.get(e, 0) + 1
+            return e
+
+    def unpin_epoch(self, epoch: int) -> None:
+        with self._epoch_lock:
+            n = self._epoch_pins.get(epoch, 0) - 1
+            if n > 0:
+                self._epoch_pins[epoch] = n
+            else:
+                self._epoch_pins.pop(epoch, None)
+
+    def advance_epoch(self) -> int:
+        """Open a new grace period: frees from here on carry the new tag, so
+        they outlive every pin taken before the advance."""
+        with self._epoch_lock:
+            self.gc_epoch += 1
+            return self.gc_epoch
+
+    def collect_limbo(self, force: bool = False) -> int:
+        """Physically reclaim parked frees whose grace period drained.
+
+        An entry tagged t is ready when no pin at epoch <= t remains (it can
+        no longer be referenced by in-flight work).  ``force=True`` ignores
+        pins — only valid at a full barrier (finish / resize quiesce), where
+        nothing is in flight by construction.  Returns the reclaim count."""
+        if not self._limbo:
+            return 0
+        with self._epoch_lock:
+            horizon = None if force else min(self._epoch_pins, default=None)
+            if horizon is None:
+                ready, self._limbo = self._limbo, []
+            else:
+                ready = [ent for ent in self._limbo if ent[0] < horizon]
+                if ready:
+                    self._limbo = [ent for ent in self._limbo if ent[0] >= horizon]
+        for _, pba in ready:
+            self._reclaim(pba)
+        return len(ready)
+
+    # -- write path ------------------------------------------------------------
+    def write_new_block(self, stream: int, lba: int, fp: int) -> int:
+        """Write content to a fresh PBA (inline phase found no duplicate)."""
+        pba = self._next_pba
+        self._next_pba += 1
+        lst = self.fp_table.setdefault(fp, [])
+        lst.append(pba)
+        if len(lst) == 1:
+            self.fp_index.add(fp)
+        else:
+            self._dup_fps.add(fp)
+        self.fp_of_pba[pba] = fp
+        self.refcount[pba] = 0
+        self._map(stream, lba, pba)
+        self.live_blocks += 1
+        self.peak_blocks = max(self.peak_blocks, self.live_blocks)
+        self.disk_writes += 1
+        self.buffer.access(pba)
+        return pba
+
+    def map_duplicate(self, stream: int, lba: int, pba: int) -> None:
+        """Point an LBA at an existing PBA (inline dedup hit)."""
+        self._map(stream, lba, pba)
+        self.buffer.access(pba)
+
+    # -- staged columnar write path (batched replay) ---------------------------
+    #
+    # The batched replay loop proves per sub-batch that no (stream, LBA) key is
+    # overwritten (vectorized collision check), which means no refcount can
+    # drop and no PBA can be freed mid-batch.  Under that guarantee the write
+    # path splits into an *eager* part that later records in the same batch
+    # may read (``lba_map`` for reads, ``fp_of_pba`` for the run-decision
+    # TOCTOU guard) and a *deferred* part (``fp_table``/``refcount``/capacity
+    # counters) applied in one pass by ``flush_staged`` before any external
+    # observer (post-processing, reports) can look.  The reverse LBA index is
+    # rebuilt lazily from ``lba_map`` the next time remapping needs it, and
+    # the D-LRU buffer — whose state feeds no report — is modeled only on the
+    # per-record path.
+
+    def stage_new_block(self, stream: int, lba: int, fp: int) -> int:
+        """Batched-path ``write_new_block``; caller guarantees (stream, lba)
+        is not currently mapped."""
+        pba = self._next_pba
+        self._next_pba += 1
+        self.fp_of_pba[pba] = fp
+        self.lba_map[(stream, lba)] = pba
+        self._staged_writes.append((fp, pba))
+        return pba
+
+    def stage_duplicate(self, stream: int, lba: int, pba: int) -> None:
+        """Batched-path ``map_duplicate``; same no-overwrite precondition."""
+        self.lba_map[(stream, lba)] = pba
+        self._staged_dups.append(pba)
+
+    def flush_staged(self) -> None:
+        """Apply deferred accounting for staged writes in one columnar pass."""
+        sw, sd = self._staged_writes, self._staged_dups
+        if not sw and not sd:
+            return
+        if sw:
+            ft = self.fp_table
+            ft_get = ft.get
+            fresh_fps = []
+            dup_add = self._dup_fps.add
+            for fp, pba in sw:
+                lst = ft_get(fp)
+                if lst is None:
+                    ft[fp] = [pba]
+                    fresh_fps.append(fp)
+                else:
+                    lst.append(pba)
+                    dup_add(fp)
+            if fresh_fps:
+                self.fp_index.add_many(fresh_fps)
+            # fresh PBAs start at refcount 1 (the write's own LBA mapping).
+            # Staged PBAs are allocated monotonically, so within one batch
+            # they almost always form one contiguous range — dict.fromkeys
+            # over the range skips materializing the PBA list entirely.
+            p0, p1 = sw[0][1], sw[-1][1]
+            if p1 - p0 + 1 == len(sw):
+                self.refcount.update(dict.fromkeys(range(p0, p1 + 1), 1))
+            else:
+                self.refcount.update(dict.fromkeys([p for _, p in sw], 1))
+            self.live_blocks += len(sw)
+            self.peak_blocks = max(self.peak_blocks, self.live_blocks)
+            self.disk_writes += len(sw)
+        if sd:
+            rc = self.refcount
+            rc_get = rc.get
+            for pba in sd:
+                rc[pba] = rc_get(pba, 0) + 1
+        self._reverse_dirty = True
+        sw.clear()
+        sd.clear()
+
+    def _ensure_reverse(self) -> None:
+        """Rebuild the PBA -> LBA-keys reverse index after staged writes."""
+        if not self._reverse_dirty:
+            return
+        rev: Dict[int, set] = {}
+        for key, pba in self.lba_map.items():
+            s = rev.get(pba)
+            if s is None:
+                rev[pba] = {key}
+            else:
+                s.add(key)
+        self.lbas_of_pba = rev
+        self._reverse_dirty = False
+
+    def _map(self, stream: int, lba: int, pba: int) -> None:
+        key = (stream, lba)
+        old = self.lba_map.get(key)
+        if old == pba:
+            return
+        if old is not None:
+            # overwrite: the reverse index is about to be read/mutated, so a
+            # stale (post-staged-write) index must be rebuilt first.  Fresh
+            # mappings never read it — eager adds to a stale index are
+            # discarded by the next rebuild.
+            if self._reverse_dirty:
+                self._ensure_reverse()
+            self.lbas_of_pba.get(old, set()).discard(key)
+            self._unref(old)
+        self.lba_map[key] = pba
+        self.lbas_of_pba.setdefault(pba, set()).add(key)
+        self.refcount[pba] = self.refcount.get(pba, 0) + 1
+        if lba >= self._lba_watermark.get(stream, 0):
+            self._lba_watermark[stream] = lba + 1
+
+    def unmap(self, stream: int, lba: int) -> Optional[int]:
+        """Drop a key's mapping and unref its PBA (GC may free it).
+
+        The cluster's router uses this as the cross-shard overwrite
+        invalidation: when a key's newest content hashes to a different
+        shard, the old owner must release its stale block.  Returns the
+        unmapped PBA, or ``None`` if the key was not mapped.
+        """
+        key = (stream, lba)
+        pba = self.lba_map.pop(key, None)
+        if pba is None:
+            return None
+        if self._reverse_dirty:
+            self._ensure_reverse()
+        self.lbas_of_pba.get(pba, set()).discard(key)
+        self._unref(pba)
+        return pba
+
+    def _unref(self, pba: int) -> None:
+        rc = self.refcount.get(pba, 0) - 1
+        self.refcount[pba] = rc
+        if rc <= 0:
+            self._free(pba)
+
+    def _free(self, pba: int) -> None:
+        """Logical free: unlink the block from every lookup structure NOW —
+        in particular the fingerprint table/index, so a later write of the
+        same content can never dedup against the dead block — then reclaim
+        the slot physically, or park it in limbo while epochs are pinned."""
+        self._ever_freed = True
+        fp = self.fp_of_pba.pop(pba, None)
+        if fp is not None:
+            lst = self.fp_table.get(fp)
+            if lst:
+                try:
+                    lst.remove(pba)
+                except ValueError:
+                    pass
+                if len(lst) <= 1:
+                    self._dup_fps.discard(fp)
+                if not lst:
+                    del self.fp_table[fp]
+                    self.fp_index.discard(fp)
+        self.refcount.pop(pba, None)
+        self.lbas_of_pba.pop(pba, None)
+        self.buffer.invalidate(pba)
+        self.live_blocks -= 1
+        if self.deferred_reclaim:
+            with self._epoch_lock:
+                if self._epoch_pins:
+                    self._limbo.append((self.gc_epoch, pba))
+                    return
+        self._reclaim(pba)
+
+    def _reclaim(self, pba: int) -> None:
+        """Physical reclaim: the observable free (counter, then hook, so the
+        hook sees the updated count) and the slot becoming a compactable
+        hole."""
+        self.freed_blocks += 1
+        if self.on_free is not None:
+            self.on_free(pba)
+        self._free_pbas.append(pba)
+
+    # -- read path ---------------------------------------------------------------
+    def read(self, stream: int, lba: int) -> Optional[int]:
+        pba = self.lba_map.get((stream, lba))
+        if pba is not None:
+            self.buffer.access(pba)
+        return pba
+
+    # -- membership (FingerprintIndex-backed) --------------------------------------
+    def has_fp(self, fp: int) -> bool:
+        """Is any live block's content fingerprinted ``fp``?"""
+        return fp in self.fp_index
+
+    def contains_fps(self, fps):
+        """Batched fingerprint-table membership — one index launch."""
+        return self.fp_index.contains_many(fps)
+
+    # -- post-processing support ---------------------------------------------------
+    def duplicate_fingerprints(self) -> List[int]:
+        """Fingerprints stored at more than one PBA (inline misses).
+
+        Served from the incremental candidate set — no fp_table scan.  The
+        result is sorted so a budgeted merge pass picks the same victims on
+        a live store and on one restored from its snapshot (the set itself
+        carries no usable order across a restore).
+        """
+        return sorted(self._dup_fps)
+
+    def merge_fingerprint(self, fp: int) -> int:
+        """Collapse all PBAs of ``fp`` onto the canonical (first) PBA.
+
+        Returns the number of disk blocks reclaimed.
+        """
+        pbas = self.fp_table.get(fp, [])
+        if len(pbas) <= 1:
+            return 0
+        self._ensure_reverse()
+        canonical, extras = pbas[0], list(pbas[1:])
+        canon_keys = self.lbas_of_pba.setdefault(canonical, set())
+        reclaimed = 0
+        for p in extras:
+            for key in list(self.lbas_of_pba.get(p, ())):
+                self.lba_map[key] = canonical
+                canon_keys.add(key)
+                self.refcount[canonical] = self.refcount.get(canonical, 0) + 1
+                self.refcount[p] -= 1
+            self.lbas_of_pba[p] = set()
+            if self.refcount.get(p, 0) <= 0:
+                self._free(p)
+                reclaimed += 1
+        return reclaimed
+
+    # -- online GC: compaction -------------------------------------------------------
+    def compact(self, max_moves: Optional[int] = None) -> Dict[int, int]:
+        """Close PBA range holes by relocating live blocks downward.
+
+        The highest live blocks move into the lowest reclaimed slots
+        (classic defragmentation, budgeted by ``max_moves`` so foreground
+        traffic can interleave), every lookup structure follows the move
+        (fingerprint-table row, PBA metadata, refcount, LBA mappings via the
+        reverse index), and trailing holes are returned to the allocator by
+        lowering ``_next_pba``.  Slots in limbo are *not* holes — their
+        grace period hasn't drained — so compaction never touches them.
+        Only compaction recycles PBA slots; fresh writes stay monotonic.
+
+        Returns ``{old_pba: new_pba}`` for every relocated block, so the
+        engine layer can patch decision state that carries PBAs (fingerprint
+        caches, pending duplicate runs) and keep inline decisions bit-exact
+        with a never-compacted run.
+        """
+        relocations: Dict[int, int] = {}
+        if not self._free_pbas:
+            return relocations
+        assert not self._staged_writes and not self._staged_dups, (
+            "compact() requires flushed staged writes"
+        )
+        self._ensure_reverse()
+        holes = sorted(self._free_pbas)
+        live_desc = sorted(self.fp_of_pba, reverse=True)
+        hi = 0
+        for old in live_desc:
+            if max_moves is not None and len(relocations) >= max_moves:
+                break
+            if hi >= len(holes):
+                break
+            new = holes[hi]
+            if new >= old:
+                break  # every remaining hole sits above every remaining block
+            hi += 1
+            self._relocate(old, new)
+            relocations[old] = new
+        # vacated slots become holes at the top of the range; trailing holes
+        # (and only those — a limbo slot below them blocks the trim) shrink
+        # the allocated span so fresh writes reuse the space
+        hole_set = set(holes[hi:])
+        hole_set.update(relocations)
+        while self._next_pba - 1 in hole_set:
+            self._next_pba -= 1
+            hole_set.remove(self._next_pba)
+        self._free_pbas = sorted(hole_set)
+        return relocations
+
+    def _relocate(self, old: int, new: int) -> None:
+        """Move one live block's identity from slot ``old`` to ``new``."""
+        fp = self.fp_of_pba.pop(old)
+        self.fp_of_pba[new] = fp
+        lst = self.fp_table[fp]
+        lst[lst.index(old)] = new  # in place: canonical order is positional
+        self.refcount[new] = self.refcount.pop(old)
+        keys = self.lbas_of_pba.pop(old, set())
+        for key in keys:
+            self.lba_map[key] = new
+        self.lbas_of_pba[new] = keys
+        self.buffer.invalidate(old)
+        self.relocated_blocks += 1
+        if self.on_relocate is not None:
+            self.on_relocate(old, new)
+
+    # -- shard migration support ---------------------------------------------------
+    def extract_fp(self, fp: int) -> Optional[List[int]]:
+        """Pop ``fp``'s whole fingerprint-table row (resharding moves it to
+        another shard's store); keeps the index and candidate set coherent."""
+        pbas = self.fp_table.pop(fp, None)
+        if pbas is not None:
+            self.fp_index.discard(fp)
+            self._dup_fps.discard(fp)
+        return pbas
+
+    def absorb_fp(self, fp: int, pbas: List[int]) -> None:
+        """Append a migrated row to ``fp``'s fingerprint-table entry."""
+        lst = self.fp_table.setdefault(fp, [])
+        lst.extend(pbas)
+        if lst:
+            self.fp_index.add(fp)
+        if len(lst) > 1:
+            self._dup_fps.add(fp)
+
+    # -- snapshot/restore ----------------------------------------------------------
+    def snapshot(self) -> dict:
+        """Full store state as a JSON-safe tree (see ``core.snapshot``).
+
+        Valid at any batch boundary: staged columnar writes are flushed first
+        (idempotent) so the deferred accounting is folded in.  The reverse
+        LBA index is *not* serialized — it is a pure function of ``lba_map``
+        and is rebuilt lazily after restore.  The ``on_free`` reclaim hook is
+        process-local and must be re-attached by its owner (the serving
+        layer does this in ``DedupKVServer.load_state``).
+        """
+        self.flush_staged()
+        return {
+            "lba_map": kv3(self.lba_map),
+            "fp_table": [[fp, list(pbas)] for fp, pbas in self.fp_table.items()],
+            "refcount": pairs(self.refcount),
+            "fp_of_pba": pairs(self.fp_of_pba),
+            "next_pba": self._next_pba,
+            "live_blocks": self.live_blocks,
+            "peak_blocks": self.peak_blocks,
+            "disk_writes": self.disk_writes,
+            "freed_blocks": self.freed_blocks,
+            "ever_freed": self._ever_freed,
+            "lba_watermark": pairs(self._lba_watermark),
+            "buffer": self.buffer.snapshot(),
+            # online-GC state: limbo entries keep their epoch tag so a restore
+            # mid-grace-period resumes the exact same drain schedule.  Epoch
+            # *pins* are process-local (a pin is a live in-flight write) and
+            # are never serialized — a snapshot is taken at a batch boundary
+            # where no write is in flight.
+            "gc": {
+                "epoch": self.gc_epoch,
+                "limbo": [[e, p] for e, p in self._limbo],
+                "free_pbas": list(self._free_pbas),
+                "deferred": self.deferred_reclaim,
+                "relocated": self.relocated_blocks,
+            },
+        }
+
+    def load_snapshot(self, tree: dict) -> None:
+        self.lba_map = from_kv3(tree["lba_map"])
+        self.fp_table = {int(fp): [int(p) for p in pbas] for fp, pbas in tree["fp_table"]}
+        # derived structures: rebuilt from the serialized table, never stored
+        self.fp_index = FingerprintIndex(self.fp_table, device=self.device)
+        self._dup_fps = {fp for fp, pbas in self.fp_table.items() if len(pbas) > 1}
+        self.refcount = from_pairs(tree["refcount"], value=int)
+        self.fp_of_pba = from_pairs(tree["fp_of_pba"], value=int)
+        self._next_pba = int(tree["next_pba"])
+        self.live_blocks = int(tree["live_blocks"])
+        self.peak_blocks = int(tree["peak_blocks"])
+        self.disk_writes = int(tree["disk_writes"])
+        self.freed_blocks = int(tree["freed_blocks"])
+        self._ever_freed = bool(tree["ever_freed"])
+        self._lba_watermark = from_pairs(tree["lba_watermark"], value=int)
+        self.buffer.load_snapshot(tree["buffer"])
+        self._staged_writes = []
+        self._staged_dups = []
+        self.lbas_of_pba = {}
+        self._reverse_dirty = True  # rebuilt lazily from lba_map
+        gc = tree.get("gc") or {}
+        self.gc_epoch = int(gc.get("epoch", 0))
+        self._limbo = [(int(e), int(p)) for e, p in gc.get("limbo", [])]
+        self._free_pbas = [int(p) for p in gc.get("free_pbas", [])]
+        self.deferred_reclaim = bool(gc.get("deferred", False))
+        self.relocated_blocks = int(gc.get("relocated", 0))
+        self._epoch_pins = {}
+
+    # -- invariants (used by property tests) --------------------------------------
+    def lookup_fp(self, fp: int) -> Optional[int]:
+        pbas = self.fp_table.get(fp)
+        return pbas[0] if pbas else None
+
+    def unique_fingerprints(self) -> int:
+        return len(self.fp_table)
+
+    def check_consistency(self) -> None:
+        """Raise AssertionError if internal tables disagree."""
+        assert not self._staged_writes and not self._staged_dups, "unflushed staged writes"
+        self._ensure_reverse()
+        assert set(self.fp_index) == set(self.fp_table), "fp_index drifted from fp_table"
+        self.fp_index.check_consistency()
+        derived_dups = {fp for fp, pbas in self.fp_table.items() if len(pbas) > 1}
+        assert self._dup_fps == derived_dups, "duplicate-candidate set drifted"
+        live = set()
+        for fp, pbas in self.fp_table.items():
+            assert len(pbas) == len(set(pbas)), f"dup PBAs for fp {fp}"
+            for p in pbas:
+                assert self.fp_of_pba.get(p) == fp
+                live.add(p)
+        assert len(live) == self.live_blocks, (len(live), self.live_blocks)
+        refs: Dict[int, int] = {}
+        for key, pba in self.lba_map.items():
+            assert pba in live, f"LBA maps to freed PBA {pba}"
+            assert key in self.lbas_of_pba.get(pba, ()), f"reverse index missing {key}"
+            refs[pba] = refs.get(pba, 0) + 1
+        for p in live:
+            assert self.refcount.get(p, 0) == refs.get(p, 0), (
+                p,
+                self.refcount.get(p),
+                refs.get(p),
+            )
+        # GC bookkeeping: holes and limbo slots are dead, unique, and
+        # disjoint.  (No span bound: a hole left by freeing a block migrated
+        # in from another shard carries that shard's PBA namespace, which
+        # can sit numerically above the local allocator.)
+        holes = list(self._free_pbas)
+        limbo = [p for _, p in self._limbo]
+        assert len(set(holes)) == len(holes), "duplicate hole PBAs"
+        assert len(set(limbo)) == len(limbo), "duplicate limbo PBAs"
+        assert not set(holes) & set(limbo), "PBA both hole and limbo"
+        for p in holes + limbo:
+            assert p not in live, f"live PBA {p} marked reclaimed"

@@ -1,0 +1,296 @@
+"""Unseen estimation of distinct elements in an estimation interval (paper §IV-A, Alg. 1).
+
+Given the occurrence counts of a size-``k`` uniform (reservoir) sample drawn
+from the ``N`` write requests of a stream's estimation interval, estimate the
+number of *distinct* fingerprints ``u`` among those ``N`` writes.  The
+stream's Local Duplicate Set Size is then ``LDSS = N - u``.
+
+Model (the paper's Algorithm 1, following Valiant & Valiant NeurIPS'13 and
+Harnik et al. FAST'16): let ``H[c]`` be the number of distinct fingerprints
+with exactly ``c`` copies among the ``N`` interval writes.  Reservoir-sampling
+``k`` of ``N`` positions sends a ``c``-copy fingerprint to ``j`` sampled
+copies with probability ``Binom(c, k/N).pmf(j)`` (hypergeometric in the exact
+finite-window case; binomial for ``c << N``).  So the expected sample FFH is
+``f' = T @ H`` with the *binomial* transformation matrix
+``T[j, c] = Binom(c, k/N).pmf(j)`` — exactly the matrix the paper's
+Algorithm 1 builds.  We solve for ``H >= 0`` minimizing the paper's
+``1/sqrt(f_j + 1)``-weighted distance between observed and expected FFHs,
+under the write-mass constraint ``sum_c c * H[c] = N`` (rare region only; see
+below), and return ``u = sum_c H[c]``.
+
+Structure:
+
+1. Split the sample FFH into an *empirical* region — isolated and/or
+   high-frequency entries, where ``c ~= j * N / k`` and the count itself are
+   already accurate — and a *rare* region (``j <= RARE_BINS``).
+2. Solve the rare-region program over a copy-count grid.
+3. ``u`` = empirical distinct + ``sum(H_rare)``, clipped to physical bounds.
+
+Two solvers for step 2:
+
+* ``unseen_estimate_from_counts`` — weighted-L1 LP via scipy HiGHS: the
+  oracle, faithful to Algorithm 1.
+* ``unseen_estimate_torch_from_counts`` — weighted least squares with
+  multiplicative (Lee–Seung) updates + mass re-projection in float32, all M
+  streams solved together as one batched tensor program.  Held against the
+  reference package's float32 solver in ``tests/test_torch_engine.py``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import numpy as np
+import scipy.optimize
+import scipy.stats
+
+import torch
+
+RARE_BINS = 40      # sample frequencies above this are always treated empirically
+GRID_FACTOR = 1.12  # geometric copy-count grid ratio beyond the integer head
+_INT_HEAD = 24      # copy-count grid is exact integers up to here
+_GRID = 80      # static copy-count grid size for the batched solver
+_ITERS = 300
+
+
+# ---------------------------------------------------------------------------
+# Shared host-side preparation.
+# ---------------------------------------------------------------------------
+
+
+def split_sample(counts: np.ndarray) -> Tuple[float, float, np.ndarray, float]:
+    """Split sample occurrence counts into empirical + rare-LP regions.
+
+    Args:
+      counts: occurrence count of each distinct fingerprint in the sample.
+
+    Returns:
+      ``(emp_distinct, lp_mass, rare_ffh[RARE_BINS], k)`` where ``lp_mass`` is
+      the fraction of sample mass left to the solver and ``rare_ffh[j-1]``
+      counts distinct fingerprints seen exactly ``j`` times.
+    """
+    counts = np.asarray(counts, dtype=np.int64)
+    k = float(counts.sum())
+    if k <= 0:
+        return 0.0, 0.0, np.zeros(RARE_BINS), 0.0
+
+    top = int(counts.max())
+    f = np.bincount(counts, minlength=top + 1)[1:].astype(np.float64)  # f[j-1] = FFH_j
+
+    # unseen.m isolation rule: frequency j is empirical when the FFH mass in
+    # the +/- ceil(sqrt(j)) window around it is < sqrt(j).
+    emp = np.zeros(top, dtype=bool)
+    cum = np.concatenate([[0.0], np.cumsum(f)])
+    for j in range(1, top + 1):
+        if f[j - 1] <= 0:
+            continue
+        w = math.ceil(math.sqrt(j))
+        lo, hi = max(1, j - w), min(top, j + w)
+        if cum[hi] - cum[lo - 1] < math.sqrt(j):
+            emp[j - 1] = True
+    emp[RARE_BINS:] = True  # high frequencies: the empirical estimate is accurate
+
+    j_idx = np.arange(1, top + 1, dtype=np.float64)
+    emp_distinct = float(f[emp].sum())
+    emp_mass = float(np.dot(j_idx[emp] / k, f[emp]))
+    rare = np.where(emp, 0.0, f)[:RARE_BINS]
+    rare_ffh = np.zeros(RARE_BINS)
+    rare_ffh[: rare.size] = rare
+    lp_mass = max(0.0, 1.0 - emp_mass)
+    return emp_distinct, lp_mass, rare_ffh, k
+
+
+def _copy_grid(p: float, n: float) -> np.ndarray:
+    """Copy-count grid: integers 1.._INT_HEAD, then geometric up to c_max."""
+    c_max = max(_INT_HEAD + 1.0, min(n, 1.5 * RARE_BINS / max(p, 1e-9)))
+    head = np.arange(1.0, _INT_HEAD + 1.0)
+    tail = []
+    c = float(_INT_HEAD)
+    while c * GRID_FACTOR < c_max:
+        c *= GRID_FACTOR
+        tail.append(round(c))
+    grid = np.unique(np.concatenate([head, np.asarray(tail, dtype=np.float64), [c_max]]))
+    return grid
+
+
+# ---------------------------------------------------------------------------
+# Reference implementation (scipy LP) — the oracle.
+# ---------------------------------------------------------------------------
+
+
+def unseen_estimate_from_counts(counts: np.ndarray, n: int) -> float:
+    """Estimate distinct elements among the ``n`` interval writes."""
+    counts = np.asarray(counts, dtype=np.int64)
+    emp_distinct, lp_mass, rare_ffh, k = split_sample(counts)
+    if k <= 0:
+        return 0.0
+    seen_distinct = float(np.count_nonzero(counts))
+    n = max(int(n), int(k))
+    p = min(k / n, 1.0)
+    if p >= 0.999:  # sampled (almost) everything: the sample is the interval
+        return seen_distinct
+    if lp_mass <= 1e-12 or not np.any(rare_ffh > 0):
+        return float(min(n, max(emp_distinct, seen_distinct)))
+
+    nbins = RARE_BINS
+    c_grid = _copy_grid(p, float(n))
+    G = c_grid.size
+    j = np.arange(1, nbins + 1)[:, None]
+    # binomial transformation matrix T[j, c] (continuous-c extension)
+    T = scipy.stats.binom.pmf(j, np.maximum(c_grid[None, :], j), p) * (c_grid[None, :] >= j)
+    # exact for integer c; for the geometric tail use floor(c) (c >> j there)
+    T = scipy.stats.binom.pmf(j, np.floor(c_grid[None, :]), p)
+
+    w = 1.0 / np.sqrt(rare_ffh + 1.0)
+    # variables: [H (G), s+ (nbins), s- (nbins)];  |T H - f| <= s+ + s-
+    c_obj = np.concatenate([np.zeros(G), w, w])
+    A_ub = np.block(
+        [
+            [T, -np.eye(nbins), np.zeros((nbins, nbins))],
+            [-T, np.zeros((nbins, nbins)), -np.eye(nbins)],
+        ]
+    )
+    b_ub = np.concatenate([rare_ffh, -rare_ffh])
+    x_mass = c_grid / n  # per-item probability mass of a c-copy fingerprint
+    A_eq = np.concatenate([x_mass, np.zeros(2 * nbins)])[None, :]
+    b_eq = np.array([lp_mass])
+
+    scale = np.concatenate([x_mass, np.ones(2 * nbins)])  # column conditioning
+    res = scipy.optimize.linprog(
+        c_obj,
+        A_ub=A_ub / scale[None, :],
+        b_ub=b_ub,
+        A_eq=A_eq / scale[None, :],
+        b_eq=b_eq,
+        bounds=[(0, None)] * (G + 2 * nbins),
+        method="highs",
+    )
+    if not res.success:  # degenerate sample; fall back to the empirical count
+        return float(min(n, emp_distinct + float(np.sum(rare_ffh))))
+    h = res.x[:G] / x_mass
+
+    distinct = emp_distinct + float(np.sum(h))
+    return float(min(float(n), max(distinct, seen_distinct)))
+
+
+def unseen_estimate_ref(f: np.ndarray, n: int) -> float:
+    """FFH-input convenience wrapper around ``unseen_estimate_from_counts``."""
+    f = np.asarray(f, dtype=np.int64).ravel()
+    counts = np.repeat(np.arange(1, f.size + 1), f)
+    return unseen_estimate_from_counts(counts, n)
+
+
+# ---------------------------------------------------------------------------
+# Batched torch implementation — one call estimates every stream.
+# ---------------------------------------------------------------------------
+
+
+def _binom_pmf(j, c, p):
+    """Continuous-c binomial pmf via lgamma; 0 where c < j."""
+    p = torch.clamp(p, 1e-9, 1.0 - 1e-9)
+    valid = c >= j
+    c_safe = torch.maximum(c, j)
+    logpmf = (
+        torch.lgamma(c_safe + 1.0)
+        - torch.lgamma(j + 1.0)
+        - torch.lgamma(c_safe - j + 1.0)
+        + j * torch.log(p)
+        + (c_safe - j) * torch.log1p(-p)
+    )
+    return torch.where(valid, torch.exp(logpmf), torch.zeros_like(logpmf))
+
+
+def _solve_rare_batch(rare_ffh, lp_mass, k, n):
+    """Batched multiplicative-update NNLS solve of the rare-region program.
+
+    rare_ffh: (M, RARE_BINS) float32; lp_mass, k, n: (M,) float32 tensors on
+    one device.  Returns (M,) estimated rare-region distinct counts (sum of
+    H).  The stream batch is the leading dimension of every tensor and the
+    ``_ITERS`` update steps are a plain loop.
+    """
+    dev = rare_ffh.device
+    f32 = torch.float32
+    k1 = torch.clamp(k, min=1.0)
+    n1 = torch.maximum(n, k1)
+    p = (k1 / n1)[:, None, None]  # (M, 1, 1)
+    j = torch.arange(1, RARE_BINS + 1, dtype=f32, device=dev)
+    # static-size copy-count grid: integer head + geometric tail, per stream
+    c_max = torch.clamp(torch.minimum(n1, 1.5 * RARE_BINS / p[:, 0, 0]), min=_INT_HEAD + 1.0)
+    head = torch.arange(1.0, _INT_HEAD + 1.0, dtype=f32, device=dev).expand(k.shape[0], -1)
+    t = torch.arange(_GRID - _INT_HEAD, dtype=f32, device=dev)
+    ratio = (c_max / _INT_HEAD) ** (1.0 / (_GRID - _INT_HEAD - 1))
+    tail = _INT_HEAD * ratio[:, None] ** (t[None, :] + 1.0)
+    c = torch.cat([head, tail], dim=1)  # (M, _GRID)
+    T = _binom_pmf(j[None, :, None], c[:, None, :], p)  # (M, RARE_BINS, G)
+    x_mass = c / n1[:, None]
+    wgt = 1.0 / (rare_ffh + 1.0)  # squared-loss analogue of the 1/sqrt(f+1) L1 weight
+    TtW = (T * wgt[:, :, None]).transpose(1, 2)  # (M, G, RARE_BINS)
+
+    TtWf = torch.bmm(TtW, rare_ffh[:, :, None])[:, :, 0]
+    mass = lp_mass[:, None]
+    h = mass / torch.clamp(x_mass.sum(dim=1, keepdim=True), min=1e-30) * torch.ones_like(c)
+    for _ in range(_ITERS):
+        TtWTh = torch.bmm(TtW, torch.bmm(T, h[:, :, None]))[:, :, 0]
+        h = h * TtWf / torch.clamp(TtWTh, min=1e-20)
+        # re-project onto the mass constraint x . h = mass
+        h = h * mass / torch.clamp((x_mass * h).sum(dim=1, keepdim=True), min=1e-30)
+    est = h.sum(dim=1)
+    return torch.where(lp_mass > 1e-12, est, torch.zeros_like(est))
+
+
+def unseen_estimate_torch_from_counts(
+    counts_list: Sequence[np.ndarray], n_batch: np.ndarray, *, device="cuda"
+) -> np.ndarray:
+    """Batched distinct-count estimates (host split + one batched solve).
+
+    Args:
+      counts_list: list of M occurrence-count arrays (ragged).
+      n_batch: (M,) interval write counts.
+      device: where the float32 solve runs.
+    Returns:
+      (M,) estimated distinct counts.
+    """
+    M = len(counts_list)
+    emp = np.zeros(M)
+    mass = np.zeros(M)
+    rare = np.zeros((M, RARE_BINS), dtype=np.float32)
+    ks = np.zeros(M)
+    seen = np.zeros(M)
+    for i, cnt in enumerate(counts_list):
+        emp[i], mass[i], rare[i], ks[i] = split_sample(cnt)
+        seen[i] = np.count_nonzero(cnt)
+    n_batch = np.maximum(np.asarray(n_batch, dtype=np.float64), ks)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)
+
+    rare_est = _solve_rare_batch(f32(rare), f32(mass), f32(ks), f32(n_batch))
+    rare_est = rare_est.cpu().numpy().astype(np.float64)
+    # sampled-everything streams are exact
+    exact = ks >= 0.999 * n_batch
+    distinct = np.where(exact, seen, emp + rare_est)
+    return np.clip(distinct, seen, n_batch)
+
+
+def ldss_from_counts(
+    counts: np.ndarray, n_writes: int, ref: bool = True, *, device="cuda"
+) -> float:
+    """LDSS_i = N_i - u_i (paper §IV-A).  ``device`` is where the float32
+    solve runs when ``ref`` is false."""
+    if ref:
+        u = unseen_estimate_from_counts(counts, n_writes)
+    else:
+        u = float(
+            unseen_estimate_torch_from_counts([counts], np.asarray([n_writes]), device=device)[0]
+        )
+    return float(max(0.0, n_writes - u))
+
+
+def ldss_batch(
+    counts_list: Sequence[np.ndarray], n_writes: np.ndarray, *, device="cuda"
+) -> np.ndarray:
+    """Batched LDSS for all streams in one float32 solve on ``device``."""
+    n_writes = np.asarray(n_writes, dtype=np.float64)
+    u = unseen_estimate_torch_from_counts(counts_list, n_writes, device=device)
+    return np.maximum(0.0, n_writes - u)

@@ -8,6 +8,12 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips inside the test when none is present"
+    )
+
+
 def require_hypothesis():
     """Guard for property-test files: skip locally, hard-fail in CI.
 
