@@ -30,9 +30,28 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   just after: every kernel must have run on the main path.
                   The batched probes answered by the host set instead of
                   the table are counted beside them.
-* ``kernels``     one object per kernel: launches on the main path, largest
-                  disagreement with its plain version (exact: 0), times, and
-                  the least time the card could take for the same work.
+* ``cdc_kernels`` the Gear candidate kernel against its plain version on
+                  4,096 random haloed rows at avg_size 256, 1,024 and 4,096,
+                  and the fused chunk gather + fingerprint kernel against its
+                  plain version on chunks of every start phase, length 1 and
+                  max_size, crossing rows, reaching before the payload's
+                  first byte and past its last; bit for bit.  The golden cases of
+                  ``tests/golden/cdc_digests.json`` through the device backend.
+* ``cdc``         the byte path at a realistic size: 32 VM images of 32 MiB
+                  re-ingested in 3 edited snapshot rounds (about 4 GiB),
+                  ``ContentDefinedChunker().batch_from_buffers`` once per
+                  round (about 1 GiB each, ``lba_next`` carried), then the
+                  chunk trace through ``HPDedup`` on the card and on the host,
+                  whose reports must be equal.  The host numpy backend must
+                  give the same ends and fingerprints on two sampled buffers,
+                  and the byte dup ratio must lie inside ``analytic_bounds``.
+                  Launch counts are zeroed just before the path and read just
+                  after: the CDC kernels and the index kernels must have run.
+                  Then the device time of each CDC kernel at one round's shapes.
+* ``kernels``     one object per kernel: launches on the main paths (replay
+                  and cdc, summed), largest disagreement with its plain
+                  version (exact: 0), times, and the least time the card could
+                  take for the same work.
 
 The next-to-last line is ``nvidia-smi``'s name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
@@ -55,37 +74,64 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM published rates (NVIDIA's data sheet, at the 700 W limit):
-# 3.35 TB/s of device memory.  The sheet gives no 32-bit integer rate: an
-# SM issues at most 4 warp instructions per clock (128 thread operations),
-# at most 64 on the FMA pipe (integer multiplies) and 64 on the ALU pipe
-# (logic, shifts, adds); 132 SMs at the 1.98 GHz boost clock.
+# 3.35 TB/s of device memory.  The sheet gives no 32-bit integer rate.  The
+# CUDA programming guide's throughput table (compute capability 9.0) gives
+# 64 results per SM per clock for each 32-bit integer instruction class;
+# Hopper runs integer multiply-adds (IMAD) on the FMA pipe and logic, shifts,
+# compares and byte moves on the ALU pipe, 64 lanes each, and issues at most
+# 4 warp instructions (128 thread operations) per SM per clock in all.
+# 132 SMs at the 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 128 * 1.98e9
+SM_CLOCKS_PER_S = 132 * 1.98e9
+ALU_OPS_PER_S = 64 * SM_CLOCKS_PER_S
+BOTH_PIPES_OPS_PER_S = 128 * SM_CLOCKS_PER_S
 
-# The block hash's own integer operations, counted by hand from its
-# definition (``fingerprint_torch``), for each of the 4 key sets:
-# per word, xor with the lane key, multiply by P1, shift and xor, multiply by
-# P2, multiply by the lane weight and add into the lane sum (7); per 128-word
-# chunk, the fold (multiply by P3, add, rotate as shift/shift/or, multiply by
-# P1, xor: 7); per block, the length xor and the avalanche (3 shift-xors, 2
-# multiplies: 9).
-FP_OPS_PER_WORD, FP_OPS_PER_CHUNK, FP_OPS_PER_BLOCK = 4 * 7, 4 * 7, 4 * 9
+# Integer instructions counted by hand from each function's definition, as
+# (ALU, IMAD) pairs: a shift-xor is a shift and an xor (2 ALU), a multiply
+# and a multiply-add are one IMAD each, a rotate is one funnel shift.
+# The block hash (``fingerprint_torch``), for the 4 key sets together: per
+# word, xor with the lane key, shift and xor (3 ALU), multiply by P1, by P2,
+# and by the lane weight added into the lane sum (3 IMAD); per 128-word
+# group, the fold: rotate, xor (2 ALU), multiply-add by P3, multiply by P1
+# (2 IMAD); per block, the length xor and 3 shift-xors (7 ALU) and 2
+# multiplies.
+FP_OPS_PER_WORD = (4 * 3, 4 * 3)
+FP_OPS_PER_GROUP = (4 * 2, 4 * 2)
+FP_OPS_PER_BLOCK = (4 * 7, 4 * 2)
+# The Gear candidates, per payload byte: take the byte (1 ALU), the GEAR mix
+# (3 shift-xors, 6 ALU; the multiply-add and 2 multiplies, 3 IMAD), the
+# window as the recurrence h = 2h + g (1 IMAD), the mask test and the flag
+# bit (2 ALU).
+CDC_OPS_PER_BYTE = (9, 4)
 # A spin of this many clocks (~0.5 ms) keeps the stream busy while the host
 # enqueues the launch that ``device_ms`` times.
 SPIN_CYCLES = 1_000_000
+# The cdc phase's VM images: 32 streams of this base size, 3 edited rounds.
+CDC_BASE_BYTES = 32 << 20
 
 REPLACES = {
     "fingerprint": "src/repro/kernels/fingerprint.py:113",
     "fp_probe": "src/repro/kernels/fp_index.py:181",
     "fp_insert": "src/repro/kernels/fp_index.py:277",
     "fp_remove": "src/repro/kernels/fp_index.py:350",
+    "cdc_candidates": "src/repro/kernels/cdc.py:112",
+    "chunk_fingerprint": "src/repro/kernels/ops.py:129",
 }
 SOURCES = {
     "fingerprint": "src/repro_torch/csrc/fingerprint.cu",
     "fp_probe": "src/repro_torch/csrc/fp_index.cu",
     "fp_insert": "src/repro_torch/csrc/fp_index.cu",
     "fp_remove": "src/repro_torch/csrc/fp_index.cu",
+    "cdc_candidates": "src/repro_torch/csrc/cdc.cu",
+    "chunk_fingerprint": "src/repro_torch/csrc/cdc.cu",
 }
+KERNELS = tuple(SOURCES)
+
+
+def ops_ms(alu: float, imad: float) -> float:
+    """The least time for ``alu`` ALU-pipe and ``imad`` FMA-pipe integer
+    instructions: the ALU pipe's share, or the issue limit of both."""
+    return max(alu / ALU_OPS_PER_S, (alu + imad) / BOTH_PIPES_OPS_PER_S) * 1e3
 
 
 def emit(phase: str, **fields) -> None:
@@ -210,8 +256,9 @@ def phase_fingerprint(dev, results: dict) -> None:
     per_call_ms = cuda_ms(lambda: fingerprint(x), reps=50)
     plain_ms = cuda_ms(lambda: fingerprint_torch(x), reps=3, warm=1)
     bytes_moved = b * w * 4 + b * 16
-    ops_needed = b * (w * FP_OPS_PER_WORD + w // 128 * FP_OPS_PER_CHUNK + FP_OPS_PER_BLOCK)
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops_needed / INT32_OPS_PER_S * 1e3
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ms(*(b * (w * pw + w // 128 * pg + pb)
+                     for pw, pg, pb in zip(FP_OPS_PER_WORD, FP_OPS_PER_GROUP, FP_OPS_PER_BLOCK)))
     results["fingerprint"] = dict(
         max_abs_err=max(err, e), ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
@@ -455,8 +502,8 @@ def phase_replay(dev, results: dict, requests: int, seed: int) -> None:
     launches = dict(_build.LAUNCHES)
     routes = dict(fp_index.PROBE_ROUTES)
     peak = torch.cuda.max_memory_allocated()
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
+    for name in ("fingerprint", "fp_probe", "fp_insert", "fp_remove"):
+        check(launches[name] > 0, f"kernel {name} never launched on the replay path")
 
     t0 = time.perf_counter()
     host = HPDedup(cache_entries=32768, device="cpu")
@@ -476,7 +523,7 @@ def phase_replay(dev, results: dict, requests: int, seed: int) -> None:
     host._seen_fps.check_consistency()
     card.store.check_consistency()
     for name, n in launches.items():
-        results[name]["launches"] = n
+        results.setdefault(name, {}).setdefault("launches_by_path", {})["replay"] = n
     emit("replay", workload="A", streams=len(streams), requests=int(trace.size),
          writes=int(writes.size), unique_fps=int(np.unique(trace_fps).size), seed=seed,
          generate_s=gen_s, hash_s=hash_s, replay_card_s=card_s,
@@ -485,6 +532,206 @@ def phase_replay(dev, results: dict, requests: int, seed: int) -> None:
          final_disk_blocks=rep_card.final_disk_blocks, peak_disk_blocks=rep_card.peak_disk_blocks,
          reports_equal=True, launches=launches, probe_routes=routes, max_memory_allocated=peak,
          index_capacity={n: i.table_stats()["capacity"] for n, i in indexes.items()})
+
+
+def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
+
+
+def phase_cdc_kernels(dev, results: dict) -> None:
+    from repro_torch.core import ContentDefinedChunker
+    from repro_torch.kernels.cdc import SEG_BYTES, cdc_candidates, cdc_candidates_torch
+    from repro_torch.kernels.ops import chunk_fingerprint, chunk_fingerprint_torch
+    from repro_torch.kernels.ref import cdc_golden_buffer
+
+    rng = np.random.default_rng(3)
+    r, n_chunks = 4096, 20_000
+    x = rng.integers(0, 2**32, size=(r, 520), dtype=np.uint32)
+    x[0], x[1] = 0, 0xFFFFFFFF  # zero bytes (GEAR[0] != 0) and all-ones bytes
+    rows = torch.from_numpy(x.view(np.int32)).to(dev)
+    cand_err = 0
+    for avg in (256, 1024, 4096):
+        e = _max_err(cdc_candidates(rows, avg), cdc_candidates_torch(rows, avg))
+        check(e == 0, f"cdc_candidates kernel != plain at avg_size {avg}")
+        cand_err = max(cand_err, e)
+
+    total = r * SEG_BYTES
+    chunk_err = 0
+    for w_pad in (1024, 4096):
+        max_size = 4 * w_pad
+        lens = rng.integers(1, max_size + 1, size=n_chunks)
+        starts = rng.integers(0, total - max_size, size=n_chunks)
+        # every start phase mod 4, length 1 and max_size, the payload's ends;
+        # bytes before offset 0 and past the payload read as zero
+        lens[:11] = [1, max_size, 2, 3, 4, 5, max_size, 5, 7, max_size, max_size]
+        starts[:11] = [0, 1, 2, 3, 2046, 2047, total - max_size, total - 5, -3, -2049,
+                       total - 1001]
+        st = torch.from_numpy(starts.astype(np.int64)).to(dev)
+        ln = torch.from_numpy(lens.astype(np.int32)).to(dev)
+        e = _max_err(chunk_fingerprint(rows, st, ln, w_pad),
+                     chunk_fingerprint_torch(rows, st, ln, w_pad))
+        check(e == 0, f"chunk_fingerprint kernel != plain at w_pad {w_pad}")
+        chunk_err = max(chunk_err, e)
+
+    with open(os.path.join(ROOT, "tests", "golden", "cdc_digests.json")) as f:
+        golden = json.load(f)
+    ck = ContentDefinedChunker(*golden["cfg"], device=dev)
+    for case in golden["cases"]:
+        ends, fps = ck.chunk_fingerprints(cdc_golden_buffer(case["name"], case["n"], case["salt"]))
+        check(ends.tolist() == case["ends"], f"golden CDC ends {case['name']} {case['n']}")
+        check([f"{int(v):016x}" for v in fps] == case["fp64_hex"],
+              f"golden CDC fingerprints {case['name']} {case['n']}")
+    results.setdefault("cdc_candidates", {})["max_abs_err"] = cand_err
+    results.setdefault("chunk_fingerprint", {})["max_abs_err"] = chunk_err
+    emit("cdc_kernels", rows=r, avg_sizes=[256, 1024, 4096], chunks=n_chunks,
+         w_pads=[1024, 4096], golden_cases=len(golden["cases"]), agree=True)
+
+
+def phase_cdc(dev, results: dict, seed: int) -> None:
+    """The byte path: snapshot re-ingestion of 32 VM images, one
+    ``batch_from_buffers`` call per round, replayed through ``HPDedup``."""
+    from repro_torch.core import ContentDefinedChunker, HPDedup, fp_index, trace_stats
+    from repro_torch.core.cdc import chunk_starts
+    from repro_torch.data import analytic_bounds, batches_trace, vm_image_workload
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cdc import SEG_BYTES, cdc_candidates, cdc_candidates_torch, pack_haloed
+    from repro_torch.kernels.ops import chunk_fingerprint, chunk_fingerprint_torch
+
+    streams = 32
+    t0 = time.perf_counter()
+    w = vm_image_workload(num_streams=streams, base_size=CDC_BASE_BYTES, versions=3,
+                          edits_per_version=8, edit_size=2048, seed=seed)
+    generate_s = time.perf_counter() - t0
+    rounds = [(w.stream_ids[a:a + streams], w.buffers[a:a + streams])
+              for a in range(0, len(w.buffers), streams)]
+
+    chunker = ContentDefinedChunker(device=dev)  # 2048 / 4096 / 16384
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    fp_index.reset_probe_routes()
+    lba_next: dict = {}
+    batches, lens_per, call_s = [], [], []
+    for sids, bufs in rounds:
+        t0 = time.perf_counter()
+        batch, lens = chunker.batch_from_buffers(sids, bufs, lba_next=lba_next)
+        call_s.append(time.perf_counter() - t0)
+        batches.append(batch)
+        lens_per.append(lens)
+    ingest_s = sum(call_s)
+    ingest_peak = torch.cuda.max_memory_allocated()
+
+    lens = np.concatenate(lens_per)
+    trace = batches_trace(batches)
+
+    t0 = time.perf_counter()
+    card = HPDedup(cache_entries=32768, device=dev)
+    card.replay_batched(trace, 8192)
+    rep_card = card.finish()
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    routes = dict(fp_index.PROBE_ROUTES)
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("cdc_candidates", "chunk_fingerprint", "fp_probe", "fp_insert", "fp_remove"):
+        check(launches[name] > 0, f"kernel {name} never launched on the cdc path")
+
+    t0 = time.perf_counter()
+    host = HPDedup(cache_entries=32768, device="cpu")
+    host.replay_batched(trace, 8192)
+    rep_host = host.finish()
+    host_s = time.perf_counter() - t0
+    check(dataclasses.asdict(rep_card) == dataclasses.asdict(rep_host),
+          "HybridReport of the chunk trace on the card != on the host")
+    card.store.check_consistency()
+
+    stats = trace_stats(trace, chunk_bytes=lens)
+    lower, upper = analytic_bounds(w, chunker.config.max_size)
+    check(lower <= stats["byte_dup_ratio"] <= upper,
+          f"byte dup ratio {stats['byte_dup_ratio']} outside [{lower}, {upper}]")
+
+    # the host numpy backend on stream 0's base image and its first version
+    sample = [0, streams]
+    t0 = time.perf_counter()
+    on_host = ContentDefinedChunker(backend="numpy", device="cpu").chunk_fingerprints_many(
+        [w.buffers[i] for i in sample])
+    numpy_s = time.perf_counter() - t0
+    for i, (ends, fps) in zip(sample, on_host):
+        rnd, sid = divmod(i, streams)
+        mine = batches[rnd].stream == sid
+        check(np.array_equal(np.cumsum(lens_per[rnd][mine]), ends),
+              f"chunk ends of buffer {i}: card != host numpy")
+        check(np.array_equal(batches[rnd].fp[mine], fps),
+              f"chunk fingerprints of buffer {i}: card != host numpy")
+
+    # device time of each kernel at the last round's shapes, against its plain
+    # version on the same inputs (which it must equal there too)
+    sids, bufs = rounds[-1]
+    haloed, spans = pack_haloed(bufs)
+    rows = torch.from_numpy(haloed.view(np.int32)).to(dev)
+    del haloed
+    counts = np.bincount(batches[-1].stream, minlength=streams)
+    ends_per = [np.cumsum(l) for l in np.split(lens_per[-1], np.cumsum(counts)[:-1])]
+    starts, clens = chunk_starts(spans, ends_per)
+    st = torch.from_numpy(starts).to(dev)
+    ln = torch.from_numpy(clens.astype(np.int32)).to(dev)
+    avg, w_pad = chunker.config.avg_size, chunker.config.max_size // 4
+    timed = {}
+    for name, kernel, plain in (
+            ("cdc_candidates", lambda: cdc_candidates(rows, avg),
+             lambda: cdc_candidates_torch(rows, avg)),
+            ("chunk_fingerprint", lambda: chunk_fingerprint(rows, st, ln, w_pad),
+             lambda: chunk_fingerprint_torch(rows, st, ln, w_pad))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        e = _max_err(kernel(), want)
+        check(e == 0, f"{name} kernel != plain at the cdc path's shapes")
+        del want
+        timed[name] = (device_ms(kernel, reps=10), plain_ms, e)
+
+    r = rows.shape[0]
+    c = int(clens.size)
+    data_groups = int(((clens + 511) // 512).sum())
+    work = {
+        "cdc_candidates": (r * (520 + 512) * 4, [r * SEG_BYTES * o for o in CDC_OPS_PER_BYTE]),
+        "chunk_fingerprint": (
+            int(clens.sum()) + c * (8 + 4 + 16),
+            [data_groups * 128 * pw + c * (w_pad // 128) * pg + c * pb
+             for pw, pg, pb in zip(FP_OPS_PER_WORD, FP_OPS_PER_GROUP, FP_OPS_PER_BLOCK)]),
+    }
+    for name, (nbytes, nops) in work.items():
+        ms, plain_ms, e = timed[name]
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ms(*nops)
+        results[name].update(
+            max_abs_err=max(results[name]["max_abs_err"], e), ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None, bytes_bound_ms=t_bytes, ops_bound_ms=t_ops,
+            shape={"rows": r, "chunks": c, "payload_bytes": int(sum(b.size for b in bufs))},
+        )
+    for name, n in launches.items():
+        results[name].setdefault("launches_by_path", {})["cdc"] = n
+    del rows, st, ln
+    torch.cuda.empty_cache()
+
+    stage = chunker.stage_seconds
+    emit("cdc", streams=streams, base_bytes=CDC_BASE_BYTES, rounds=len(rounds), seed=seed,
+         bytes=w.total_bytes, chunks=int(lens.size), calls=len(call_s), call_s=call_s,
+         generate_s=generate_s, pack_s=stage["pack"], upload_s=stage["upload"],
+         candidates_s=stage["candidates"], select_s=stage["select"],
+         chunk_fp_s=stage["chunk_fp"], candidates_ms=timed["cdc_candidates"][0],
+         chunk_fp_ms=timed["chunk_fingerprint"][0], ingest_s=ingest_s,
+         bytes_per_s=w.total_bytes / ingest_s, replay_card_s=card_s,
+         requests_per_s_card=lens.size / card_s, replay_host_s=host_s,
+         requests_per_s_host=lens.size / host_s, reports_equal=True,
+         dup_ratio=stats["dup_ratio"], byte_dup_ratio=stats["byte_dup_ratio"],
+         bounds=[lower, upper], boundary_events=w.boundary_events,
+         chunk_size_mean=stats["chunk_size_mean"], inline_dedup_ratio=rep_card.inline_dedup_ratio,
+         final_disk_blocks=rep_card.final_disk_blocks, numpy_sample_s=numpy_s,
+         sampled_buffers_equal=True, launches=launches, probe_routes=routes,
+         max_memory_allocated=peak, ingest_max_memory_allocated=ingest_peak)
 
 
 def main() -> int:
@@ -505,10 +752,14 @@ def main() -> int:
     phase_fp_index(dev, results)
     phase_crossover(dev)
     phase_replay(dev, results, args.requests, args.seed)
+    phase_cdc_kernels(dev, results)
+    phase_cdc(dev, results, args.seed)
+    for name in KERNELS:
+        results[name]["launches"] = sum(results[name]["launches_by_path"].values())
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "agree": True, **results[name]}
-        for name in ("fingerprint", "fp_probe", "fp_insert", "fp_remove")
+        for name in KERNELS
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -7,6 +7,9 @@ Public surface (each the counterpart of ``repro.core``'s name):
 * ``HPDedup`` / ``HybridReport`` — the hybrid prioritized dedup mechanism.
 * baselines: ``make_idedup``, ``PurePostProcessing``, ``DIODE``.
 * ``ReplayBatch`` — columnar batched ingestion (``core.batch_replay``).
+* ``ContentDefinedChunker`` — content-defined chunking of raw byte streams
+  (Gear rolling hash on the card, ``kernels.cdc``) into ``ReplayBatch``
+  columns, with ``CDCConfig`` (``core.cdc``).
 * ``FingerprintIndex`` — the exact membership layer every probe in the
   stack routes through: a hash table on the card (CUDA kernels) or on the
   host (numpy) over an authoritative host key set (``core.fp_index``).
@@ -16,8 +19,8 @@ Public surface (each the counterpart of ``repro.core``'s name):
 * ``BlockStore`` / ``PostProcessEngine`` — storage substrate + exact phase.
 * ``generate_workload`` — FIU-like synthetic multi-tenant traces.
 
-Every class that holds a fingerprint index takes ``device`` (default
-``"cuda"``); pass ``device="cpu"`` to run on the host.
+Every class that holds a fingerprint index, and the chunker, takes
+``device`` (default ``"cuda"``); pass ``device="cpu"`` to run on the host.
 """
 
 from typing import Protocol, runtime_checkable
@@ -32,6 +35,7 @@ from .batch_replay import (
     engine_ingest,
     run_replay,
 )
+from .cdc import CDCConfig, ContentDefinedChunker
 from .cache import ARCCache, GlobalCache, LFUCache, LRUCache, PrioritizedCache
 from .ffh import ffh_from_counts, ffh_from_sample, occurrence_counts
 from .fingerprint import OP_READ, OP_WRITE, TRACE_DTYPE, host_fingerprint
@@ -83,6 +87,8 @@ __all__ = [
     "DIODE",
     "PurePostProcessing",
     "make_idedup",
+    "CDCConfig",
+    "ContentDefinedChunker",
     "ARCCache",
     "GlobalCache",
     "LFUCache",

@@ -21,7 +21,7 @@ Templates: ``mail`` (FIU-mail), ``ftp`` (Cloud-FTP), ``web`` (FIU-web),
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -195,19 +195,62 @@ def generate_workload(
     return trace, stream_of
 
 
-def trace_stats(trace: np.ndarray) -> Dict[str, float]:
-    """Summary statistics in the shape of the paper's Table III."""
+def trace_stats(trace: np.ndarray, chunk_bytes: Optional[np.ndarray] = None) -> Dict[str, float]:
+    """Summary statistics in the shape of the paper's Table III.
+
+    ``chunk_bytes`` (aligned per-record chunk lengths, as returned next to a
+    byte-backed trace by ``data.byte_workloads.byte_trace``) switches on the
+    content-defined-chunking summaries: a log2 chunk-size histogram, size
+    percentiles, and byte-weighted duplication structure — a variable-size
+    chunk stream's record-count dup ratio and its byte dup ratio legitimately
+    differ, and capacity claims need the byte-weighted one.
+    """
     writes = trace[trace["op"] == OP_WRITE]
     fps = writes["fp"]
-    _, first_idx = np.unique(fps, return_index=True)
+    _, first_idx, counts = np.unique(fps, return_index=True, return_counts=True)
     dup_writes = len(fps) - len(first_idx)
-    return {
+    stats: Dict[str, float] = {
         "requests": int(len(trace)),
         "write_ratio": float(len(writes) / max(1, len(trace))),
         "dup_ratio": float(dup_writes / max(1, len(writes))),
         "unique_blocks": int(len(first_idx)),
         "dup_writes": int(dup_writes),
     }
+    if chunk_bytes is None:
+        return stats
+    chunk_bytes = np.asarray(chunk_bytes)
+    if chunk_bytes.shape != (len(trace),):
+        raise ValueError(
+            f"chunk_bytes must align with the trace: {chunk_bytes.shape} vs {len(trace)}")
+    w_lens = chunk_bytes[trace["op"] == OP_WRITE].astype(np.int64)
+    total = int(w_lens.sum())
+    # byte-weighted duplication: every write after a fingerprint's first
+    # occurrence re-writes bytes already stored
+    is_first = np.zeros(len(fps), dtype=bool)
+    is_first[first_idx] = True
+    unique_bytes = int(w_lens[is_first].sum())
+    # log2-binned size histogram: bin k counts chunks in [2^k, 2^(k+1))
+    nz = w_lens[w_lens > 0]
+    hist: Dict[str, int] = {}
+    if nz.size:
+        bins = np.floor(np.log2(nz)).astype(np.int64)
+        for k, c in zip(*np.unique(bins, return_counts=True)):
+            hist[str(int(k))] = int(c)
+    stats.update({
+        "chunk_count": int(len(fps)),
+        "chunk_bytes_total": total,
+        "chunk_size_mean": float(w_lens.mean()) if len(fps) else 0.0,
+        "chunk_size_p50": float(np.median(w_lens)) if len(fps) else 0.0,
+        "chunk_size_min": int(w_lens.min()) if len(fps) else 0,
+        "chunk_size_max": int(w_lens.max()) if len(fps) else 0,
+        "chunk_size_hist_log2": hist,
+        "unique_bytes": unique_bytes,
+        "dup_bytes": total - unique_bytes,
+        "byte_dup_ratio": float((total - unique_bytes) / max(1, total)),
+        "fp_max_occurrences": int(counts.max()) if counts.size else 0,
+        "fp_mean_occurrences": float(counts.mean()) if counts.size else 0.0,
+    })
+    return stats
 
 
 def is_ptype(fp: int, fraction: float) -> bool:

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and compiles on
 its own into ``build/<name>-<digest>.so`` at the repository root, where the
-digest covers the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once.  Nothing here runs at import time: a library is
-built the first time a wrapper launches its kernel (or when ``build_all``
-is called), so the package imports on a host without ``nvcc`` or a card.
+digest covers the source, every ``csrc/*.cuh`` header and the flags, so an
+edited source or header rebuilds and an unchanged one loads at once.
+Nothing here runs at import time: a library is built the first time a
+wrapper launches its kernel (or when ``build_all`` is called), so the
+package imports on a host without ``nvcc`` or a card.
 
 ``LAUNCHES`` counts kernel launches per wrapper; each wrapper adds one
 where it launches its kernel and nowhere else.
@@ -25,13 +26,16 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("fingerprint", "fp_index")
+SOURCES = ("fingerprint", "fp_index", "cdc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES: Dict[str, int] = {"fingerprint": 0, "fp_probe": 0, "fp_insert": 0, "fp_remove": 0}
+LAUNCHES: Dict[str, int] = {
+    "fingerprint": 0, "fp_probe": 0, "fp_insert": 0, "fp_remove": 0,
+    "cdc_candidates": 0, "chunk_fingerprint": 0,
+}
 # ptxas register/spill report of each library built by this process
 BUILD_LOG: Dict[str, str] = {}
 
@@ -47,6 +51,13 @@ _SIGNATURES = {
         f"{op}_launch": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                          ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         for op in ("fp_probe", "fp_insert", "fp_remove")
+    },
+    "cdc": {
+        "cdc_candidates_launch": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                  ctypes.c_uint, ctypes.c_void_p],
+        "chunk_fingerprint_launch": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                                     ctypes.c_int, ctypes.c_void_p],
     },
 }
 
@@ -64,8 +75,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # any source may include any header
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -8,11 +8,19 @@ default); a tensor stays on the device it is on.
 
 from __future__ import annotations
 
+import ctypes
+from typing import List, Sequence, Tuple
+
 import numpy as np
 import torch
 
-from .fingerprint import LANES, fingerprint
+from . import _build
+from .cdc import HALO_WORDS, SEG_BYTES, SEG_WORDS, cdc_candidates, unpack_candidates
+from .fingerprint import LANES, NUM_HASHES, _M32, fingerprint, fingerprint_torch
 from .fp_index import fp_insert, fp_probe, fp_remove
+
+# chunks per step of the plain gather: bounds its int64 temporaries
+_PLAIN_CHUNKS = 1024
 
 
 def as_words(blocks, device=None) -> torch.Tensor:
@@ -96,6 +104,156 @@ def chunk_fp64(fp128, lens) -> np.ndarray:
     out = _fold64(fp128) ^ _mix_len64(lens)
     out[out == 0] = 1  # 0 is reserved
     return out
+
+
+def as_rows(haloed, device=None) -> torch.Tensor:
+    """Haloed CDC rows (numpy uint32 from ``pack_haloed``, or a tensor) as an
+    int32 tensor on the target device; host rows go to the card by default."""
+    if isinstance(haloed, np.ndarray):
+        rows = torch.from_numpy(np.ascontiguousarray(haloed).view(np.int32))
+        return rows.to("cuda" if device is None else device)
+    return haloed if device is None else haloed.to(device)
+
+
+def cdc_candidate_flags(haloed, avg_size: int, device=None) -> torch.Tensor:
+    """Candidate-flag words for haloed CDC rows (see ``kernels.cdc``), left on
+    the rows' device.  A tensor is used where it lies, so the fused path
+    uploads once and reuses the same rows for the chunk-fingerprint launch."""
+    return cdc_candidates(as_rows(haloed, device), avg_size)
+
+
+def candidate_positions(flags: torch.Tensor,
+                        spans: Sequence[Tuple[int, int, int]]) -> List[np.ndarray]:
+    """Sorted candidate byte positions of each span, cut at its ``n_bytes``:
+    for every span, ``unpack_candidates(flags, span)``.
+
+    On the card the flag words are compacted there (the nonzero words, then
+    their set bits) and only the kept positions cross to the host, not the
+    flag array (one word per 4 payload bytes).  A CPU tensor goes through
+    ``unpack_candidates``.
+    """
+    if flags.device.type == "cpu":
+        host = flags.numpy().view(np.uint32)
+        return [unpack_candidates(host, span) for span in spans]
+    if not spans:
+        return []
+    dev = flags.device
+    flat = flags.reshape(-1)
+    words = torch.nonzero(flat).squeeze(1)  # ascending
+    phase = torch.arange(4, dtype=torch.int64, device=dev)
+    bits = ((flat[words].to(torch.int64)[:, None] >> phase) & 1).bool()
+    pos = (words[:, None] * 4 + phase)[bits]  # row-major: still ascending
+    base = torch.tensor([row0 * SEG_BYTES for row0, _, _ in spans], dtype=torch.int64)
+    end = base + torch.tensor([n for _, _, n in spans], dtype=torch.int64)
+    base, end = base.to(dev), end.to(dev)
+    # spans are contiguous and in row order: the last span starting at or
+    # before a position holds it (an empty span shares its start with the next)
+    sid = torch.searchsorted(base, pos, right=True) - 1
+    keep = pos < end[sid]
+    sid = sid[keep]
+    rel = (pos[keep] - base[sid]).cpu().numpy()
+    counts = torch.bincount(sid, minlength=len(spans)).cpu().numpy()
+    return np.split(rel, np.cumsum(counts)[:-1])
+
+
+def chunk_fingerprint_torch(haloed: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
+                            w_pad: int) -> torch.Tensor:
+    """Plain version of the fused gather + fingerprint: (C, NUM_HASHES) int32.
+
+    Chunk ``i`` is payload bytes ``starts[i] .. starts[i] + lens[i]`` of the
+    rows' concatenated payload columns, zero-padded to ``w_pad`` little-endian
+    words and hashed by ``fingerprint_torch``.  Bytes past the payload read as
+    zero.  Gathered in torch, a block of chunks at a time.
+    """
+    flat = haloed.reshape(-1)
+    total = haloed.shape[0] * SEG_BYTES
+    c = starts.shape[0]
+    out = torch.empty((c, NUM_HASHES), dtype=torch.int32, device=haloed.device)
+    span = torch.arange(w_pad * 4, dtype=torch.int64, device=haloed.device)[None, :]
+    for a in range(0, c, _PLAIN_CHUNKS):
+        s = starts[a:a + _PLAIN_CHUNKS].to(torch.int64)[:, None]
+        n = lens[a:a + _PLAIN_CHUNKS].to(torch.int64)[:, None]
+        p = s + span
+        valid = (span < n) & (p >= 0) & (p < total)
+        p = torch.where(valid, p, 0)
+        q = p >> 2  # payload word q: row q // 512, column HALO_WORDS + q % 512
+        word = flat[q + HALO_WORDS * ((q >> 9) + 1)].to(torch.int64) & _M32
+        b = torch.where(valid, (word >> ((p & 3) * 8)) & 0xFF, 0)
+        b4 = b.reshape(b.shape[0], w_pad, 4)
+        words = b4[:, :, 0] | (b4[:, :, 1] << 8) | (b4[:, :, 2] << 16) | (b4[:, :, 3] << 24)
+        words = (words - ((words >> 31) << 32)).to(torch.int32)
+        out[a:a + words.shape[0]] = fingerprint_torch(words)
+    return out
+
+
+def chunk_fingerprint(haloed: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
+                      w_pad: int) -> torch.Tensor:
+    """(C, NUM_HASHES) int32 digests of chunks of resident CDC rows.
+
+    ``starts`` (int64) and ``lens`` (int32, at most ``4 * w_pad``) are global
+    byte offsets and lengths into the rows' concatenated payload columns,
+    on the rows' device; ``w_pad`` is a multiple of LANES.  A CPU tensor goes
+    through ``chunk_fingerprint_torch``; a CUDA tensor through the fused
+    kernel (``csrc/cdc.cu``), on the current stream.
+    """
+    if haloed.dtype != torch.int32 or haloed.dim() != 2 or haloed.shape[1] != HALO_WORDS + SEG_WORDS:
+        raise TypeError(f"expected (R, {HALO_WORDS + SEG_WORDS}) int32 rows, got {haloed.dtype} {tuple(haloed.shape)}")
+    if starts.dtype != torch.int64 or lens.dtype != torch.int32:
+        raise TypeError(f"starts must be int64 and lens int32, got {starts.dtype}, {lens.dtype}")
+    if starts.dim() != 1 or starts.shape != lens.shape:
+        raise ValueError(f"starts {tuple(starts.shape)} and lens {tuple(lens.shape)} must align")
+    if w_pad <= 0 or w_pad % LANES:
+        raise ValueError(f"w_pad={w_pad} must be a positive multiple of {LANES}")
+    if not (haloed.device == starts.device == lens.device):
+        raise ValueError("rows, starts and lens must lie on one device")
+    if haloed.device.type == "cpu":
+        return chunk_fingerprint_torch(haloed, starts, lens, w_pad)
+    if not (haloed.is_contiguous() and starts.is_contiguous() and lens.is_contiguous()):
+        raise ValueError("the kernel reads contiguous rows, starts and lens")
+    c = starts.shape[0]
+    out = torch.empty((c, NUM_HASHES), dtype=torch.int32, device=haloed.device)
+    if c == 0:
+        return out
+    lib = _build.library("cdc")
+    with torch.cuda.device(haloed.device):
+        err = lib.chunk_fingerprint_launch(
+            ctypes.c_void_p(haloed.data_ptr()),
+            ctypes.c_longlong(haloed.shape[0]),
+            ctypes.c_void_p(starts.data_ptr()),
+            ctypes.c_void_p(lens.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_longlong(c),
+            ctypes.c_int(w_pad),
+            ctypes.c_void_p(torch.cuda.current_stream(haloed.device).cuda_stream),
+        )
+    _build.check(err, "chunk_fingerprint")
+    _build.LAUNCHES["chunk_fingerprint"] += 1
+    return out
+
+
+def cdc_chunk_fingerprints(haloed: torch.Tensor, starts, lens, max_size: int) -> np.ndarray:
+    """(C,) uint64 fingerprints for chunks of resident CDC rows.
+
+    Every chunk is zero-padded to ``max_size`` bytes (``w_pad`` words) before
+    hashing, so all backends hash identical padded images; the true length is
+    mixed into the fold (``chunk_fp64``).  ``max_size`` must make ``w_pad`` a
+    LANES multiple (``core.cdc`` validates ``max_size % 512 == 0``).  Starts
+    are int64, so one call may hold 2^31 payload bytes and more.
+    """
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    lens = np.ascontiguousarray(lens, dtype=np.int32)
+    if starts.size == 0:
+        return np.empty(0, dtype=np.uint64)
+    w_pad = max_size // 4
+    if w_pad % LANES:
+        raise ValueError(f"max_size={max_size} must be a multiple of {LANES * 4}")
+    if (starts.min() < 0 or lens.min() < 0 or lens.max() > max_size
+            or (starts + lens).max() > haloed.shape[0] * SEG_BYTES):
+        raise ValueError("chunks must lie inside the rows' payload, at most max_size long")
+    dev = haloed.device
+    fp128 = chunk_fingerprint(haloed, torch.from_numpy(starts).to(dev),
+                              torch.from_numpy(lens).to(dev), w_pad)
+    return chunk_fp64(digests_to_host(fp128), lens)
 
 
 def keys_to_device(keys: np.ndarray, device) -> torch.Tensor:

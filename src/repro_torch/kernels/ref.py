@@ -4,7 +4,9 @@
 chunk loop, no lane-sum helper shared with the kernel's plain version), so a
 fault in ``kernels.fingerprint`` cannot hide behind shared code.
 ``fingerprint_golden_numpy`` is a third model in numpy uint64 arithmetic
-mod 2^32; the tests pin both to the golden digests.
+mod 2^32; the tests pin both to the golden digests.  ``cdc_golden_buffer``
+makes the byte buffers of the golden chunking cases
+(``tests/golden/cdc_digests.json``).
 """
 
 from __future__ import annotations
@@ -85,3 +87,19 @@ def fingerprint_golden_numpy(blocks: np.ndarray) -> np.ndarray:
         h = h ^ (h >> np.uint64(16))
         out[:, which] = h
     return out.astype(np.uint32)
+
+
+def _cdc_mix_bytes(n: int, salt: int) -> np.ndarray:
+    i = np.arange(n, dtype=np.uint64)
+    v = i * np.uint64(2654435761) + np.uint64(salt) * np.uint64(40503) + np.uint64(11)
+    v = (v ^ (v >> np.uint64(13))) * np.uint64(0x9E3779B97F4A7C15)
+    return ((v >> np.uint64(29)) & np.uint64(0xFF)).astype(np.uint8)
+
+
+def cdc_golden_buffer(name: str, n: int, salt: int) -> np.ndarray:
+    """The (n,) uint8 buffer of a golden chunking case: ``"mix"`` bytes, or
+    for ``"repeat"`` one half of them twice."""
+    if name == "mix":
+        return _cdc_mix_bytes(n, salt)
+    half = _cdc_mix_bytes(n // 2, salt)
+    return np.concatenate([half, half])

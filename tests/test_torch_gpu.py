@@ -7,8 +7,8 @@ installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 The plain versions themselves are held against the reference package on the
-CPU in ``test_torch_fingerprint.py``, ``test_torch_fp_index.py`` and
-``test_torch_engine.py``.
+CPU in ``test_torch_fingerprint.py``, ``test_torch_fp_index.py``,
+``test_torch_engine.py`` and ``test_torch_cdc.py``.
 """
 
 import dataclasses
@@ -19,18 +19,20 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import HPDedup, generate_workload
+from repro_torch.core import ContentDefinedChunker, HPDedup, generate_workload
 from repro_torch.core.fp_index import SMALL_BATCH_CARD, TOMB_KEY, FingerprintIndex
 from repro_torch.core.unseen import ldss_batch
+from repro_torch.kernels import cdc
 from repro_torch.kernels import fp_index as k
 from repro_torch.kernels import ops
 from repro_torch.kernels._build import LAUNCHES
 from repro_torch.kernels.fingerprint import fingerprint, fingerprint_torch
-from repro_torch.kernels.ref import fingerprint_golden_numpy
+from repro_torch.kernels.ref import cdc_golden_buffer, fingerprint_golden_numpy
 
 pytestmark = pytest.mark.gpu
 
 GOLDEN_PATH = os.path.join(os.path.dirname(__file__), "golden", "fingerprint_digests.json")
+CDC_GOLDEN_PATH = os.path.join(os.path.dirname(__file__), "golden", "cdc_digests.json")
 
 
 @pytest.fixture
@@ -166,3 +168,72 @@ def test_engine_on_card_matches_host(cuda):
     assert dataclasses.asdict(card) == dataclasses.asdict(host)
     assert LAUNCHES["fp_probe"] > before["fp_probe"]
     assert LAUNCHES["fp_insert"] > before["fp_insert"]
+
+
+def _haloed(r, seed):
+    x = np.random.default_rng(seed).integers(0, 2**32, size=(r, 520), dtype=np.uint32)
+    x[0, :] = 0
+    x[1, :] = 0xFFFFFFFF
+    return torch.from_numpy(x.view(np.int32))
+
+
+@pytest.mark.parametrize("avg_size", [256, 1024, 4096])
+def test_cdc_candidates_kernel_matches_plain(cuda, avg_size):
+    t = _haloed(256, avg_size)
+    before = LAUNCHES["cdc_candidates"]
+    got = cdc.cdc_candidates(t.to(cuda), avg_size)
+    torch.cuda.synchronize()
+    assert LAUNCHES["cdc_candidates"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), cdc.cdc_candidates_torch(t, avg_size).numpy())
+
+
+@pytest.mark.parametrize("w_pad", [128, 1024, 4096])
+def test_chunk_fingerprint_kernel_matches_plain(cuda, w_pad):
+    r, max_size = 64, 4 * w_pad
+    t = _haloed(r, w_pad)
+    total = r * cdc.SEG_BYTES
+    rng = np.random.default_rng(w_pad)
+    lens = rng.integers(1, max_size + 1, size=500)
+    lens[:11] = [1, max_size, 2, 3, 4, 5, max_size, 5, 7, max_size, max_size]
+    starts = rng.integers(0, total - max_size, size=500)
+    # bytes before offset 0 and past the payload read as zero
+    starts[:11] = [0, 1, 2, 3, 2046, 2047, total - max_size, total - 5, -3, -2049,
+                   total - 1001]
+    s, n = torch.from_numpy(starts.astype(np.int64)), torch.from_numpy(lens.astype(np.int32))
+    before = LAUNCHES["chunk_fingerprint"]
+    got = ops.chunk_fingerprint(t.to(cuda), s.to(cuda), n.to(cuda), w_pad)
+    torch.cuda.synchronize()
+    assert LAUNCHES["chunk_fingerprint"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  ops.chunk_fingerprint_torch(t, s, n, w_pad).numpy())
+
+
+def test_candidate_positions_on_card_match_unpack(cuda):
+    rng = np.random.default_rng(9)
+    bufs = [rng.integers(0, 256, size=n, dtype=np.uint8) for n in (0, 100, 2049, 70_000, 0)]
+    rows, spans = cdc.pack_haloed(bufs)
+    flags = ops.cdc_candidate_flags(rows, 256, device=cuda)
+    host = flags.cpu().numpy().view(np.uint32)
+    for got, span in zip(ops.candidate_positions(flags, spans), spans):
+        np.testing.assert_array_equal(got, cdc.unpack_candidates(host, span))
+
+
+def test_chunker_on_card_matches_golden_and_host(cuda):
+    with open(CDC_GOLDEN_PATH) as f:
+        golden = json.load(f)
+    card = ContentDefinedChunker(*golden["cfg"], device=cuda)
+    for case in golden["cases"]:
+        ends, fps = card.chunk_fingerprints(
+            cdc_golden_buffer(case["name"], case["n"], case["salt"]))
+        assert ends.tolist() == case["ends"]
+        assert [f"{int(v):016x}" for v in fps] == case["fp64_hex"]
+    rng = np.random.default_rng(4)
+    bufs = [rng.integers(0, 256, size=n, dtype=np.uint8) for n in (0, 5000, 300_000, 77)]
+    host = ContentDefinedChunker(device="cpu")
+    before = dict(LAUNCHES)
+    got = ContentDefinedChunker(device=cuda).chunk_fingerprints_many(bufs)
+    for (e1, f1), (e2, f2) in zip(got, host.chunk_fingerprints_many(bufs)):
+        np.testing.assert_array_equal(e1, e2)
+        np.testing.assert_array_equal(f1, f2)
+    assert LAUNCHES["cdc_candidates"] == before["cdc_candidates"] + 1
+    assert LAUNCHES["chunk_fingerprint"] == before["chunk_fingerprint"] + 1
