@@ -48,10 +48,32 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   Launch counts are zeroed just before the path and read just
                   after: the CDC kernels and the index kernels must have run.
                   Then the device time of each CDC kernel at one round's shapes.
-* ``kernels``     one object per kernel: launches on the main paths (replay
-                  and cdc, summed), largest disagreement with its plain
-                  version (exact: 0), times, and the least time the card could
-                  take for the same work.
+* ``ffh``         the FFH kernel through ``ops.ffh_counts`` on 2^24 seeded
+                  heavy-tailed counts (zeros, negatives, counts past the last
+                  bin) at nbins 1, 40 and 128, and on the occurrence counts of
+                  the replay's fingerprints at nbins 40: exact against the
+                  plain version and ``core.ffh.ffh_from_counts`` on the host;
+                  device time beside ``torch.bincount``'s.
+* ``serve``       the KV-page dedup server on TinyLlama-1.1B at full width
+                  (22 layers, d 2048, random float32 weights from ``--seed``,
+                  bf16 compute): 32 requests of ``launch/serve.py``'s mix (a
+                  chat tenant's 96-token shared prompt + 16 unique tokens,
+                  a batch tenant's 112 one-off tokens), 8 decode steps and
+                  ``run_postprocess``, then the same requests through a server
+                  that caches nothing.  Decoded tokens and the caches of the
+                  last request and of the last chat request must be equal, bit
+                  for bit; 90 of 224 blocks skipped; the store consistent.
+* ``paged_attention`` the paged decode kernel at TinyLlama's decode shape
+                  (64 rows of up to 2,048 tokens, bf16, the first 1,024 tokens'
+                  pages shared by every row, lengths 0 and 2,048 included; and
+                  float32 at 8 rows), then over the ``serve`` phase's own page
+                  pool (layers 0 and 21, each request's table from its LBAs'
+                  PBAs), against the plain version (bf16 atol/rtol 0.05,
+                  float32 atol 3e-5); device time beside the SDPA call's.
+* ``kernels``     one object per kernel: launches on the main paths (replay,
+                  cdc, serve, ffh and the paged pool, summed), largest
+                  disagreement with its plain version, times, and the least
+                  time the card could take for the same work.
 
 The next-to-last line is ``nvidia-smi``'s name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
@@ -108,6 +130,10 @@ CDC_OPS_PER_BYTE = (9, 4)
 SPIN_CYCLES = 1_000_000
 # The cdc phase's VM images: 32 streams of this base size, 3 edited rounds.
 CDC_BASE_BYTES = 32 << 20
+# Dense tensor-core rate of one H100 SXM in bf16 (the data sheet), and its
+# float32 rate outside the tensor cores.
+BF16_OPS_PER_S = 989e12
+F32_OPS_PER_S = 67e12
 
 REPLACES = {
     "fingerprint": "src/repro/kernels/fingerprint.py:113",
@@ -116,6 +142,8 @@ REPLACES = {
     "fp_remove": "src/repro/kernels/fp_index.py:350",
     "cdc_candidates": "src/repro/kernels/cdc.py:112",
     "chunk_fingerprint": "src/repro/kernels/ops.py:129",
+    "ffh": "src/repro/kernels/histogram.py:44",
+    "paged_attention": "src/repro/kernels/paged_attention.py:84",
 }
 SOURCES = {
     "fingerprint": "src/repro_torch/csrc/fingerprint.cu",
@@ -124,6 +152,8 @@ SOURCES = {
     "fp_remove": "src/repro_torch/csrc/fp_index.cu",
     "cdc_candidates": "src/repro_torch/csrc/cdc.cu",
     "chunk_fingerprint": "src/repro_torch/csrc/cdc.cu",
+    "ffh": "src/repro_torch/csrc/histogram.cu",
+    "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
 }
 KERNELS = tuple(SOURCES)
 
@@ -462,7 +492,8 @@ def _block_content(fps: torch.Tensor, w: int) -> torch.Tensor:
     return (x - ((x >> 31) << 32)).to(torch.int32)
 
 
-def phase_replay(dev, results: dict, requests: int, seed: int) -> None:
+def phase_replay(dev, results: dict, requests: int, seed: int) -> np.ndarray:
+    """Returns the content fingerprints of the replay's writes."""
     from repro_torch.core import OP_WRITE, HPDedup, fp_index, generate_workload
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.ops import keys_to_device
@@ -532,6 +563,7 @@ def phase_replay(dev, results: dict, requests: int, seed: int) -> None:
          final_disk_blocks=rep_card.final_disk_blocks, peak_disk_blocks=rep_card.peak_disk_blocks,
          reports_equal=True, launches=launches, probe_routes=routes, max_memory_allocated=peak,
          index_capacity={n: i.table_stats()["capacity"] for n, i in indexes.items()})
+    return content_fps
 
 
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -712,7 +744,7 @@ def phase_cdc(dev, results: dict, seed: int) -> None:
             shape={"rows": r, "chunks": c, "payload_bytes": int(sum(b.size for b in bufs))},
         )
     for name, n in launches.items():
-        results[name].setdefault("launches_by_path", {})["cdc"] = n
+        results.setdefault(name, {}).setdefault("launches_by_path", {})["cdc"] = n
     del rows, st, ln
     torch.cuda.empty_cache()
 
@@ -734,6 +766,327 @@ def phase_cdc(dev, results: dict, seed: int) -> None:
          max_memory_allocated=peak, ingest_max_memory_allocated=ingest_peak)
 
 
+def _heavy_tailed_counts(n: int, nbins: int, rng) -> np.ndarray:
+    """Occurrence counts as dedup traces have them (most 1, then 2, ...),
+    with zeros, negatives and counts far past the last bin mixed in."""
+    c = rng.geometric(0.45, size=n).astype(np.int32)
+    c[rng.random(n) < 0.10] = 0
+    neg = rng.random(n) < 0.02
+    c[neg] = -rng.integers(1, 1000, size=int(neg.sum()))
+    big = rng.random(n) < 0.02
+    c[big] = rng.integers(nbins, 100 * nbins, size=int(big.sum()))
+    return c
+
+
+def phase_ffh(dev, results: dict, content_fps: np.ndarray, seed: int) -> None:
+    """The FFH through its entry point ``ops.ffh_counts``; the launch count
+    is zeroed just before that path and read just after."""
+    from repro_torch.core.ffh import ffh_from_counts, occurrence_counts
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.histogram import ffh, ffh_torch
+
+    n, nbins_list = 1 << 24, (1, 40, 128)
+    counts = _heavy_tailed_counts(n, 40, np.random.default_rng(seed + 5))
+    replay_counts = occurrence_counts(content_fps)
+    c = torch.from_numpy(counts).to(dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    got = {nb: ops.ffh_counts(c, nb) for nb in nbins_list}
+    got_replay = ops.ffh_counts(replay_counts, 40, device=dev)
+    torch.cuda.synchronize()
+    launches = _build.LAUNCHES["ffh"]
+    check(launches == len(nbins_list) + 1, f"ffh launched {launches} times on its path")
+
+    err = 0
+    for nb, out in got.items():
+        e = _max_err(out, ffh_torch(c, nb))
+        check(e == 0, f"ffh kernel != plain at nbins {nb}")
+        host = ffh_from_counts(counts[counts > 0].astype(np.int64), max_bins=nb)
+        check(np.array_equal(out.cpu().numpy(), host), f"ffh kernel != ffh_from_counts at {nb}")
+        err = max(err, e)
+    rc = torch.from_numpy(replay_counts.astype(np.int32)).to(dev)
+    e = _max_err(got_replay, ffh_torch(rc, 40))
+    check(e == 0, "ffh kernel != plain on the replay's counts")
+    check(np.array_equal(got_replay.cpu().numpy(), ffh_from_counts(replay_counts, max_bins=40)),
+          "ffh kernel != ffh_from_counts on the replay's counts")
+
+    nb = 40
+    ms = device_ms(lambda: ffh(c, nb), reps=20)
+    plain_ms = cuda_ms(lambda: ffh_torch(c, nb), reps=3, warm=1)
+    # one PyTorch call for the same function: negatives and zeros to bin 0,
+    # counts past the last bin clamped into it, bin 0 dropped
+    library_ms = device_ms(lambda: torch.bincount(c.clamp(0, nb), minlength=nb + 1)[1:], reps=20)
+    lib_out = torch.bincount(c.clamp(0, nb), minlength=nb + 1)[1:]
+    check(_max_err(lib_out, got[nb]) == 0, "torch.bincount yardstick != ffh")
+    t_bytes = (4 * n + 4 * nb) / HBM_BYTES_PER_S * 1e3
+    results["ffh"]["launches_by_path"]["ffh"] = launches
+    results["ffh"].update(
+        max_abs_err=max(err, e), ms=ms, plain_ms=plain_ms, bound_ms=t_bytes, bound_by="bytes",
+        library_ms=library_ms, counts=n, nbins=nb, gb_per_s=4 * n / ms / 1e6,
+    )
+    emit("ffh", counts=n, nbins=list(nbins_list), replay_distinct_fps=int(replay_counts.size),
+         replay_ffh_head=got_replay[:8].tolist(), agree=True, launches=launches, ms=ms,
+         plain_ms=plain_ms, bincount_ms=library_ms, bound_ms=t_bytes,
+         gb_per_s=4 * n / ms / 1e6)
+
+
+SERVE_REQUESTS = 32
+SERVE_DECODE_STEPS = 8
+
+
+def _serve_once(srv, mix, keep):
+    """Prefill every request of the mix, decode the last, post-process.
+    Returns the caches of the requests in ``keep``, the decoded tokens and
+    seconds of prefill and of each decode step."""
+    caches = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r, (tenant, toks) in enumerate(mix):
+        cache, pos, _ = srv.prefill_request(tenant, toks)
+        if r in keep:
+            caches[r] = (cache, pos)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cache, pos = caches[len(mix) - 1]
+    # the decode writes past the prompt: decode a copy, keep the prompt's cache
+    work = type(cache)(cache.k.clone(), cache.v.clone())
+    t0 = time.perf_counter()
+    out, _ = srv.decode(work, pos, steps=SERVE_DECODE_STEPS)
+    decode_s = time.perf_counter() - t0
+    merged = srv.run_postprocess()
+    return caches, out, prefill_s, decode_s, merged
+
+
+def _device_busy(fn) -> dict:
+    """Wall ms of ``fn`` under ``torch.profiler``, the device ms its kernels
+    took (the sum of their self device times; ``None`` where the profiler saw
+    no kernel) and the kernels that took the most.  The profiler's own
+    cost inflates the wall time, so the idle share it gives is an upper
+    bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernel entries only: an operator's entry repeats its kernels' device time
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    on_device.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3 or None
+    return {"wall_ms": wall_ms, "device_ms": busy_ms,
+            "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+            "device_entries": sum(e.count for e in on_device),
+            "top": [{"name": e.key[:100], "count": e.count,
+                     "device_ms": e.self_device_time_total / 1e3} for e in on_device[:8]]}
+
+
+def phase_serve(dev, results: dict, seed: int):
+    """TinyLlama-1.1B at full width behind the KV-page dedup server; returns
+    the server and its request mix for the paged-attention phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import request_mix
+    from repro_torch.models import build_model
+    from repro_torch.serving.dedup_kv import DedupKVServer
+
+    cfg = get_config("tinyllama-1.1b")
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff,
+           cfg.vocab_size) == (22, 2048, 32, 4, 64, 5632, 32000), "TinyLlama-1.1B's widths")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(seed))
+    n_params = sum(t.numel() for t in params["layers"].values()) + sum(
+        params[k].numel() for k in ("embed", "unembed", "final_ln"))
+    kw = dict(page_tokens=16, max_slots=256, seed=seed, device=dev)
+    srv = DedupKVServer(model, params, cache_entries=512, **kw)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    mix = request_mix(cfg.vocab_size, SERVE_REQUESTS, 96, np.random.default_rng(seed))
+    keep = {SERVE_REQUESTS - 2, SERVE_REQUESTS - 1}  # the last chat and the last batch request
+    _build.reset_launches()
+    caches, out, prefill_s, decode_s, merged = _serve_once(srv, mix, keep)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["fingerprint"] > 0, "the fingerprint kernel never launched on the serve path")
+    m = srv.metrics
+    check((m.blocks_total, m.blocks_prefill_skipped) == (224, 90),
+          f"blocks skipped {m.blocks_prefill_skipped} of {m.blocks_total}, want 90 of 224")
+    srv.dedup.store.check_consistency()
+
+    nodedup = DedupKVServer(model, None, cache_entries=0, **kw)
+    caches0, out0, prefill0_s, decode0_s, _ = _serve_once(nodedup, mix, keep)
+    check(nodedup.metrics.blocks_prefill_skipped == 0, "a server without a cache skipped blocks")
+    check(out == out0, f"decoded tokens {out} != {out0} without dedup")
+    for r in keep:
+        (c1, p1), (c2, p2) = caches[r], caches0[r]
+        check(p1 == p2 and torch.equal(c1.k, c2.k) and torch.equal(c1.v, c2.v),
+              f"request {r}'s cache differs from the one a server without dedup computed")
+    for name, n in launches.items():
+        results.setdefault(name, {}).setdefault("launches_by_path", {})["serve"] = n
+    # device time against wall time over 4 decode steps of the last request
+    cache, pos = caches[SERVE_REQUESTS - 1]
+    busy = _device_busy(lambda: srv.decode(type(cache)(cache.k.clone(), cache.v.clone()), pos, 4))
+    tokens = sum(t.size for _, t in mix)
+    emit("serve", model=cfg.name, params=n_params, layers=cfg.num_layers, d_model=cfg.d_model,
+         requests=len(mix), tokens=int(tokens), blocks_total=m.blocks_total,
+         blocks_prefill_skipped=m.blocks_prefill_skipped, tokens_prefilled=m.tokens_prefilled,
+         prefill_saving=m.prefill_saving, kv_hbm_saving=m.hbm_saving, pages=len(srv.pages),
+         pages_merged_by_postprocess=m.post_pages_merged, duplicates_found_by_postprocess=merged,
+         decoded_tokens=out, decoded_equal=True, caches_equal=True, init_s=init_s,
+         prefill_s=prefill_s, prefill_tokens_per_s=tokens / prefill_s,
+         prefill_computed_tokens_per_s=m.tokens_prefilled / prefill_s,
+         decode_ms_per_step=decode_s / SERVE_DECODE_STEPS * 1e3,
+         nodedup_prefill_s=prefill0_s, nodedup_prefill_tokens_per_s=tokens / prefill0_s,
+         nodedup_decode_ms_per_step=decode0_s / SERVE_DECODE_STEPS * 1e3,
+         max_memory_allocated=peak, launches=launches, profiled_4_decode_steps=busy)
+    del nodedup, caches, caches0
+    torch.cuda.empty_cache()
+    return srv, mix
+
+
+def _paged_bound(table: np.ndarray, lengths: np.ndarray, page_bytes: int, h: int, d: int,
+                 elem: int, page: int, peak_ops: float):
+    """Least time of one paged-attention call on these inputs: every needed
+    K and V page read once (a page shared by rows counts once; a row of
+    length 0 needs its V pages only, for the mean), q read and o written
+    once; 4 * D operations per query head and valid position (2 * D per
+    slot of a length-0 row)."""
+    need = [table[b, : -(-int(n) // page)] for b, n in enumerate(lengths) if n > 0]
+    k_pages = np.unique(np.concatenate(need)) if need else np.zeros(0, np.int64)
+    zero_rows = table[lengths <= 0]
+    v_pages = np.union1d(k_pages, zero_rows.reshape(-1))
+    qo = 2 * table.shape[0] * h * d * elem
+    nbytes = (k_pages.size + v_pages.size) * page_bytes + qo
+    ops = 4 * h * d * int(np.clip(lengths, 0, None).sum()) + 2 * h * d * zero_rows.size * page
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
+    all_pages = table.size * 2 * page_bytes + qo
+    return t_bytes, t_ops, nbytes, all_pages
+
+
+def _sdpa_ms(q, k_pages, v_pages, table, lengths):
+    """Device ms of ``F.scaled_dot_product_attention`` with GQA on K/V already
+    gathered dense, and of that gather; the yardstick only."""
+    import torch.nn.functional as F
+
+    b, h, d = q.shape
+    _, page, kvh, _ = k_pages.shape
+    t = table.shape[1] * page
+
+    def gather():
+        k = k_pages[table.long()].reshape(b, t, kvh, d).transpose(1, 2)
+        v = v_pages[table.long()].reshape(b, t, kvh, d).transpose(1, 2)
+        return k.contiguous(), v.contiguous()
+
+    k, v = gather()
+    mask = (torch.arange(t, device=q.device)[None, :] < lengths[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask, enable_gqa=True)
+    return device_ms(sdpa, reps=20), device_ms(gather, reps=20)
+
+
+def phase_paged_attention(dev, results: dict, srv, mix, seed: int) -> None:
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the float32 plain version in full float32
+    rng = np.random.default_rng(seed + 7)
+    gen = torch.Generator(dev).manual_seed(seed + 7)
+    h, kvh, d, page, pps = 32, 4, 64, 16, 128
+    shared = 64  # a 1,024-token prompt's pages, shared by every row
+    cases = {}
+    for name, b, dtype, tol in (("bf16", 64, torch.bfloat16, dict(atol=0.05, rtol=0.05)),
+                                ("f32", 8, torch.float32, dict(atol=3e-5, rtol=0))):
+        num_pages = shared + b * (pps - shared)
+        table = np.empty((b, pps), np.int32)
+        table[:, :shared] = np.arange(shared)
+        table[:, shared:] = shared + np.arange(b * (pps - shared)).reshape(b, -1)
+        lengths = rng.integers(0, pps * page + 1, size=b).astype(np.int32)
+        lengths[0], lengths[1] = 0, pps * page
+        q = torch.randn((b, h, d), generator=torch.Generator().manual_seed(seed)).to(dev, dtype)
+        kp = torch.randn((num_pages, page, kvh, d), generator=gen, device=dev).to(dtype)
+        vp = torch.randn((num_pages, page, kvh, d), generator=gen, device=dev).to(dtype)
+        tt, lt = torch.from_numpy(table).to(dev), torch.from_numpy(lengths).to(dev)
+        got = paged_attention(q, kp, vp, tt, lt)
+        want = paged_attention_torch(q, kp, vp, tt, lt)
+        torch.testing.assert_close(got.float(), want.float(), **tol)  # raises on a mismatch
+        err = float((got.float() - want.float()).abs().max().item())
+        ms = device_ms(lambda: paged_attention(q, kp, vp, tt, lt), reps=20)
+        plain_ms = cuda_ms(lambda: paged_attention_torch(q, kp, vp, tt, lt), reps=3, warm=1)
+        sdpa_ms, gather_ms = _sdpa_ms(q, kp, vp, tt, lt)
+        elem = torch.finfo(dtype).bits // 8
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        t_bytes, t_ops, nbytes, all_bytes = _paged_bound(
+            table, lengths, page * kvh * d * elem, h, d, elem, page, peak)
+        cases[name] = dict(rows=b, pages=num_pages, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           sdpa_ms=sdpa_ms, gather_ms=gather_ms, bytes_bound_ms=t_bytes,
+                           ops_bound_ms=t_ops, bytes=nbytes,
+                           bytes_all_pages_ms=all_bytes / HBM_BYTES_PER_S * 1e3)
+        del q, kp, vp, got, want
+        torch.cuda.empty_cache()
+
+    # the serve phase's own page pool: every page the server holds, for two
+    # layers, and each request's table from its LBAs' PBAs
+    store = srv.dedup.store
+    pbas = sorted(srv.pages)
+    slot = {pba: i for i, pba in enumerate(pbas)}
+    tables, lens = [], []
+    for r, (tenant, toks) in enumerate(mix):
+        nblocks = toks.size // srv.page_tokens
+        row = [store.lba_map[(tenant, (r << 24) | i)] for i in range(nblocks)]
+        check(all(p in slot for p in row), f"request {r} maps a block to a PBA with no page")
+        tables.append([slot[p] for p in row])
+        lens.append(nblocks * srv.page_tokens)
+    table = np.asarray(tables, np.int32)
+    lengths = np.asarray(lens, np.int32)
+    tt, lt = torch.from_numpy(table).to(dev), torch.from_numpy(lengths).to(dev)
+    cfg = srv.model.cfg
+    q = torch.randn((len(mix), cfg.num_heads, cfg.head_dim),
+                    generator=torch.Generator().manual_seed(seed + 1)).to(dev, torch.bfloat16)
+    pools = {}
+    for layer in (0, cfg.num_layers - 1):
+        pools[layer] = (torch.stack([srv.pages[p].k[layer] for p in pbas]).contiguous(),
+                        torch.stack([srv.pages[p].v[layer] for p in pbas]).contiguous())
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    outs = {layer: paged_attention(q, kp, vp, tt, lt) for layer, (kp, vp) in pools.items()}
+    torch.cuda.synchronize()
+    launches = _build.LAUNCHES["paged_attention"]
+    check(launches == len(pools), f"paged_attention launched {launches} times over the pool")
+    pool_err = 0.0
+    for layer, (kp, vp) in pools.items():
+        want = paged_attention_torch(q, kp, vp, tt, lt)
+        torch.testing.assert_close(outs[layer].float(), want.float(), atol=0.05, rtol=0.05)
+        pool_err = max(pool_err, float((outs[layer].float() - want.float()).abs().max().item()))
+    kp, vp = pools[0]
+    pool_ms = device_ms(lambda: paged_attention(q, kp, vp, tt, lt), reps=20)
+    distinct = int(np.unique(table).size)
+
+    a = cases["bf16"]
+    results["paged_attention"]["launches_by_path"]["serve_pool"] = launches
+    results["paged_attention"].update(
+        max_abs_err=max(a["max_abs_err"], pool_err), ms=a["ms"], plain_ms=a["plain_ms"],
+        bound_ms=max(a["bytes_bound_ms"], a["ops_bound_ms"]),
+        bound_by="bytes" if a["bytes_bound_ms"] >= a["ops_bound_ms"] else "operations",
+        library_ms=a["sdpa_ms"], gather_ms=a["gather_ms"],
+        shape={"B": 64, "H": h, "KVH": kvh, "D": d, "page": page, "pps": pps, "dtype": "bf16"},
+        f32=cases["f32"], pool_ms=pool_ms,
+        pool_max_abs_err=pool_err,
+    )
+    emit("paged_attention", cases=cases, pool_rows=int(table.shape[0]),
+         pool_pages=len(pbas), pool_distinct_pages_used=distinct,
+         pool_table_entries=int(table.size), pool_layers=list(pools), pool_ms=pool_ms,
+         pool_max_abs_err=pool_err, launches=launches, agree=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--requests", type=int, default=2_000_000)
@@ -751,11 +1104,15 @@ def main() -> int:
     phase_fingerprint(dev, results)
     phase_fp_index(dev, results)
     phase_crossover(dev)
-    phase_replay(dev, results, args.requests, args.seed)
+    content_fps = phase_replay(dev, results, args.requests, args.seed)
     phase_cdc_kernels(dev, results)
     phase_cdc(dev, results, args.seed)
+    phase_ffh(dev, results, content_fps, args.seed)
+    srv, mix = phase_serve(dev, results, args.seed)
+    phase_paged_attention(dev, results, srv, mix, args.seed)
     for name in KERNELS:
         results[name]["launches"] = sum(results[name]["launches_by_path"].values())
+        check(results[name]["launches"] > 0, f"kernel {name} never launched on a main path")
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "agree": True, **results[name]}

@@ -663,9 +663,16 @@ def hpdedup_run(hp, rb: ReplayBatch, out: Optional[np.ndarray] = None) -> None:
         pos = boundary + 1
 
 
+def _fp_column(fps) -> np.ndarray:
+    """Fingerprints as uint64.  ``np.asarray`` of a Python list that mixes
+    values at or above 2^63 with smaller ones gives float64 and rounds them
+    to 53 bits (the reference does that); ``dtype=np.uint64`` keeps them."""
+    return np.asarray(fps, dtype=np.uint64)
+
+
 def hpdedup_write_batch(hp, streams, lbas, fps) -> np.ndarray:
     """Batched write ingestion; returns per-record inline-dedup flags."""
-    rb = ReplayBatch(np.asarray(streams), np.asarray(lbas), np.asarray(fps))
+    rb = ReplayBatch(np.asarray(streams), np.asarray(lbas), _fp_column(fps))
     out = np.zeros(len(rb), dtype=bool)
     hpdedup_run(hp, rb, out)
     return out
@@ -833,7 +840,7 @@ def _diode_bulk(d, rb: ReplayBatch, out: Optional[np.ndarray], base: int) -> Non
 
 
 def diode_write_batch(d, streams, lbas, fps) -> np.ndarray:
-    rb = ReplayBatch(np.asarray(streams), np.asarray(lbas), np.asarray(fps))
+    rb = ReplayBatch(np.asarray(streams), np.asarray(lbas), _fp_column(fps))
     out = np.zeros(len(rb), dtype=bool)
     _diode_bulk(d, rb, out, 0)
     return out
@@ -903,7 +910,7 @@ def _postproc_bulk(pp, rb: ReplayBatch) -> None:
 
 
 def postproc_write_batch(pp, streams, lbas, fps) -> np.ndarray:
-    rb = ReplayBatch(np.asarray(streams), np.asarray(lbas), np.asarray(fps))
+    rb = ReplayBatch(np.asarray(streams), np.asarray(lbas), _fp_column(fps))
     _postproc_bulk(pp, rb)
     return np.zeros(len(rb), dtype=bool)  # nothing is ever deduped inline
 

@@ -457,11 +457,20 @@ class FingerprintIndex(set):
         Costs one host-set update; the table build is journaled and folded
         lazily at the next batched probe (unique + probe-filter + one
         vectorized insert), so bulk insertion runs at native set speed.
+
+        A staged removal of a batch key is cancelled, as ``add`` does: the
+        key is still physically in the table (or in an unfolded journal),
+        and ``_flush`` folds removals after the journal, so a surviving
+        staged removal would tombstone the key just re-added.
         """
         keys = np.ascontiguousarray(fps, dtype=np.uint64)
         if keys.size == 0:
             return
-        super().update(keys.tolist())
+        listed = keys.tolist()
+        super().update(listed)
+        if self._pending_removes:
+            for fp in listed:
+                self._pending_removes.pop(fp, None)
         self._journal.append(keys.copy())
         self._journal_n += keys.size
 

@@ -26,7 +26,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("fingerprint", "fp_index", "cdc")
+SOURCES = ("fingerprint", "fp_index", "cdc", "histogram", "paged_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 
 LAUNCHES: Dict[str, int] = {
     "fingerprint": 0, "fp_probe": 0, "fp_insert": 0, "fp_remove": 0,
-    "cdc_candidates": 0, "chunk_fingerprint": 0,
+    "cdc_candidates": 0, "chunk_fingerprint": 0, "ffh": 0, "paged_attention": 0,
 }
 # ptxas register/spill report of each library built by this process
 BUILD_LOG: Dict[str, str] = {}
@@ -58,6 +58,13 @@ _SIGNATURES = {
         "chunk_fingerprint_launch": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                                      ctypes.c_int, ctypes.c_void_p],
+    },
+    "histogram": {
+        "ffh_launch": [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p],
+    },
+    "paged_attention": {
+        "paged_attention_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     },
 }
 

@@ -18,6 +18,7 @@ from . import _build
 from .cdc import HALO_WORDS, SEG_BYTES, SEG_WORDS, cdc_candidates, unpack_candidates
 from .fingerprint import LANES, NUM_HASHES, _M32, fingerprint, fingerprint_torch
 from .fp_index import fp_insert, fp_probe, fp_remove
+from .histogram import NBINS_DEFAULT, ffh
 
 # chunks per step of the plain gather: bounds its int64 temporaries
 _PLAIN_CHUNKS = 1024
@@ -278,3 +279,18 @@ def fp_index_insert(keys: np.ndarray, table: torch.Tensor, cap: int) -> np.ndarr
 def fp_index_remove(keys: np.ndarray, table: torch.Tensor, cap: int) -> np.ndarray:
     """Tombstone uint64 host keys in the table in place; (N,) bool numpy."""
     return fp_remove(keys_to_device(keys, table.device), table, cap).cpu().numpy()
+
+
+def ffh_counts(counts, nbins: int = NBINS_DEFAULT, device=None) -> torch.Tensor:
+    """(nbins,) int32 FFH of occurrence counts (0 or below ignored), on the
+    counts' device.  A host array (anything ``np.asarray`` takes, viewed as
+    int32 like the reference's) goes to ``device``, the card by default; a
+    tensor stays where it lies unless ``device`` names another.  Unlike the
+    reference, which pads to its kernel's tile, the counts are not padded:
+    the kernel takes any length."""
+    if isinstance(counts, torch.Tensor):
+        c = counts if device is None else counts.to(device)
+    else:
+        host = np.ascontiguousarray(np.asarray(counts).reshape(-1), dtype=np.int32)
+        c = torch.from_numpy(host).to("cuda" if device is None else device)
+    return ffh(c.reshape(-1).to(torch.int32).contiguous(), nbins)

@@ -6,7 +6,8 @@ fault in ``kernels.fingerprint`` cannot hide behind shared code.
 ``fingerprint_golden_numpy`` is a third model in numpy uint64 arithmetic
 mod 2^32; the tests pin both to the golden digests.  ``cdc_golden_buffer``
 makes the byte buffers of the golden chunking cases
-(``tests/golden/cdc_digests.json``).
+(``tests/golden/cdc_digests.json``).  ``ffh_ref`` counts the histogram with
+``bincount``, where ``kernels.histogram``'s plain version compares one-hot.
 """
 
 from __future__ import annotations
@@ -87,6 +88,13 @@ def fingerprint_golden_numpy(blocks: np.ndarray) -> np.ndarray:
         h = h ^ (h >> np.uint64(16))
         out[:, which] = h
     return out.astype(np.uint32)
+
+
+def ffh_ref(counts: torch.Tensor, nbins: int) -> torch.Tensor:
+    """Oracle for the FFH: (nbins,) int32, counts clipped to ``nbins``,
+    counts of 0 or below excluded."""
+    clipped = torch.clamp(counts.reshape(-1).to(torch.int64), max=nbins)
+    return torch.bincount(clipped[clipped >= 1] - 1, minlength=nbins).to(torch.int32)
 
 
 def _cdc_mix_bytes(n: int, salt: int) -> np.ndarray:

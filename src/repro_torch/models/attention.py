@@ -1,0 +1,81 @@
+"""GQA attention for decoding against a dense KV cache.
+
+The port's counterpart of the reference's ``models/attention.py`` decode
+path for full causal attention (``window=0``).  Weight layouts are the
+reference's: ``wq`` (d, H, hd), ``wk``/``wv`` (d, KVH, hd), ``wo`` (H, hd, d).
+The attention itself stays plain matrix products, as the reference computes
+it (einsums) outside any Pallas kernel; ``kernels.paged_attention`` is the
+paged kernel.
+
+The cache holds every layer: k and v of shape (layers, B, slots, KVH, hd).
+``attention_decode`` writes the new token's K/V into its layer's slot in
+place (the reference returns a new cache), which saves a copy of the cache
+per layer and step.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from .layers import ParamFactory, rotate
+
+NEG_INF = -1e30
+
+
+def init_attention(pf: ParamFactory, d: int, heads: int, kv_heads: int, head_dim: int) -> dict:
+    return {
+        "wq": pf.normal((d, heads, head_dim)),
+        "wk": pf.normal((d, kv_heads, head_dim)),
+        "wv": pf.normal((d, kv_heads, head_dim)),
+        "wo": pf.normal((heads, head_dim, d)),
+    }
+
+
+class KVCache(NamedTuple):
+    """Dense KV cache of every layer, ``k`` and ``v`` of (layers, B, slots,
+    KVH, hd); the server's pages are slices of it, (layers, page, KVH, hd)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def init_kv_cache(batch: int, slots: int, kv_heads: int, head_dim: int, dtype, layers: int,
+                  device=None) -> KVCache:
+    """Zeroed cache for ``layers`` layers on a leading axis:
+    (layers, batch, slots, kv_heads, head_dim) each for K and V."""
+    shape = (layers, batch, slots, kv_heads, head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     pos: int, rope: Tuple[torch.Tensor, torch.Tensor],
+                     valid: torch.Tensor) -> torch.Tensor:
+    """One token x (B, 1, d) at position ``pos`` against one layer's cache
+    (B, slots, KVH, hd), which takes the token's K/V in place; returns the
+    attention block's output (B, 1, d).
+
+    ``rope`` is ``layers.rope_angles`` at ``pos`` and ``valid`` the (slots,)
+    mask of the slots at or before ``pos``, both made once per step by the
+    caller.  The reference's einsums run as matrix products, the query
+    heads of a KV head grouped against it instead of repeating K and V.
+    """
+    b, _, d = x.shape
+    heads, hd = p["wq"].shape[1], p["wq"].shape[2]
+    slots, kv_heads = cache_k.shape[1], cache_k.shape[2]
+    groups = heads // kv_heads
+    q = rotate((x @ p["wq"].reshape(d, heads * hd)).view(b, 1, heads, hd), *rope)
+    k_new = rotate((x @ p["wk"].reshape(d, kv_heads * hd)).view(b, 1, kv_heads, hd), *rope)
+    v_new = (x @ p["wv"].reshape(d, kv_heads * hd)).view(b, 1, kv_heads, hd)
+    slot = pos % slots
+    cache_k[:, slot] = k_new[:, 0]
+    cache_v[:, slot] = v_new[:, 0]
+
+    qg = q.view(b, kv_heads, groups, hd)                      # (B, KVH, G, hd)
+    logits = (qg @ cache_k.permute(0, 2, 3, 1)) * hd ** -0.5  # (B, KVH, G, slots)
+    logits = torch.where(valid, logits, NEG_INF)
+    attn = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+    out = attn @ cache_v.transpose(1, 2)                      # (B, KVH, G, hd)
+    return out.reshape(b, 1, heads * hd) @ p["wo"].reshape(heads * hd, d)

@@ -5,6 +5,9 @@
   interpret mode) bit for bit: tables and statuses.
 * Random op sequences give the same membership, ``len`` and spill as
   ``repro.core.fp_index.FingerprintIndex`` on both port backends, on the CPU.
+* Membership equals a plain set's on both backends (hypothesis), including
+  ``discard`` then ``add_many`` of a key still in the table, where the
+  reference answers "absent" (ROADMAP, faults found against the reference).
 
 The CUDA kernels are held against these plain versions in
 ``tests/test_torch_gpu.py``.
@@ -20,6 +23,12 @@ from repro.kernels import fp_index as ref_k
 from repro.kernels import ops as ref_ops
 from repro_torch.core.fp_index import EMPTY_KEY, TOMB_KEY, FingerprintIndex
 from repro_torch.kernels import fp_index as k
+
+from conftest import require_hypothesis
+
+require_hypothesis()
+from hypothesis import example, given  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
 
 
 def _keys(rng, n):
@@ -241,3 +250,71 @@ def test_wrappers_reject_bad_tables():
     with pytest.raises(TypeError):
         k.fp_insert(keys.to(torch.int32), torch.zeros(k.table_phys_len(64), dtype=torch.int64),
                     64)
+
+
+@pytest.mark.parametrize("backend", ["numpy", "torch"])
+def test_add_many_cancels_a_staged_removal(backend):
+    """The shortest sequence on which the reference loses key 1: ``discard``
+    stages a removal of a key still in the table, ``add_many`` journals it
+    again, and the flush must not tombstone it."""
+    idx = FingerprintIndex(capacity=32, small_batch=0, backend=backend, device="cpu")
+    for key in [0] * 9 + [25, 1, 32]:
+        idx.add(key)
+    idx.contains_many(np.asarray([10], dtype=np.uint64))
+    idx.discard(1)
+    idx.add_many(np.asarray([1], dtype=np.uint64))
+    got = idx.contains_many(np.asarray([0, 1, 25, 32], dtype=np.uint64))
+    np.testing.assert_array_equal(got, [True, True, True, True])
+    idx.check_consistency()
+    # the order contract stays: add_many then discard ends with the key absent
+    idx.add_many(np.asarray([7], dtype=np.uint64))
+    idx.discard(7)
+    assert not idx.contains_many(np.asarray([7, 1], dtype=np.uint64))[0]
+    idx.check_consistency()
+
+
+_key_st = st.one_of(
+    st.integers(min_value=0, max_value=(1 << 64) - 1),
+    st.integers(min_value=0, max_value=31),  # collisions: every duplicate path
+    st.sampled_from([EMPTY_KEY, TOMB_KEY, 1, (1 << 64) - 2]),
+)
+_op_st = st.tuples(
+    st.sampled_from(["add", "add_many", "remove", "remove_many", "probe"]),
+    st.lists(_key_st, min_size=1, max_size=60),
+)
+
+
+@given(st.lists(_op_st, min_size=1, max_size=30))
+@example([("add", [0] * 9 + [25, 1, 32]), ("probe", [10]), ("remove", [1]), ("add_many", [1]),
+          ("probe", [0, 1, 25, 32])])
+def test_property_matches_a_set_on_both_backends(ops):
+    """Scalar and batched mutators mixed, at capacity 32 (window overflow and
+    growth routine): every membership answer equals a plain set's."""
+    oracle = set()
+    indexes = [FingerprintIndex(capacity=32, small_batch=0, backend=b, device="cpu")
+               for b in ("numpy", "torch")]
+    for op, keys in ops:
+        arr = np.asarray(keys, dtype=np.uint64)
+        for idx in indexes:
+            if op == "add":
+                for key in keys:
+                    idx.add(key)
+            elif op == "add_many":
+                idx.add_many(arr)
+            elif op == "remove":
+                for key in keys:
+                    idx.discard(key)
+            elif op == "remove_many":
+                idx.remove_many(arr)
+            else:
+                want = np.fromiter((key in oracle for key in keys), dtype=bool, count=len(keys))
+                np.testing.assert_array_equal(idx.contains_many(arr), want)
+        if op in ("add", "add_many"):
+            oracle.update(keys)
+        elif op in ("remove", "remove_many"):
+            oracle.difference_update(keys)
+    for idx in indexes:
+        assert set(idx) == oracle
+        everything = np.fromiter(oracle, dtype=np.uint64, count=len(oracle))
+        assert idx.contains_many(everything).all()
+        idx.check_consistency()

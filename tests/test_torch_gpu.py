@@ -8,7 +8,8 @@ installed:
 
 The plain versions themselves are held against the reference package on the
 CPU in ``test_torch_fingerprint.py``, ``test_torch_fp_index.py``,
-``test_torch_engine.py`` and ``test_torch_cdc.py``.
+``test_torch_engine.py``, ``test_torch_cdc.py``, ``test_torch_ffh.py``,
+``test_torch_paged_attention.py`` and ``test_torch_serving.py``.
 """
 
 import dataclasses
@@ -27,6 +28,8 @@ from repro_torch.kernels import fp_index as k
 from repro_torch.kernels import ops
 from repro_torch.kernels._build import LAUNCHES
 from repro_torch.kernels.fingerprint import fingerprint, fingerprint_torch
+from repro_torch.kernels.histogram import ffh, ffh_torch
+from repro_torch.kernels.paged_attention import paged_attention, paged_attention_torch
 from repro_torch.kernels.ref import cdc_golden_buffer, fingerprint_golden_numpy
 
 pytestmark = pytest.mark.gpu
@@ -237,3 +240,104 @@ def test_chunker_on_card_matches_golden_and_host(cuda):
         np.testing.assert_array_equal(f1, f2)
     assert LAUNCHES["cdc_candidates"] == before["cdc_candidates"] + 1
     assert LAUNCHES["chunk_fingerprint"] == before["chunk_fingerprint"] + 1
+
+
+@pytest.mark.parametrize("n", [1, 7, 4096, 1_000_003])
+@pytest.mark.parametrize("nbins", [1, 2, 40, 128, 1024])
+def test_ffh_kernel_matches_plain(cuda, n, nbins):
+    """Heavy-tailed counts (the hot bins 1 and 2), zeros, negatives and
+    counts above the last bin; lengths off the 16-byte groups."""
+    rng = np.random.default_rng(n + nbins)
+    c = rng.geometric(0.5, size=n).astype(np.int32)
+    c[rng.random(n) < 0.1] = 0
+    c[rng.random(n) < 0.05] = -3
+    c[rng.random(n) < 0.02] = nbins + 17
+    c[0] = np.iinfo(np.int32).min
+    t = torch.from_numpy(c)
+    before = LAUNCHES["ffh"]
+    got = ffh(t.to(cuda), nbins)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ffh"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), ffh_torch(t, nbins).numpy())
+    np.testing.assert_array_equal(ops.ffh_counts(c, nbins, device=cuda).cpu().numpy(),
+                                  ffh_torch(t, nbins).numpy())
+
+
+def test_ffh_kernel_all_in_one_bin(cuda):
+    for value, nbins in ((1, 40), (2, 40), (5, 40), (500, 40), (1, 1)):
+        got = ffh(torch.full((1 << 20,), value, dtype=torch.int32, device=cuda), nbins)
+        want = np.zeros(nbins, np.int32)
+        want[min(value, nbins) - 1] = 1 << 20
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def _paged_inputs(rng, b, h, kvh, d, ps, pps, dtype, device):
+    npages = pps * b // 2 + 3
+    q = torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32))
+    kp = torch.from_numpy(rng.standard_normal((npages, ps, kvh, d)).astype(np.float32))
+    vp = torch.from_numpy(rng.standard_normal((npages, ps, kvh, d)).astype(np.float32))
+    table = rng.integers(0, npages, (b, pps)).astype(np.int32)
+    table[:, : pps // 2] = np.arange(pps // 2)  # a shared prefix of pages in every row
+    table[-1, -1] = table[-1, 0]  # an id repeated inside one row
+    lengths = rng.integers(0, ps * pps + 1, (b,)).astype(np.int32)
+    lengths[0], lengths[-1] = 0, ps * pps  # a row of length 0 and a full row
+    if b > 2:
+        lengths[1] = ps * (pps // 2) + 1  # one token into a page
+    return [x.to(device) for x in (q.to(dtype), kp.to(dtype), vp.to(dtype),
+                                   torch.from_numpy(table), torch.from_numpy(lengths))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kvh,d,ps,pps", [
+    (8, 32, 4, 64, 16, 8),     # TinyLlama's heads
+    (3, 8, 8, 64, 32, 3),
+    (4, 16, 4, 128, 16, 5),
+    (2, 32, 1, 128, 32, 4),    # 32 query heads on one KV head
+])
+def test_paged_attention_kernel_matches_plain(cuda, dtype, b, h, kvh, d, ps, pps):
+    args = _paged_inputs(np.random.default_rng(b * h + d), b, h, kvh, d, ps, pps, dtype, cuda)
+    before = LAUNCHES["paged_attention"]
+    got = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["paged_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, d)
+    want = paged_attention_torch(*args)
+    tol = dict(atol=3e-5, rtol=0) if dtype == torch.float32 else dict(atol=0.05, rtol=0.05)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    # the length-0 row is the mean of V over its slots, as the plain version gives
+    v0 = args[2][args[3][0].long()].float().reshape(-1, kvh, d).mean(dim=0)
+    torch.testing.assert_close(got[0].float(), v0.repeat_interleave(h // kvh, dim=0), **tol)
+
+
+def test_paged_attention_kernel_shared_rows_identical(cuda):
+    rng = np.random.default_rng(7)
+    q, kp, vp, table, lengths = _paged_inputs(rng, 4, 32, 4, 64, 16, 6, torch.bfloat16, cuda)
+    q[1], table[1], lengths[1] = q[2], table[2], lengths[2]
+    got = paged_attention(q, kp, vp, table, lengths)
+    assert torch.equal(got[1], got[2])
+
+
+def test_server_on_card_matches_host(cuda):
+    """The smoke TinyLlama served on the card: the same metrics as on the
+    host, and page reuse exact against a server that caches nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.dedup_kv import DedupKVServer
+
+    cfg = get_config("tinyllama-1.1b", smoke=True)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, 48)
+    reqs = [np.concatenate([prompt, rng.integers(0, cfg.vocab_size, 8)]) for _ in range(4)]
+    metrics, caches = [], []
+    for device, entries in ((cuda, 128), ("cpu", 128), (cuda, 0)):
+        srv = DedupKVServer(build_model(cfg), params, page_tokens=16, max_slots=128,
+                            cache_entries=entries, device=device)
+        for toks in reqs:
+            cache, pos, _ = srv.prefill_request(0, toks)
+        metrics.append(dataclasses.asdict(srv.metrics))
+        caches.append((srv, cache, pos))
+    assert metrics[0] == metrics[1] and metrics[0]["blocks_prefill_skipped"] == 9
+    (srv, c1, p1), _, (nodedup, c2, p2) = caches
+    assert torch.equal(c1.k, c2.k) and torch.equal(c1.v, c2.v)
+    assert srv.decode(c1, p1, steps=4)[0] == nodedup.decode(c2, p2, steps=4)[0]
