@@ -16,7 +16,11 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
 * ``fp_index``    the probe/insert/remove kernels on a 2^24-slot table filled
                   to load 0.3, against the plain versions and the host probe;
                   per-launch device times at 8,192 and 1,048,576 keys, and
-                  the rate of back-to-back wrapper calls at 8,192.
+                  the rate of back-to-back wrapper calls at 8,192.  Then a
+                  contention case: 8,192 keys made of 64 distinct keys, 128
+                  copies each, into the filled table; the insert kernel's
+                  status counts must equal the plain version's (64 placed or
+                  overflowed, the rest PRESENT); its device time.
 * ``crossover``   the batch size from which a probe through the table on the
                   card beats the host set (``FingerprintIndex.small_batch``).
 * ``replay``    the slice's main path: paper workload A (32 VM streams),
@@ -66,10 +70,13 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
 * ``paged_attention`` the paged decode kernel at TinyLlama's decode shape
                   (64 rows of up to 2,048 tokens, bf16, the first 1,024 tokens'
                   pages shared by every row, lengths 0 and 2,048 included; and
-                  float32 at 8 rows), then over the ``serve`` phase's own page
+                  float32 at 8 rows; and 8 bf16 rows all at 2,048 tokens,
+                  the long-row case), then over the ``serve`` phase's own page
                   pool (layers 0 and 21, each request's table from its LBAs'
                   PBAs), against the plain version (bf16 atol/rtol 0.05,
-                  float32 atol 3e-5); device time beside the SDPA call's.
+                  float32 atol 3e-5); two calls on each case must give equal
+                  bits; device time beside the SDPA call's, and the pages
+                  per split the kernel used.
 * ``kernels``     one object per kernel: launches on the main paths (replay,
                   cdc, serve, ffh and the paged pool, summed), largest
                   disagreement with its plain version, times, and the least
@@ -424,6 +431,38 @@ def phase_fp_index(dev, results: dict) -> None:
             "fp_insert": _index_bytes("fp_insert", t64, fresh_np[timed], cap) / reps,
             "fp_remove": _index_bytes("fp_remove", t64, res_np[timed], cap) / reps,
         }
+    # contention: 8,192 keys made of 64 distinct keys, 128 copies each, into
+    # the filled table; the kernel's status counts must equal the plain
+    # version's (64 placed or overflowed, the rest PRESENT), and afterwards
+    # every key that no copy reported OVERFLOW is in the table, as in the
+    # plain version's; timed like the fresh keys, a new set of 64 keys per
+    # launch
+    distinct, copies, reps, warm = 64, 128, 30, 2
+    hot_np = rng.integers(1, 2**64 - 1, size=(reps + warm + 1, distinct), dtype=np.uint64)
+    hot_np = np.repeat(hot_np, copies, axis=1)
+    for row in hot_np:
+        rng.shuffle(row)
+    hot = keys_to_device(hot_np.reshape(-1), dev)
+    size = distinct * copies
+    got_tbl, want_tbl = table.clone(), plain.clone()
+    got_hot = k.fp_insert(hot[:size], got_tbl, cap)
+    want_hot = k.fp_insert_torch(hot[:size], want_tbl, cap)
+    hot_counts = torch.bincount(got_hot.long(), minlength=4).tolist()
+    hot_plain = torch.bincount(want_hot.long(), minlength=4).tolist()
+    check(hot_counts == hot_plain, f"contention status counts {hot_counts} vs {hot_plain}")
+    check(hot_counts[k.PRESENT] == size - distinct, f"contention PRESENT {hot_counts}")
+    hot_keys = keys_to_device(np.unique(hot_np[0]), dev)
+    spilled = torch.isin(hot_keys, hot[:size][got_hot == k.OVERFLOW])
+    present = k.fp_probe(hot_keys, got_tbl, cap)
+    check(torch.equal(present, ~spilled), "contention: a key neither in the table nor spilled")
+    check(torch.equal(present, k.fp_probe_torch(hot_keys, want_tbl, cap)),
+          "contention: membership differs from the plain version's")
+    del got_tbl, want_tbl
+    hot_tbl = table.clone()
+    hot_it = iter(range(1, reps + warm + 1))
+    contention_ms = device_ms(
+        lambda: k.fp_insert(hot[next(hot_it) * size:][:size], hot_tbl, cap), reps, warm)
+    del hot_tbl
     for name in ("fp_probe", "fp_insert", "fp_remove"):
         results[name] = dict(
             max_abs_err={"fp_probe": probe_err, "fp_insert": ins_err, "fp_remove": rem_err}[name],
@@ -433,10 +472,14 @@ def phase_fp_index(dev, results: dict) -> None:
             ms_at_1m=times[1 << 20][name], plain_ms_at_1m=times[1 << 20]["plain"][name],
             bound_ms_at_1m=bounds[1 << 20][name] / HBM_BYTES_PER_S * 1e3,
         )
+    results["fp_insert"].update(contention_ms=contention_ms, contention_status_counts=hot_counts)
     emit("fp_index", capacity=cap, table_mb=slots * 8 / 2**20, keys=int(keys.size),
          load=keys.size / cap, status_counts=counts, plain_status_counts=counts_plain,
          probed=int(probe.size), removed=int(gone.size), agree=True,
-         ms={str(s): v for s, v in times.items()})
+         ms={str(s): v for s, v in times.items()},
+         contention={"keys": size, "distinct": distinct, "status_counts": hot_counts,
+                     "plain_status_counts": hot_plain, "insert_ms": contention_ms,
+                     "fresh_insert_ms": times[8192]["fp_insert"]})
     del table, plain
     torch.cuda.empty_cache()
 
@@ -995,22 +1038,34 @@ def _sdpa_ms(q, k_pages, v_pages, table, lengths):
 
 def phase_paged_attention(dev, results: dict, srv, mix, seed: int) -> None:
     from repro_torch.kernels import _build
-    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_torch
+    from repro_torch.kernels.paged_attention import (
+        bf16_err_ratio,
+        paged_attention,
+        paged_attention_torch,
+        split_pages,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the float32 plain version in full float32
     rng = np.random.default_rng(seed + 7)
     gen = torch.Generator(dev).manual_seed(seed + 7)
     h, kvh, d, page, pps = 32, 4, 64, 16, 128
     shared = 64  # a 1,024-token prompt's pages, shared by every row
+    pages_per_split = split_pages(pps, page)
     cases = {}
-    for name, b, dtype, tol in (("bf16", 64, torch.bfloat16, dict(atol=0.05, rtol=0.05)),
-                                ("f32", 8, torch.float32, dict(atol=3e-5, rtol=0))):
+    bf16_tol, f32_tol = dict(atol=0.05, rtol=0.05), dict(atol=3e-5, rtol=0)
+    # (name, rows, dtype, tolerance, every row at the full 2,048 tokens)
+    for name, b, dtype, tol, full in (("bf16", 64, torch.bfloat16, bf16_tol, False),
+                                      ("f32", 8, torch.float32, f32_tol, False),
+                                      ("long_bf16", 8, torch.bfloat16, bf16_tol, True)):
         num_pages = shared + b * (pps - shared)
         table = np.empty((b, pps), np.int32)
         table[:, :shared] = np.arange(shared)
         table[:, shared:] = shared + np.arange(b * (pps - shared)).reshape(b, -1)
-        lengths = rng.integers(0, pps * page + 1, size=b).astype(np.int32)
-        lengths[0], lengths[1] = 0, pps * page
+        if full:
+            lengths = np.full(b, pps * page, np.int32)
+        else:
+            lengths = rng.integers(0, pps * page + 1, size=b).astype(np.int32)
+            lengths[0], lengths[1] = 0, pps * page
         q = torch.randn((b, h, d), generator=torch.Generator().manual_seed(seed)).to(dev, dtype)
         kp = torch.randn((num_pages, page, kvh, d), generator=gen, device=dev).to(dtype)
         vp = torch.randn((num_pages, page, kvh, d), generator=gen, device=dev).to(dtype)
@@ -1019,6 +1074,12 @@ def phase_paged_attention(dev, results: dict, srv, mix, seed: int) -> None:
         want = paged_attention_torch(q, kp, vp, tt, lt)
         torch.testing.assert_close(got.float(), want.float(), **tol)  # raises on a mismatch
         err = float((got.float() - want.float()).abs().max().item())
+        # bf16: also within a limit scaled to the outputs, which 0.05 is not
+        scaled = bf16_err_ratio(got, want) if dtype == torch.bfloat16 else None
+        check(scaled is None or scaled <= 1, f"paged {name}: error {scaled} x the scaled bf16 limit")
+        # no float atomics, splits merged in a fixed order: equal bits
+        check(torch.equal(got, paged_attention(q, kp, vp, tt, lt)),
+              f"two paged_attention calls on the {name} case differ")
         ms = device_ms(lambda: paged_attention(q, kp, vp, tt, lt), reps=20)
         plain_ms = cuda_ms(lambda: paged_attention_torch(q, kp, vp, tt, lt), reps=3, warm=1)
         sdpa_ms, gather_ms = _sdpa_ms(q, kp, vp, tt, lt)
@@ -1026,7 +1087,10 @@ def phase_paged_attention(dev, results: dict, srv, mix, seed: int) -> None:
         peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
         t_bytes, t_ops, nbytes, all_bytes = _paged_bound(
             table, lengths, page * kvh * d * elem, h, d, elem, page, peak)
-        cases[name] = dict(rows=b, pages=num_pages, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        cases[name] = dict(rows=b, pages=num_pages, pages_per_split=pages_per_split,
+                           splits=-(-pps // pages_per_split), equal_bits=True,
+                           max_abs_err=err, max_abs_want=float(want.float().abs().max()),
+                           bf16_err_ratio=scaled, ms=ms, plain_ms=plain_ms,
                            sdpa_ms=sdpa_ms, gather_ms=gather_ms, bytes_bound_ms=t_bytes,
                            ops_bound_ms=t_ops, bytes=nbytes,
                            bytes_all_pages_ms=all_bytes / HBM_BYTES_PER_S * 1e3)
@@ -1061,11 +1125,13 @@ def phase_paged_attention(dev, results: dict, srv, mix, seed: int) -> None:
     torch.cuda.synchronize()
     launches = _build.LAUNCHES["paged_attention"]
     check(launches == len(pools), f"paged_attention launched {launches} times over the pool")
-    pool_err = 0.0
+    pool_err = pool_ratio = 0.0
     for layer, (kp, vp) in pools.items():
         want = paged_attention_torch(q, kp, vp, tt, lt)
         torch.testing.assert_close(outs[layer].float(), want.float(), atol=0.05, rtol=0.05)
         pool_err = max(pool_err, float((outs[layer].float() - want.float()).abs().max().item()))
+        pool_ratio = max(pool_ratio, bf16_err_ratio(outs[layer], want))
+    check(pool_ratio <= 1, f"paged pool: error {pool_ratio} x the scaled bf16 limit")
     kp, vp = pools[0]
     pool_ms = device_ms(lambda: paged_attention(q, kp, vp, tt, lt), reps=20)
     distinct = int(np.unique(table).size)
@@ -1073,18 +1139,22 @@ def phase_paged_attention(dev, results: dict, srv, mix, seed: int) -> None:
     a = cases["bf16"]
     results["paged_attention"]["launches_by_path"]["serve_pool"] = launches
     results["paged_attention"].update(
-        max_abs_err=max(a["max_abs_err"], pool_err), ms=a["ms"], plain_ms=a["plain_ms"],
+        max_abs_err=max(a["max_abs_err"], cases["long_bf16"]["max_abs_err"], pool_err),
+        ms=a["ms"], plain_ms=a["plain_ms"],
         bound_ms=max(a["bytes_bound_ms"], a["ops_bound_ms"]),
         bound_by="bytes" if a["bytes_bound_ms"] >= a["ops_bound_ms"] else "operations",
         library_ms=a["sdpa_ms"], gather_ms=a["gather_ms"],
-        shape={"B": 64, "H": h, "KVH": kvh, "D": d, "page": page, "pps": pps, "dtype": "bf16"},
-        f32=cases["f32"], pool_ms=pool_ms,
-        pool_max_abs_err=pool_err,
+        shape={"B": 64, "H": h, "KVH": kvh, "D": d, "page": page, "pps": pps, "dtype": "bf16",
+               "pages_per_split": pages_per_split},
+        f32=cases["f32"], long_rows=cases["long_bf16"], pool_ms=pool_ms,
+        pool_max_abs_err=pool_err, pool_bf16_err_ratio=pool_ratio,
     )
     emit("paged_attention", cases=cases, pool_rows=int(table.shape[0]),
+         pool_pages_per_split=split_pages(table.shape[1], srv.page_tokens),
          pool_pages=len(pbas), pool_distinct_pages_used=distinct,
          pool_table_entries=int(table.size), pool_layers=list(pools), pool_ms=pool_ms,
-         pool_max_abs_err=pool_err, launches=launches, agree=True)
+         pool_max_abs_err=pool_err, pool_bf16_err_ratio=pool_ratio, launches=launches,
+         agree=True)
 
 
 def main() -> int:

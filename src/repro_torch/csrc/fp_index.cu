@@ -18,27 +18,48 @@
 // keys of one replay batch, ~0.12 us at 3.35 TB/s.  A launch costs more than
 // that, so at the main path's batch size launch and host<->device copy
 // latency bound it; at millions of keys the random sector reads bound it.
-// The design reads each window as one contiguous line.
+// Probe and insert read each window as one contiguous 128 B line; remove
+// still walks it slot by slot (the next index kernel in the queue).
 //
 // Probe: a half-warp per key; lane i of the half reads slot home + i, so the
 // window is one coalesced 128 B read, and __ballot_sync reports a hit.
 //
-// Insert: one thread per key, in parallel with 64-bit atomicCAS:
-//   1. scan the whole window for the key: found -> PRESENT;
-//   2. walk the window in order; at each slot that reads EMPTY or TOMBSTONE,
-//      atomicCAS it from the value just read to the key;
-//   3. success -> PLACED (it was EMPTY) or PLACED_TOMB (it was a TOMBSTONE);
-//   4. failure -> the CAS returned the slot's new value: the key itself ->
-//      PRESENT (another copy of the key won), else go on to the next slot;
-//      a slot read as holding the key during the walk is PRESENT too;
-//   5. window exhausted -> OVERFLOW; the host spills the key.
-// Slots only ever go from free to a key during an insert launch, so a key
-// never lands past a slot that was EMPTY when it got there (the host probe
-// stops at EMPTY and stays exact), PLACED and PLACED_TOMB stay apart (the
-// host's tombstone count), and two copies of one key never both land: both
-// walk the same slots in the same order, so the loser meets the winner's
-// slot.  The layout may differ from the sequential kernel's; membership and
-// status counts do not.
+// Insert (the Hopper redesign; PERF.md §6 row 3 dates it): a half-warp per
+// key, like the probe, each half-warp taking INSERT_KEYS = 2 keys.  For
+// each key:
+//   1. lane i reads slot home + i at L2 (ld.relaxed.gpu: a CAS made by
+//      another block of the same launch is seen; a load through L1 may be
+//      stale), so the window is one 128 B read;
+//   2. a ballot of "slot == key" gives PRESENT;
+//   3. a ballot of the free slots (EMPTY or TOMBSTONE); the half walks them
+//      lowest first: the lane owning the slot does atomicCAS from the value
+//      it read to the key and the result goes to the half by shuffle:
+//      success -> PLACED (it read EMPTY) or PLACED_TOMB (it read TOMBSTONE);
+//      the CAS returned the key -> PRESENT (another copy won); anything
+//      else -> clear that bit and try the next free slot;
+//   4. no free bit left -> OVERFLOW; the host spills the key.
+// The two keys' window reads are in flight together, and so are their
+// CASes of a round.  At a million keys a launch is bound by the dependent
+// chain of each key (key, window, CAS) times the keys a warp keeps in
+// flight, not by bytes: two keys per half-warp halve the chains the card
+// waits on.  The two halves of a warp may walk for different numbers of
+// rounds: the whole warp loops until both are done, so every _sync call
+// names all 32 lanes, the tail warp's lanes past n included.
+//
+// Why the invariants hold.  During an insert launch a slot only goes from
+// free to a key, never back, so a slot read as taken stays taken and every
+// slot below the one a key lands in was taken when the key arrived (read
+// taken, or tried and lost): no key lands past a slot that was EMPTY when
+// it came, the host probe may stop at EMPTY and stays exact, and PLACED and
+// PLACED_TOMB stay apart (the host's tombstone count).  Two copies of one
+// key try their free slots in the same order, lowest first; the first CAS
+// that succeeds is the winner's slot s, and every slot below s holds another
+// key for good, so the loser fails there too and then reads s as the key
+// (PRESENT by ballot) or tries s and gets the key back from its CAS
+// (PRESENT): two copies never both land.  If the window fills, every copy
+// reports OVERFLOW, as the sequential kernel's later copies of an
+// overflowed key do.  The layout may differ from the sequential kernel's;
+// membership and status counts do not.
 //
 // Remove: one thread per key: find the key in its window and atomicCAS the
 // slot from the key to TOMBSTONE; the flag is the CAS's success, so a key
@@ -55,6 +76,7 @@ constexpr unsigned long long EMPTY = 0ull;
 constexpr unsigned long long TOMB = ~0ull;
 constexpr int PLACED = 0, PRESENT = 1, OVERFLOW = 2, PLACED_TOMB = 3;
 constexpr int THREADS = 256;
+constexpr int INSERT_KEYS = 2;  // keys per half-warp in the insert
 
 __device__ __forceinline__ uint32_t slot_hash(uint32_t lo, uint32_t hi) {
   uint32_t x = (lo ^ 0x9E3779B9u) * 2654435761u;
@@ -88,42 +110,79 @@ probe_kernel(const unsigned long long* __restrict__ keys, const unsigned long lo
   if (in && lane == 0) out[i] = half != 0;
 }
 
+// A load at L2, so that a CAS made by another block of this launch is seen.
+__device__ __forceinline__ unsigned long long load_relaxed(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
 __global__ void __launch_bounds__(THREADS)
 insert_kernel(const unsigned long long* __restrict__ keys, unsigned long long* table,
               int* __restrict__ status, long long n, long long mask, int tile_shift) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const unsigned long long key = keys[i];
-  if (key == EMPTY) {  // the reference kernel's pad key: skipped
-    status[i] = PRESENT;
-    return;
+  constexpr int K = INSERT_KEYS;
+  const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long i0 = (g >> 4) * K;  // this half-warp's first key
+  const int lane = (int)(g & 15);
+  const int shift = threadIdx.x & 16;  // this half's first lane in the warp
+  unsigned long long key[K], cur[K], old[K];
+  unsigned long long* slot[K];
+  unsigned free_bits[K];
+  bool done[K];
+  int st[K], r[K];
+  // all K window reads are in flight together
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    key[k] = i0 + k < n ? keys[i0 + k] : EMPTY;
+    // the reference kernel's pad key (EMPTY) is skipped and reports PRESENT
+    done[k] = key[k] == EMPTY;
+    st[k] = PRESENT;
+    slot[k] = table + (done[k] ? 0 : phys_home(key[k], mask, tile_shift) + lane);
+    cur[k] = done[k] ? EMPTY : load_relaxed(slot[k]);
   }
-  volatile unsigned long long* win = table + phys_home(key, mask, tile_shift);
-  for (int r = 0; r < WINDOW; ++r) {
-    if (win[r] == key) {
-      status[i] = PRESENT;
-      return;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const bool live = !done[k];
+    const unsigned hit = __ballot_sync(0xffffffffu, live && cur[k] == key[k]) >> shift & 0xffffu;
+    free_bits[k] = __ballot_sync(0xffffffffu, live && (cur[k] == EMPTY || cur[k] == TOMB)) >>
+                   shift & 0xffffu;
+    done[k] = done[k] || hit != 0;
+  }
+  // a round tries, for every undecided key, its lowest free slot left; the
+  // K CASes of a round are in flight together
+  while (true) {
+    bool pending = false;
+#pragma unroll
+    for (int k = 0; k < K; ++k) pending = pending || !done[k];
+    if (!__any_sync(0xffffffffu, pending)) break;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      r[k] = done[k] || free_bits[k] == 0 ? -1 : __ffs(free_bits[k]) - 1;  // uniform in the half
+      if (lane == r[k]) old[k] = atomicCAS(slot[k], cur[k], key[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      // the CAS's outcome, decided by the lane that owns slot r[k]
+      int code = -1;
+      if (lane == r[k])
+        code = old[k] == cur[k] ? (cur[k] == TOMB ? PLACED_TOMB : PLACED)
+                                : (old[k] == key[k] ? PRESENT : -1);
+      code = __shfl_sync(0xffffffffu, code, shift + max(r[k], 0));
+      if (done[k]) continue;
+      if (r[k] < 0) {
+        st[k] = OVERFLOW;
+        done[k] = true;
+      } else if (code >= 0) {
+        st[k] = code;
+        done[k] = true;
+      } else {
+        free_bits[k] &= free_bits[k] - 1;  // slot r went to another key
+      }
     }
   }
-  for (int r = 0; r < WINDOW; ++r) {
-    unsigned long long cur = win[r];
-    if (cur == key) {
-      status[i] = PRESENT;
-      return;
-    }
-    if (cur != EMPTY && cur != TOMB) continue;
-    const unsigned long long old =
-        atomicCAS((unsigned long long*)(win + r), cur, key);
-    if (old == cur) {
-      status[i] = (cur == TOMB) ? PLACED_TOMB : PLACED;
-      return;
-    }
-    if (old == key) {
-      status[i] = PRESENT;
-      return;
-    }
-  }
-  status[i] = OVERFLOW;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (lane == k && i0 + k < n) status[i0 + k] = st[k];
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -165,7 +224,7 @@ extern "C" int fp_probe_launch(const void* keys, const void* table, void* out, l
 
 extern "C" int fp_insert_launch(const void* keys, void* table, void* status, long long n,
                                 long long mask, int tile_shift, void* stream) {
-  insert_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+  insert_kernel<<<blocks_for((n + INSERT_KEYS - 1) / INSERT_KEYS * 16), THREADS, 0, (cudaStream_t)stream>>>(
       (const unsigned long long*)keys, (unsigned long long*)table, (int*)status, n, mask,
       tile_shift);
   return (int)cudaGetLastError();

@@ -64,7 +64,7 @@ _SIGNATURES = {
                        ctypes.c_void_p],
     },
     "paged_attention": {
-        "paged_attention_launch": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+        "paged_attention_launch": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     },
 }
 

@@ -29,7 +29,12 @@ from repro_torch.kernels import ops
 from repro_torch.kernels._build import LAUNCHES
 from repro_torch.kernels.fingerprint import fingerprint, fingerprint_torch
 from repro_torch.kernels.histogram import ffh, ffh_torch
-from repro_torch.kernels.paged_attention import paged_attention, paged_attention_torch
+from repro_torch.kernels.paged_attention import (
+    bf16_err_ratio,
+    paged_attention,
+    paged_attention_torch,
+    split_pages,
+)
 from repro_torch.kernels.ref import cdc_golden_buffer, fingerprint_golden_numpy
 
 pytestmark = pytest.mark.gpu
@@ -293,6 +298,10 @@ def _paged_inputs(rng, b, h, kvh, d, ps, pps, dtype, device):
     (3, 8, 8, 64, 32, 3),
     (4, 16, 4, 128, 16, 5),
     (2, 32, 1, 128, 32, 4),    # 32 query heads on one KV head
+    (4, 32, 2, 64, 16, 20),    # bf16: 16 query heads per KV head, the tensor cores' last
+    (3, 32, 2, 128, 32, 11),
+    (4, 24, 2, 64, 32, 9),     # 12 per KV head: rows 8-11 of the 16-row tiles
+    (3, 24, 2, 128, 16, 18),
 ])
 def test_paged_attention_kernel_matches_plain(cuda, dtype, b, h, kvh, d, ps, pps):
     args = _paged_inputs(np.random.default_rng(b * h + d), b, h, kvh, d, ps, pps, dtype, cuda)
@@ -302,11 +311,21 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, b, h, kvh, d, ps, pps
     assert LAUNCHES["paged_attention"] == before + 1
     assert got.dtype == dtype and got.shape == (b, h, d)
     want = paged_attention_torch(*args)
+    _assert_paged_close(got, want)
     tol = dict(atol=3e-5, rtol=0) if dtype == torch.float32 else dict(atol=0.05, rtol=0.05)
-    torch.testing.assert_close(got.float(), want.float(), **tol)
     # the length-0 row is the mean of V over its slots, as the plain version gives
     v0 = args[2][args[3][0].long()].float().reshape(-1, kvh, d).mean(dim=0)
     torch.testing.assert_close(got[0].float(), v0.repeat_interleave(h // kvh, dim=0), **tol)
+
+
+def _assert_paged_close(got, want):
+    """float32 within atol 3e-5; bf16 within 0.05 and within the limit
+    scaled to the outputs (``bf16_err_ratio``), which 0.05 is not."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=3e-5, rtol=0)
+        return
+    torch.testing.assert_close(got.float(), want.float(), atol=0.05, rtol=0.05)
+    assert bf16_err_ratio(got, want) <= 1
 
 
 def test_paged_attention_kernel_shared_rows_identical(cuda):
@@ -315,6 +334,114 @@ def test_paged_attention_kernel_shared_rows_identical(cuda):
     q[1], table[1], lengths[1] = q[2], table[2], lengths[2]
     got = paged_attention(q, kp, vp, table, lengths)
     assert torch.equal(got[1], got[2])
+
+
+def _split_edge_rows(rng, h, kvh, d, ps, pps, split, dtype, device):
+    """Rows of length 0, 1, one page, exactly one split, one split + 1, a
+    token short of the table and the whole table, over a table of ``pps``
+    pages, which is not a multiple of ``split``; a shared prefix page."""
+    lengths = np.asarray([0, 1, ps, split * ps, split * ps + 1, pps * ps - 1, pps * ps],
+                         np.int32)
+    b = lengths.size
+    npages = pps * b + 2
+    q = torch.from_numpy(rng.standard_normal((b, h, d)).astype(np.float32))
+    kp = torch.from_numpy(rng.standard_normal((npages, ps, kvh, d)).astype(np.float32))
+    vp = torch.from_numpy(rng.standard_normal((npages, ps, kvh, d)).astype(np.float32))
+    table = rng.permutation(npages)[: b * pps].reshape(b, pps).astype(np.int32)
+    table[:, 0] = npages - 1
+    return [x.to(device) for x in (q.to(dtype), kp.to(dtype), vp.to(dtype),
+                                   torch.from_numpy(table), torch.from_numpy(lengths))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,ps", [(64, 16), (64, 32), (128, 16), (128, 32)])
+@pytest.mark.parametrize("extra", [1, 3])  # pages past the last whole split
+# bf16: tensor cores up to 16 query heads per KV head (8, 16 and 12 here)
+@pytest.mark.parametrize("h,kvh", [(32, 4), (32, 1), (32, 2), (24, 2)])
+def test_paged_attention_kernel_split_edges(cuda, dtype, d, ps, extra, h, kvh):
+    """The kernel at its split edges against the plain version, over a table
+    of two splits and ``extra`` pages; the merge regroups the softmax's
+    sums, which moves a float32 result by a few rounding steps, inside atol
+    3e-5."""
+    split = split_pages(1 << 20, ps)
+    pps = 2 * split + extra
+    assert split_pages(pps, ps) == split and pps % split
+    rng = np.random.default_rng(d + ps + pps)
+    args = _split_edge_rows(rng, h, kvh, d, ps, pps, split, dtype, cuda)
+    before = LAUNCHES["paged_attention"]
+    got = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["paged_attention"] == before + 1
+    _assert_paged_close(got, paged_attention_torch(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pps", [7, 40])  # one split; three splits and a part
+def test_paged_attention_kernel_equal_bits(cuda, dtype, pps):
+    """No float atomics and a fixed merge order: two calls give equal bits."""
+    args = _paged_inputs(np.random.default_rng(3), 16, 32, 4, 64, 16, pps, dtype, cuda)
+    assert torch.equal(paged_attention(*args), paged_attention(*args))
+
+
+def test_fp_insert_kernel_copies_of_few_keys(cuda):
+    """8,192 copies of 16 keys: exactly 16 land, the rest PRESENT."""
+    cap = 1 << 16
+    keys = np.tile(_keys(np.random.default_rng(8), 16), 512)
+    np.random.default_rng(9).shuffle(keys)
+    table = torch.zeros(k.table_phys_len(cap), dtype=torch.int64, device=cuda)
+    st = k.fp_insert(_t(keys).to(cuda), table, cap).cpu().numpy()
+    assert (st == k.PLACED).sum() == 16 and (st == k.PRESENT).sum() == keys.size - 16
+    t64 = table.cpu().numpy().view(np.uint64)
+    assert sorted(t64[t64 != 0].tolist()) == sorted(np.unique(keys).tolist())
+
+
+def test_fp_insert_kernel_overflows_one_window(cuda):
+    """More keys than WINDOW slots on one home: 16 land, the rest OVERFLOW,
+    and the table holds no key twice (each key repeated in the batch)."""
+    cap = 1024
+    rng = np.random.default_rng(10)
+    cand = _keys(rng, 200_000)
+    home = k.phys_homes_host(cand, cap)
+    same = cand[home == np.bincount(home).argmax()][:40]
+    assert same.size > k.WINDOW
+    keys = np.concatenate([same, same[::-1]])
+    table = torch.zeros(k.table_phys_len(cap), dtype=torch.int64, device=cuda)
+    st = k.fp_insert(_t(keys).to(cuda), table, cap).cpu().numpy()
+    st_plain = k.fp_insert_torch(_t(keys), torch.zeros(k.table_phys_len(cap), dtype=torch.int64),
+                                 cap).numpy()
+    assert (st == k.PLACED).sum() == k.WINDOW
+    assert (st == k.PRESENT).sum() == (st_plain == k.PRESENT).sum()
+    assert (st == k.OVERFLOW).sum() == (st_plain == k.OVERFLOW).sum()
+    t64 = table.cpu().numpy().view(np.uint64)
+    occupied = t64[t64 != 0]
+    assert occupied.size == k.WINDOW == np.unique(occupied).size
+    placed = keys[st == k.PLACED]
+    assert set(occupied.tolist()) == set(placed.tolist())
+    np.testing.assert_array_equal(k.fp_probe(_t(same).to(cuda), table, cap).cpu().numpy(),
+                                  np.isin(same, placed))
+
+
+def test_fp_insert_kernel_reuses_tombstones(cuda):
+    """After removes, new keys on the same homes take the tombstones
+    (PLACED_TOMB), never past a slot that was EMPTY: the host probe agrees."""
+    cap = 1024
+    rng = np.random.default_rng(11)
+    keys = np.unique(_keys(rng, 600))
+    table = torch.zeros(k.table_phys_len(cap), dtype=torch.int64, device=cuda)
+    st = k.fp_insert(_t(keys).to(cuda), table, cap).cpu().numpy()
+    placed = keys[st == k.PLACED]
+    gone = placed[::2]
+    assert k.fp_remove(_t(gone).to(cuda), table, cap).cpu().numpy().all()
+    fresh = np.unique(_keys(rng, 400))
+    st2 = k.fp_insert(_t(fresh).to(cuda), table, cap).cpu().numpy()
+    assert (st2 == k.PLACED_TOMB).sum() > 0
+    t64 = table.cpu().numpy().view(np.uint64)
+    assert (t64 == np.uint64(TOMB_KEY)).sum() == gone.size - (st2 == k.PLACED_TOMB).sum()
+    probe = np.concatenate([keys, fresh])
+    want = np.isin(probe, np.concatenate([np.setdiff1d(placed, gone),
+                                          fresh[np.isin(st2, (k.PLACED, k.PLACED_TOMB))]]))
+    np.testing.assert_array_equal(k.probe_host(t64, probe, cap), want)
+    np.testing.assert_array_equal(k.fp_probe(_t(probe).to(cuda), table, cap).cpu().numpy(), want)
 
 
 def test_server_on_card_matches_host(cuda):

@@ -8,6 +8,14 @@ logit is masked: both return the mean of V over the row's slots), and bf16.
 Tolerances are the reference tests' own: float32 atol 3e-5, bf16 atol and
 rtol 0.05.  The CUDA kernel is held against the plain version in
 ``tests/test_torch_gpu.py``.
+
+``paged_attention_split_torch`` spells out the kernel's split-and-merge
+arithmetic (per-split max, sum and weighted V, merged with log-sum-exp
+weights).  It is held against the reference at several split sizes at the
+same float32 atol 3e-5: the merge only regroups the softmax's sums, every
+weight ``e^(m_s - M)`` is at most 1 and the outputs are of order 1, so the
+regrouping moves a result by a few float32 rounding steps (some 1e-7 at
+these sizes), far inside the tolerance.
 """
 
 import jax.numpy as jnp
@@ -16,7 +24,14 @@ import pytest
 import torch
 
 from repro.kernels.paged_attention import paged_attention as ref_paged_attention
-from repro_torch.kernels.paged_attention import paged_attention, paged_attention_torch
+from repro_torch.kernels.paged_attention import (
+    SPLIT_TOKENS,
+    bf16_err_ratio,
+    paged_attention,
+    paged_attention_split_torch,
+    paged_attention_torch,
+    split_pages,
+)
 
 
 def _inputs(rng, b, h, kvh, d, ps, pps, npages=None, zero_row=True):
@@ -115,3 +130,82 @@ def test_rejects_bad_shapes():
         paged_attention(q, kp, vp, table.long(), lengths)
     with pytest.raises(ValueError):
         paged_attention(q, kp, vp, table[:1], lengths)
+
+
+def _split_edge_inputs(rng, h, kvh, d, ps, pps, split):
+    """Rows of length 0, 1, one page, one token into a page, exactly one
+    split, one split + 1, ending on each later split edge, and the full
+    table; later splits of the short rows are wholly past their lengths."""
+    edges = [0, 1, ps, ps + 3, split * ps, split * ps + 1, pps * ps - 1, pps * ps]
+    edges += [s * split * ps for s in range(2, -(-pps // split))]
+    lengths = np.asarray(sorted({min(e, pps * ps) for e in edges}), np.int32)
+    b = lengths.size
+    q, kp, vp, table, _ = _inputs(rng, b, h, kvh, d, ps, pps, zero_row=False)
+    return q, kp, vp, table, lengths
+
+
+@pytest.mark.parametrize("split", [1, 2, 3, 4, 7])
+@pytest.mark.parametrize("H,KVH,D,ps,pps", [(4, 2, 32, 16, 7), (8, 2, 16, 8, 6)])
+def test_split_merge_matches_pallas(split, H, KVH, D, ps, pps):
+    arrays = _split_edge_inputs(np.random.default_rng(split * 10 + D), H, KVH, D, ps, pps, split)
+    got = paged_attention_split_torch(*(torch.from_numpy(a) for a in arrays), split)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), _ref(arrays), atol=3e-5)
+    np.testing.assert_allclose(got.numpy(), paged_attention_torch(
+        *(torch.from_numpy(a) for a in arrays)).numpy(), atol=3e-5)
+
+
+@pytest.mark.parametrize("split", [1, 2, 5])
+def test_split_merge_length_zero_rows_are_the_mean_of_v(split):
+    """Every split of a length-0 row is used (each logit at NEG_INF, each
+    split's max NEG_INF): the merge gives the mean of V over every slot."""
+    q, kp, vp, table, lengths = _inputs(np.random.default_rng(21), 3, 4, 2, 32, 16, 5)
+    lengths[:] = 0
+    got = paged_attention_split_torch(
+        *(torch.from_numpy(a) for a in (q, kp, vp, table, lengths)), split).numpy()
+    np.testing.assert_allclose(got, _ref((q, kp, vp, table, lengths)), atol=3e-5)
+    for i in range(3):
+        mean = vp[table[i]].reshape(-1, 2, 32).mean(axis=0)
+        np.testing.assert_allclose(got[i], np.repeat(mean, 2, axis=0), atol=3e-5)
+
+
+def test_split_merge_bf16_matches_pallas():
+    arrays = _split_edge_inputs(np.random.default_rng(4), 8, 2, 32, 16, 6, 4)
+    t = [torch.from_numpy(a) for a in arrays]
+    got = paged_attention_split_torch(t[0].bfloat16(), t[1].bfloat16(), t[2].bfloat16(),
+                                      t[3], t[4], 4)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), _ref(arrays, jnp.bfloat16),
+                               atol=0.05, rtol=0.05)
+
+
+@pytest.mark.parametrize("split", [2, 4])
+def test_bf16_err_ratio_passes_rounding_and_fails_a_misweighted_merge(split):
+    """The bf16 limit scaled to the outputs passes the split-and-merge
+    arithmetic against the reference's bf16 kernel, and fails a merge that
+    weighs every other split 1.3x, which atol/rtol 0.05 lets through."""
+    b, h, kvh, d, ps, pps = 4, 8, 2, 64, 16, 16
+    arrays = _inputs(np.random.default_rng(31 + split), b, h, kvh, d, ps, pps, zero_row=False)
+    arrays[4][:] = ps * pps  # every row its whole table, 256 tokens
+    want = torch.from_numpy(_ref(arrays, jnp.bfloat16)).bfloat16()
+    q, kp, vp, table, lengths = (torch.from_numpy(a) for a in arrays)
+    t16 = [x.bfloat16() for x in (q, kp, vp)]
+    assert bf16_err_ratio(paged_attention_split_torch(*t16, table, lengths, split), want) <= 1
+    k = t16[1][table.long()].float().reshape(b, pps * ps, kvh, d)
+    v = t16[2][table.long()].float().reshape(b, pps * ps, kvh, d)
+    logits = torch.einsum("bkgd,btkd->bkgt",
+                          t16[0].float().reshape(b, kvh, h // kvh, d) * d ** -0.5, k)
+    odd = (torch.arange(pps * ps) // (split * ps)) % 2 == 1
+    logits = logits + torch.where(odd, float(np.log(1.3)), 0.0)
+    bad = torch.einsum("bkgt,btkd->bkgd", torch.softmax(logits, -1), v).reshape(b, h, d)
+    bad = bad.bfloat16()
+    torch.testing.assert_close(bad.float(), want.float(), atol=0.05, rtol=0.05)
+    assert bf16_err_ratio(bad, want) > 1
+
+
+@pytest.mark.parametrize("pps,page,want", [
+    (1, 16, 1), (7, 16, 7), (16, 16, 16), (17, 16, 16), (128, 16, 16), (128, 32, 8), (3, 32, 3),
+])
+def test_split_pages(pps, page, want):
+    assert split_pages(pps, page) == want
+    assert want * page <= max(SPLIT_TOKENS, page)
