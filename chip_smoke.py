@@ -14,13 +14,27 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   plain PyTorch version on 65,536 random 4 KB blocks and odd
                   shapes, bit for bit; its time by CUDA events.
 * ``fp_index``    the probe/insert/remove kernels on a 2^24-slot table filled
-                  to load 0.3, against the plain versions and the host probe;
-                  per-launch device times at 8,192 and 1,048,576 keys, and
-                  the rate of back-to-back wrapper calls at 8,192.  Then a
-                  contention case: 8,192 keys made of 64 distinct keys, 128
-                  copies each, into the filled table; the insert kernel's
-                  status counts must equal the plain version's (64 placed or
-                  overflowed, the rest PRESENT); its device time.
+                  to load 0.3, against the plain versions and the host probe
+                  (resident keys, absent keys and both sentinel keys); a
+                  removal of 2^20 keys, 4,096 of them twice: one flag per
+                  key and the same membership as the plain version's;
+                  per-launch device times at 8,192 and 1,048,576 keys (the
+                  probe also on a batch half resident, half absent), the
+                  rate of back-to-back wrapper calls at 8,192, and an empty
+                  launch timed alike (``empty_launch_ms``, the floor under a
+                  launch).  Then a contention case: 8,192 keys made of 64
+                  distinct keys, 128 copies each, into the filled table; the
+                  insert kernel's status counts must equal the plain
+                  version's (64 placed or overflowed, the rest PRESENT); its
+                  device time.  Then the table the replay's index ends at
+                  (2^19 keys in 2^21 slots, 17 MB): the same checks, times at
+                  8,192 and 131,072 keys (a probe also at 2^19, half
+                  resident), and the device time of the main
+                  path's launches, whose keys (and the insert's and
+                  remove's results) lie in pinned host memory.
+* ``fp_index_call`` where the host time of one index call at 8,192 keys
+                  goes: each step of the launch path alone, and each wrapper
+                  and ``ops.fp_index_*`` helper whole.
 * ``crossover``   the batch size from which a probe through the table on the
                   card beats the host set (``FingerprintIndex.small_batch``).
 * ``replay``    the slice's main path: paper workload A (32 VM streams),
@@ -327,6 +341,69 @@ def _index_bytes(name: str, t64: np.ndarray, keys: np.ndarray, cap: int) -> int:
     return int(keys.size * (8 + out) + 32 * sectors.sum())
 
 
+TOMB_KEY = (1 << 64) - 1
+
+
+def _mixed(rng, resident: np.ndarray, absent: np.ndarray, size: int) -> np.ndarray:
+    """``size`` keys, half resident and half absent, shuffled."""
+    out = np.concatenate([resident[: size // 2], absent[: size - size // 2]])
+    rng.shuffle(out)
+    return out
+
+
+def _check_probes(k, dev, table, cap: int, resident: np.ndarray, absent: np.ndarray,
+                  what: str) -> int:
+    """The probe kernel on resident keys, absent keys and both sentinels
+    against the truth, the plain version and the host early-stop probe."""
+    from repro_torch.kernels.ops import keys_to_device
+
+    probe = np.concatenate([resident, absent, np.array([0, TOMB_KEY], dtype=np.uint64)])
+    truth = np.concatenate([np.ones(resident.size, bool), np.zeros(absent.size, bool)])
+    pt = keys_to_device(probe, dev)
+    got = k.fp_probe(pt, table, cap).cpu().numpy()
+    check(np.array_equal(got[:-2], truth), f"{what}: probe kernel != truth")
+    err = int((got != k.fp_probe_torch(pt, table, cap).cpu().numpy()).sum())
+    check(err == 0, f"{what}: probe kernel != plain probe (sentinels included)")
+    t64 = table.cpu().numpy().view(np.uint64)
+    check(np.array_equal(k.probe_host(t64, probe, cap), got), f"{what}: host early-stop probe")
+    return err
+
+
+def _check_removes(k, dev, table, plain, cap: int, resident: np.ndarray, n_gone: int,
+                   n_repeats: int, absent: np.ndarray, what: str, host_keys: bool = False):
+    """Remove the first ``n_gone`` of ``resident`` (keys in both tables; the
+    first ``n_repeats`` of them twice, and absent keys) on the kernel's table,
+    through ``fp_remove`` or, with ``host_keys``, through the main path's
+    ``ops.fp_index_remove``, and on the plain version's.  Returns the removed
+    keys and the disagreement: the difference of the flag counts, the keys
+    flagged by one and not the other, and the keys whose membership differs
+    afterwards; it must be 0, with one flag per removed key."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ops import keys_to_device
+
+    gone = resident[:n_gone]
+    batch = np.concatenate([gone, gone[:n_repeats], absent])
+    np.random.default_rng(7).shuffle(batch)
+    bt = keys_to_device(batch, dev)
+    if host_keys:
+        removed = ops.fp_index_remove(batch, table, cap)
+    else:
+        removed = k.fp_remove(bt, table, cap).cpu().numpy()
+    removed_plain = k.fp_remove_torch(bt, plain, cap).cpu().numpy()
+    every = keys_to_device(np.concatenate([resident, absent]), dev)
+    member = k.fp_probe(every, table, cap)
+    err = (abs(int(removed.sum()) - int(removed_plain.sum()))
+           + np.setxor1d(batch[removed], batch[removed_plain]).size
+           + int((member != k.fp_probe_torch(every, plain, cap)).sum()))
+    check(err == 0, f"{what}: remove flags or membership differ from the plain version's "
+                    f"({err} disagreements)")
+    # each removed key flagged once, on one of its copies
+    check(np.array_equal(np.sort(batch[removed]), np.sort(gone)),
+          f"{what}: remove flagged other keys, or a key twice")
+    check(int(member.sum()) == resident.size - gone.size, f"{what}: removed keys still present")
+    return gone, err
+
+
 def phase_fp_index(dev, results: dict) -> None:
     from repro_torch.kernels import fp_index as k
     from repro_torch.kernels.ops import keys_to_device
@@ -353,84 +430,30 @@ def phase_fp_index(dev, results: dict) -> None:
     ins_err = abs(counts[k.PRESENT] - counts_plain[k.PRESENT])
 
     t64 = table.cpu().numpy().view(np.uint64)
-    occupied = t64[(t64 != 0) & (t64 != np.uint64(2**64 - 1))]
+    occupied = t64[(t64 != 0) & (t64 != np.uint64(TOMB_KEY))]
     check(occupied.size == np.unique(occupied).size, "duplicate keys in the kernel's table")
     placed = st[: keys.size].cpu().numpy()
     in_table = (placed == k.PLACED) | (placed == k.PLACED_TOMB)
     check(occupied.size == int(in_table.sum()), "table holds exactly the placed keys")
+    both = in_table & (st_plain[: keys.size].cpu().numpy() != k.OVERFLOW)  # in both tables
 
     absent = rng.integers(1, 2**64 - 1, size=keys.size, dtype=np.uint64)
     absent = absent[~np.isin(absent, keys)]
-    probe = np.concatenate([keys, absent])
-    truth = np.concatenate([in_table, np.zeros(absent.size, dtype=bool)])
-    pt = keys_to_device(probe, dev)
-    got = k.fp_probe(pt, table, cap)
-    got_np = got.cpu().numpy()
-    check(np.array_equal(got_np, truth), "probe kernel != truth")
-    probe_err = int((got != k.fp_probe_torch(pt, table, cap)).sum().item())
-    check(probe_err == 0, "probe kernel != plain probe")
-    check(np.array_equal(k.probe_host(t64, probe, cap), truth), "host early-stop probe")
-
-    gone = keys[in_table][: 1 << 20]
-    removed = k.fp_remove(keys_to_device(gone, dev), table, cap)
-    check(bool(removed.all().item()), "remove kernel missed resident keys")
-    check(not bool(k.fp_probe(keys_to_device(gone, dev), table, cap).any().item()),
-          "removed keys still probe present")
-    # the plain remove on the plain table flags the same keys
-    removed_plain = k.fp_remove_torch(keys_to_device(gone, dev), plain, cap)
-    rem_err = int((removed != removed_plain).sum().item())
-    check(rem_err == 0, "remove kernel != plain remove")
+    probe_err = _check_probes(k, dev, table, cap, keys[in_table], absent, "2^24 table")
+    # a removal of 2^20 resident keys, 4,096 of them twice, with absent keys
+    gone, rem_err = _check_removes(k, dev, table, plain, cap, keys[both], 1 << 20, 4096,
+                                   absent[:4096], "2^24 table")
 
     # per-launch times: inserts take fresh keys and removes resident ones, a
     # distinct slice per launch, each timing on its own copy of the filled
-    # table; ``ms`` is the device time of one launch, ``per_call_ms`` the
-    # rate of back-to-back wrapper calls (8,192 keys only)
+    # table; probes one batch of resident keys (``fp_probe``) and one half
+    # resident, half absent (``fp_probe_mixed``); ``ms`` is the device time
+    # of one launch, ``per_call_ms`` the rate of back-to-back wrapper calls
+    # (8,192 keys only)
     t64 = table.cpu().numpy().view(np.uint64)  # after the removes above
-    resident = keys[in_table][1 << 20:]  # the first 2^20 were removed above
-    times, bounds = {}, {}
-    for size, reps, warm, call_reps, plain_reps in ((8192, 30, 2, 50, 5), (1 << 20, 2, 1, 0, 2)):
-        n_slices = max(reps + warm, call_reps + 3)
-        fresh_np = rng.integers(1, 2**64 - 1, size=size * n_slices, dtype=np.uint64)
-        res_np = resident[: size * n_slices]
-        check(res_np.size == size * n_slices, "enough resident keys to time removes")
-        fresh, res = keys_to_device(fresh_np, dev), keys_to_device(res_np, dev)
-        probe_keys = res[:size]
-
-        def sliced(op, src, tbl, size=size):
-            it = iter(range(1 << 30))
-
-            def run():
-                i = next(it)
-                op(src[i * size:(i + 1) * size], tbl, cap)
-
-            return run
-
-        entry = {
-            "fp_probe": device_ms(lambda: k.fp_probe(probe_keys, table, cap), reps, warm),
-            "fp_insert": device_ms(sliced(k.fp_insert, fresh, table.clone()), reps, warm),
-            "fp_remove": device_ms(sliced(k.fp_remove, res, table.clone()), reps, warm),
-        }
-        if call_reps:
-            entry["per_call"] = {
-                "fp_probe": cuda_ms(lambda: k.fp_probe(probe_keys, table, cap), call_reps),
-                "fp_insert": cuda_ms(sliced(k.fp_insert, fresh, table.clone()), call_reps),
-                "fp_remove": cuda_ms(sliced(k.fp_remove, res, table.clone()), call_reps),
-            }
-        pr, pw = min(plain_reps, reps), 1
-        entry["plain"] = {
-            "fp_probe": cuda_ms(lambda: k.fp_probe_torch(probe_keys, plain, cap), pr, pw),
-            "fp_insert": cuda_ms(sliced(k.fp_insert_torch, fresh, plain.clone()), pr, pw),
-            "fp_remove": cuda_ms(sliced(k.fp_remove_torch, res, plain.clone()), pr, pw),
-        }
-        times[size] = entry
-        # the bound of one timed launch: the mean over the timed slices, each
-        # counted on the table as it stood before the timing
-        timed = slice(warm * size, (warm + reps) * size)
-        bounds[size] = {
-            "fp_probe": _index_bytes("fp_probe", t64, res_np[:size], cap),
-            "fp_insert": _index_bytes("fp_insert", t64, fresh_np[timed], cap) / reps,
-            "fp_remove": _index_bytes("fp_remove", t64, res_np[timed], cap) / reps,
-        }
+    resident = keys[in_table][~np.isin(keys[in_table], gone)]
+    times, bounds = _time_index(k, dev, rng, table, plain, cap, t64, resident, absent,
+                                ((8192, 30, 2, 50, 5), (1 << 20, 2, 1, 0, 2)))
     # contention: 8,192 keys made of 64 distinct keys, 128 copies each, into
     # the filled table; the kernel's status counts must equal the plain
     # version's (64 placed or overflowed, the rest PRESENT), and afterwards
@@ -462,26 +485,232 @@ def phase_fp_index(dev, results: dict) -> None:
     hot_it = iter(range(1, reps + warm + 1))
     contention_ms = device_ms(
         lambda: k.fp_insert(hot[next(hot_it) * size:][:size], hot_tbl, cap), reps, warm)
-    del hot_tbl
+    del hot_tbl, table, plain
+    torch.cuda.empty_cache()
+
+    main = _main_table(k, dev, rng)
+    # the floor under a launch at 8,192 keys: an empty kernel, timed alike
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0), 30)
     for name in ("fp_probe", "fp_insert", "fp_remove"):
         results[name] = dict(
-            max_abs_err={"fp_probe": probe_err, "fp_insert": ins_err, "fp_remove": rem_err}[name],
+            max_abs_err=max({"fp_probe": probe_err, "fp_insert": ins_err,
+                             "fp_remove": rem_err}[name], main["err"][name]),
             ms=times[8192][name], plain_ms=times[8192]["plain"][name],
             bound_ms=bounds[8192][name] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
             library_ms=None, keys_per_launch=8192, per_call_ms=times[8192]["per_call"][name],
+            empty_launch_ms=floor_ms,
             ms_at_1m=times[1 << 20][name], plain_ms_at_1m=times[1 << 20]["plain"][name],
             bound_ms_at_1m=bounds[1 << 20][name] / HBM_BYTES_PER_S * 1e3,
+            main_table=main["times"][name],
         )
-    results["fp_insert"].update(contention_ms=contention_ms, contention_status_counts=hot_counts)
+    for name in ("fp_probe", "fp_remove"):
+        results[name]["ms_host_keys"] = main["host_keys_ms"][name]
+    for size, tag in ((8192, ""), (1 << 20, "_at_1m")):
+        results["fp_probe"]["ms_mixed" + tag] = times[size]["fp_probe_mixed"]
+        results["fp_probe"]["bound_ms_mixed" + tag] = (
+            bounds[size]["fp_probe_mixed"] / HBM_BYTES_PER_S * 1e3)
+    results["fp_insert"].update(contention_ms=contention_ms, contention_status_counts=hot_counts,
+                                ms_host_keys=main["host_keys_ms"]["fp_insert"])
     emit("fp_index", capacity=cap, table_mb=slots * 8 / 2**20, keys=int(keys.size),
          load=keys.size / cap, status_counts=counts, plain_status_counts=counts_plain,
-         probed=int(probe.size), removed=int(gone.size), agree=True,
+         probed=int(in_table.sum() + absent.size + 2), removed=int(gone.size), agree=True,
          ms={str(s): v for s, v in times.items()},
-         contention={"keys": size, "distinct": distinct, "status_counts": hot_counts,
+         bound_ms={str(s): {nm: b / HBM_BYTES_PER_S * 1e3 for nm, b in v.items()}
+                   for s, v in bounds.items()},
+         empty_launch_ms=floor_ms,
+         contention={"keys": distinct * copies, "distinct": distinct,
+                     "status_counts": hot_counts,
                      "plain_status_counts": hot_plain, "insert_ms": contention_ms,
-                     "fresh_insert_ms": times[8192]["fp_insert"]})
+                     "fresh_insert_ms": times[8192]["fp_insert"]},
+         main_table={kk: v for kk, v in main.items() if kk != "err"})
+
+
+def _time_index(k, dev, rng, table, plain, cap, t64, resident, absent, sizes):
+    """Device ms per launch of the three kernels (and of a probe batch half
+    resident, half absent), their plain versions' and the wrappers'
+    back-to-back rate, and the bytes each launch must move, at each of
+    ``sizes``: (keys, reps, warm-up, wrapper reps, plain reps)."""
+    from repro_torch.kernels.ops import keys_to_device
+
+    times, bounds = {}, {}
+    for size, reps, warm, call_reps, plain_reps in sizes:
+        n_slices = max(reps + warm, call_reps + 3)
+        fresh_np = rng.integers(1, 2**64 - 1, size=size * n_slices, dtype=np.uint64)
+        res_np = resident[: size * n_slices]
+        check(res_np.size == size * n_slices, "enough resident keys to time removes")
+        fresh, res = keys_to_device(fresh_np, dev), keys_to_device(res_np, dev)
+        probe_keys = res[:size]
+        mixed_np = _mixed(rng, res_np, absent, size)
+        mixed = keys_to_device(mixed_np, dev)
+
+        def sliced(op, src, tbl, size=size):
+            it = iter(range(1 << 30))
+
+            def run():
+                i = next(it)
+                op(src[i * size:(i + 1) * size], tbl, cap)
+
+            return run
+
+        entry = {
+            "fp_probe": device_ms(lambda: k.fp_probe(probe_keys, table, cap), reps, warm),
+            "fp_probe_mixed": device_ms(lambda: k.fp_probe(mixed, table, cap), reps, warm),
+            "fp_insert": device_ms(sliced(k.fp_insert, fresh, table.clone()), reps, warm),
+            "fp_remove": device_ms(sliced(k.fp_remove, res, table.clone()), reps, warm),
+        }
+        if call_reps:
+            entry["per_call"] = {
+                "fp_probe": cuda_ms(lambda: k.fp_probe(probe_keys, table, cap), call_reps),
+                "fp_insert": cuda_ms(sliced(k.fp_insert, fresh, table.clone()), call_reps),
+                "fp_remove": cuda_ms(sliced(k.fp_remove, res, table.clone()), call_reps),
+            }
+        if plain_reps:
+            pr, pw = min(plain_reps, reps), 1
+            entry["plain"] = {
+                "fp_probe": cuda_ms(lambda: k.fp_probe_torch(probe_keys, plain, cap), pr, pw),
+                "fp_insert": cuda_ms(sliced(k.fp_insert_torch, fresh, plain.clone()), pr, pw),
+                "fp_remove": cuda_ms(sliced(k.fp_remove_torch, res, plain.clone()), pr, pw),
+            }
+        times[size] = entry
+        # the bound of one timed launch: the mean over the timed slices, each
+        # counted on the table as it stood before the timing
+        timed = slice(warm * size, (warm + reps) * size)
+        bounds[size] = {
+            "fp_probe": _index_bytes("fp_probe", t64, res_np[:size], cap),
+            "fp_probe_mixed": _index_bytes("fp_probe", t64, mixed_np, cap),
+            "fp_insert": _index_bytes("fp_insert", t64, fresh_np[timed], cap) / reps,
+            "fp_remove": _index_bytes("fp_remove", t64, res_np[timed], cap) / reps,
+        }
+    return times, bounds
+
+
+def _main_table(k, dev, rng) -> dict:
+    """The table the replay's seen-fingerprint index ends at: 2^19 keys in
+    2^21 logical slots (about 17 MB, inside the 50 MB L2).  Checks, then
+    times at 8,192 keys (the replay's batch) and at 2^17 (a probe also at
+    2^19, half resident), and the main path's launches, whose keys and
+    results lie in pinned host memory."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ops import keys_to_device
+
+    cap, n = 1 << 21, 1 << 19
+    keys = np.unique(rng.integers(1, 2**64 - 1, size=n + n // 50, dtype=np.uint64))[:n]
+    rng.shuffle(keys)
+    table = torch.zeros(k.table_phys_len(cap), dtype=torch.int64, device=dev)
+    plain = table.clone()
+    st = ops.fp_index_insert(keys, table, cap)  # the main path's insert, host keys
+    st_plain = k.fp_insert_torch(keys_to_device(keys, dev), plain, cap).cpu().numpy()
+    ins_err = int((np.bincount(st, minlength=4) != np.bincount(st_plain, minlength=4)).sum())
+    check(ins_err == 0, "main table: insert status counts differ from the plain version's")
+    check(bool((st == k.PLACED).all()), f"main table: statuses {np.bincount(st, minlength=4)}")
+    absent = rng.integers(1, 2**64 - 1, size=n, dtype=np.uint64)
+    absent = absent[~np.isin(absent, keys)]
+    probe_err = _check_probes(k, dev, table, cap, keys, absent, "main table")
+    # the main path's helpers, whose kernels read host keys: held key by key
+    mixed_np = _mixed(rng, keys, absent, 8192)
+    flags = ops.fp_index_probe(mixed_np, table, cap).cpu().numpy()
+    want = k.fp_probe_torch(keys_to_device(mixed_np, dev), table, cap).cpu().numpy()
+    probe_err = max(probe_err, int((flags != want).sum()))
+    check(probe_err == 0 and int(flags.sum()) == 4096, "main table: the host-key probe helper")
+    _, rem_err = _check_removes(k, dev, table, plain, cap, keys, 8192, 512, absent[:512],
+                                "main table", host_keys=True)
+    t64 = table.cpu().numpy().view(np.uint64)
+    resident = keys[8192:]
+    times, bounds = _time_index(k, dev, rng, table, plain, cap, t64, resident, absent,
+                                ((8192, 30, 2, 0, 0), (n // 4, 2, 1, 0, 0)))
+    out = {nm: {} for nm in ("fp_probe", "fp_insert", "fp_remove")}
+    for size, entry in times.items():
+        for nm in out:
+            out[nm][str(size)] = {"ms": entry[nm],
+                                  "bound_ms": bounds[size][nm] / HBM_BYTES_PER_S * 1e3}
+        out["fp_probe"][str(size)].update(
+            ms_mixed=entry["fp_probe_mixed"],
+            bound_ms_mixed=bounds[size]["fp_probe_mixed"] / HBM_BYTES_PER_S * 1e3)
+    # a probe as large as the table's key count, half resident
+    whole_np = _mixed(rng, resident, absent, n)
+    whole = keys_to_device(whole_np, dev)
+    out["fp_probe"][str(n)] = {
+        "ms_mixed": device_ms(lambda: k.fp_probe(whole, table, cap), 5, 1),
+        "bound_ms_mixed": _index_bytes("fp_probe", t64, whole_np, cap) / HBM_BYTES_PER_S * 1e3}
+    # the main path's launches read their keys from pinned host memory, and
+    # insert and remove write their results there (``ops.fp_index_*``)
+    host_keys = {}
+    mixed = ops.pinned_keys(_mixed(rng, resident, absent, 8192))
+    flags = torch.empty(8192, dtype=torch.bool, device=dev)
+    host_keys["fp_probe"] = device_ms(
+        lambda: k.launch("fp_probe", mixed, table, flags, cap), 30)
+    for nm, dtype, src in (("fp_insert", torch.int32, absent[8192:]),
+                           ("fp_remove", torch.bool, resident[8192:])):
+        staged = ops.pinned_keys(src[: 8192 * 33])
+        res_out = torch.empty(8192, dtype=dtype, pin_memory=True)
+        tbl = table.clone()
+        it = iter(range(33))
+        host_keys[nm] = device_ms(
+            lambda: k.launch(nm, staged[next(it) * 8192:][:8192], tbl, res_out, cap), 30)
+        del tbl
     del table, plain
     torch.cuda.empty_cache()
+    return {"capacity": cap, "keys": int(keys.size), "table_mb": k.table_phys_len(cap) * 8 / 2**20,
+            "times": out, "host_keys_ms": host_keys,
+            "err": {"fp_probe": probe_err, "fp_insert": ins_err, "fp_remove": rem_err}}
+
+
+def phase_fp_index_call(dev) -> None:
+    """Where the host time of one index call goes, at 8,192 keys: each step
+    of the wrappers' launch path and of the ``ops.fp_index_*`` helpers, timed
+    alone by ``time.perf_counter_ns`` (median of 2,000 calls after 50), and
+    each wrapper and helper call whole."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import fp_index as k
+    from repro_torch.kernels.ops import keys_to_device
+
+    cap, n = 1 << 21, 8192
+    rng = np.random.default_rng(3)
+    keys_np = rng.integers(1, 2**64 - 1, size=n, dtype=np.uint64)
+    table = torch.zeros(k.table_phys_len(cap), dtype=torch.int64, device=dev)
+    ops.fp_index_insert(keys_np, table, cap)
+    kt = keys_to_device(keys_np, dev)
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    fn = k.launcher("fp_probe")
+    _, mask, shift = k.cap_args(cap)
+    stream = torch._C._cuda_getCurrentRawStream(0)
+
+    def med(f) -> float:
+        for _ in range(50):
+            f()
+        torch.cuda.synchronize()
+        t = []
+        for _ in range(2000):
+            t0 = time.perf_counter_ns()
+            f()
+            t.append(time.perf_counter_ns() - t0)
+        torch.cuda.synchronize()
+        return float(np.median(t))
+
+    steps = {
+        "check": med(lambda: k.check_args(kt, table, cap)),
+        "alloc": med(lambda: kt.new_empty(n, dtype=torch.bool)),
+        "current_device": med(torch.cuda.current_device),
+        "stream": med(lambda: torch._C._cuda_getCurrentRawStream(0)),
+        "ctypes_call": med(lambda: fn(kt.data_ptr(), table.data_ptr(), out.data_ptr(), n, mask,
+                                      shift, stream)),
+        "error_check": med(lambda: _build.check(0, "fp_probe")),
+        "stage_keys_pinned": med(lambda: ops.pinned_keys(keys_np)),
+        "stream_sync": med(lambda: torch.cuda.current_stream(dev).synchronize()),
+    }
+    wrappers = {
+        "fp_probe": med(lambda: k.fp_probe(kt, table, cap)),
+        "fp_insert": med(lambda: k.fp_insert(kt, table, cap)),
+        "fp_remove": med(lambda: k.fp_remove(kt, table, cap)),
+    }
+    helpers = {
+        "fp_probe": med(lambda: ops.fp_index_probe(keys_np, table, cap).cpu().numpy()),
+        "fp_insert": med(lambda: ops.fp_index_insert(keys_np, table, cap)),
+        "fp_remove": med(lambda: ops.fp_index_remove(keys_np, table, cap)),
+    }
+    del table
+    torch.cuda.empty_cache()
+    emit("fp_index_call", keys=n, steps_ns=steps, wrapper_ns=wrappers, helper_ns=helpers)
 
 
 def phase_crossover(dev) -> None:
@@ -1173,6 +1402,7 @@ def main() -> int:
     results: dict = {}
     phase_fingerprint(dev, results)
     phase_fp_index(dev, results)
+    phase_fp_index_call(dev)
     phase_crossover(dev)
     content_fps = phase_replay(dev, results, args.requests, args.seed)
     phase_cdc_kernels(dev, results)

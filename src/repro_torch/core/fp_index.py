@@ -80,11 +80,15 @@ GROW_LOAD = 0.35
 # launch has fixed overhead that only pays off on real batches (the
 # reference measured the crossover at ~1.5-2k keys for its host path).
 SMALL_BATCH = 1536
-# The same crossover for a table on a CUDA device.  On an H100 a synchronous
-# probe round trip (key copy, launch, flag copy back) costs ~0.1 ms flat and
-# the host set ~0.12 us per key, so the card wins from ~800 keys
-# (``chip_smoke.py``'s crossover phase).
-SMALL_BATCH_CARD = 768
+# The same crossover for a table on a CUDA device, from ``chip_smoke.py``'s
+# crossover phase on an H100: the largest batch the host set answers.
+# Before the index launch path was cut, a synchronous probe round trip cost
+# 0.07-0.11 ms and the card won from 1,024 keys in five of six logged runs
+# (1,536 in one).  Since, the kernel reads the keys from pinned host memory,
+# the round trip costs 0.04-0.08 ms against the host set's 0.1-0.17 us a key,
+# and the card won from 768 keys in three of five calls, from 512 in two
+# (PERF.md §5 lists them).  The answers are exact on either route.
+SMALL_BATCH_CARD = 512
 
 # Batched membership probes (``contains_many_async``) by route: ``host``
 # answered from the host set under ``small_batch``, ``table`` through the
@@ -518,6 +522,12 @@ class FingerprintIndex(set):
             self._spill.discard(fp)
         elif fp in self._pending_adds:
             del self._pending_adds[fp]  # never reached the table
+            if self._journal:
+                # but an unfolded journal may hold it too (``add`` then
+                # ``add_many``): drop it there, so no flush inserts it
+                key = np.uint64(fp)
+                self._journal = [a for a in (a[a != key] for a in self._journal) if a.size]
+                self._journal_n = sum(a.size for a in self._journal)
         else:
             # either physically in the table, or sitting in an unfolded
             # journal; the flush folds journals before removals, so this

@@ -9,23 +9,50 @@
 // TILE_PAD slots per preceding tile of 2^tile_shift slots, and it lives in
 // the WINDOW = 16 slots from there.  The TPU kernels walk keys in order
 // inside each tile (one grid step per tile, keys routed to tiles on the
-// host); here keys come in batch order, one thread or half-warp each, and
-// results go back in batch order: no routing.
+// host); here keys come in batch order (a group of lanes, a half-warp or a
+// thread each) and results go back in batch order: no routing.
 //
 // What bounds it: per key, 8 B of key, the 32 B sectors of its window up
 // to the slot that decides it (its own, or the first EMPTY: no key sits past
 // one), and a flag or status -- at load 0.3 about 50 B, 0.4 MB for the 8,192
 // keys of one replay batch, ~0.12 us at 3.35 TB/s.  A launch costs more than
 // that, so at the main path's batch size launch and host<->device copy
-// latency bound it; at millions of keys the random sector reads bound it.
-// Probe and insert read each window as one contiguous 128 B line; remove
-// still walks it slot by slot (the next index kernel in the queue).
+// latency bound it; at millions of keys each key's chain of dependent loads
+// (key, window, flag) times the keys the card keeps in flight does.  On the
+// main path the keys, and the insert's and remove's results, lie in pinned
+// host memory, read and written over the bus (kernels/ops.py): a launch
+// takes longer on the card, and the call saves more on the host, than a
+// copy each way would (PERF.md §6).
 //
-// Probe: a half-warp per key; lane i of the half reads slot home + i, so the
-// window is one coalesced 128 B read, and __ballot_sync reports a hit.
+// Probe (the Hopper redesign; PERF.md §6 row 2 dates it): a group of
+// WALK_LANES = 2 lanes per key, each group taking WALK_KEYS = 2 keys, in
+// blocks of WALK_THREADS = 64 so that the 8,192 keys of a replay batch spread
+// over every SM.  A key's walk starts at the even slot at or below its home,
+// so each lane's 16-byte load (two slots) is aligned and a step of the group
+// reads 4 slots: one or two 32 B sectors.  The slot before the home (odd
+// homes) and the slots past the window take no part.  A ballot in the group
+// decides the key at the first slot that holds it or is EMPTY; only an
+// undecided key reads the next step, until the window plus its alignment
+// slot is covered (TILE_PAD leaves room for the extra reads at a tile's end).
+// The two keys' loads are in flight together.  The table is read-only during
+// the launch: loads take the read-only path (__ldg).  Sentinel keys: key 0
+// (EMPTY) matches the first EMPTY slot, so its flag is "the window holds an
+// EMPTY slot", as the whole-window plain version's.  A TOMBSTONE key is not
+// decided by an EMPTY slot (a tombstone left by a key whose home lies past
+// that slot may follow it), so it walks to its match or the window's end:
+// its flag equals the plain version's too.  FingerprintIndex passes neither
+// sentinel to any kernel.
 //
+// Remove: one thread per key: find the key in its window and atomicCAS the
+// slot from the key to TOMBSTONE; the flag is the CAS's success, so a key
+// repeated in one batch is removed once.  The flag counts and the membership
+// afterwards equal the plain version's; the flag may sit on another copy of
+// a repeated key than the plain version's first copy.  A walk of the probe's
+// shape with a CAS at the end was no faster (PERF.md §6 row 4): each key's
+// random 8-byte write bounds the launch, not its reads.
+
 // Insert (the Hopper redesign; PERF.md §6 row 3 dates it): a half-warp per
-// key, like the probe, each half-warp taking INSERT_KEYS = 2 keys.  For
+// key, each half-warp taking INSERT_KEYS = 2 keys.  For
 // each key:
 //   1. lane i reads slot home + i at L2 (ld.relaxed.gpu: a CAS made by
 //      another block of the same launch is seen; a load through L1 may be
@@ -60,10 +87,6 @@
 // reports OVERFLOW, as the sequential kernel's later copies of an
 // overflowed key do.  The layout may differ from the sequential kernel's;
 // membership and status counts do not.
-//
-// Remove: one thread per key: find the key in its window and atomicCAS the
-// slot from the key to TOMBSTONE; the flag is the CAS's success, so a key
-// repeated in one batch is removed once.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -93,21 +116,70 @@ __device__ __forceinline__ long long phys_home(unsigned long long key, long long
   return home + (home >> tile_shift) * TILE_PAD;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// The probe's walk: WALK_LANES lanes per key, WALK_KEYS keys per group,
+// blocks of WALK_THREADS.
+constexpr int WALK_LANES = 2;
+constexpr int WALK_KEYS = 2;
+constexpr int WALK_THREADS = 64;
+
+__global__ void __launch_bounds__(WALK_THREADS)
 probe_kernel(const unsigned long long* __restrict__ keys, const unsigned long long* __restrict__ table,
              bool* __restrict__ out, long long n, long long mask, int tile_shift) {
-  const long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
-  const long long i = g >> 4;
-  const int lane = (int)(g & 15);
-  const bool in = i < n;
-  bool hit = false;
-  if (in) {
-    const unsigned long long key = keys[i];
-    hit = table[phys_home(key, mask, tile_shift) + lane] == key;
+  constexpr int G = WALK_LANES, K = WALK_KEYS;
+  constexpr unsigned group_bits = (1u << G) - 1u;
+  const long long g = (long long)blockIdx.x * WALK_THREADS + threadIdx.x;
+  const long long i0 = g / G * K;  // this group's first key
+  const int lane = (int)(g % G);
+  const int shift = threadIdx.x & 31 & ~(G - 1);  // the group's first lane in the warp
+  unsigned long long key[K];
+  long long start[K], end[K];  // the aligned first slot; one past the window
+  bool done[K], hit[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const bool in = i0 + k < n;
+    key[k] = in ? keys[i0 + k] : EMPTY;
+    const long long home = in ? phys_home(key[k], mask, tile_shift) : 0;
+    start[k] = home & ~1LL;
+    end[k] = home + WINDOW;
+    done[k] = !in;
+    hit[k] = false;
   }
-  const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-  const unsigned half = (threadIdx.x & 16) ? (ballot >> 16) : (ballot & 0xffffu);
-  if (in && lane == 0) out[i] = half != 0;
+  for (long long step = 0;; step += 2 * G) {
+    bool pending = false;
+#pragma unroll
+    for (int k = 0; k < K; ++k) pending = pending || !done[k];
+    if (!__any_sync(0xffffffffu, pending)) break;
+    // all K loads in flight together
+    long long s[K];
+    ulonglong2 v[K];
+    bool loaded[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      s[k] = start[k] + step + 2 * lane;
+      loaded[k] = !done[k] && s[k] < end[k];
+      v[k] = loaded[k] ? __ldg(reinterpret_cast<const ulonglong2*>(table + s[k]))
+                       : make_ulonglong2(EMPTY, EMPTY);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      // the slots inside the window only: slot s is before the home for an
+      // odd home's first pair; s + 1 lies past the window for its last pair
+      const bool in0 = loaded[k] && s[k] >= end[k] - WINDOW;
+      const bool in1 = loaded[k] && s[k] + 1 < end[k];
+      const bool m = (in0 && v[k].x == key[k]) || (in1 && v[k].y == key[k]);
+      const bool e = key[k] != TOMB;
+      const bool d = m || (in0 && e && v[k].x == EMPTY) || (in1 && e && v[k].y == EMPTY);
+      const unsigned hits = __ballot_sync(0xffffffffu, m) >> shift & group_bits;
+      const unsigned stops = __ballot_sync(0xffffffffu, d) >> shift & group_bits;
+      if (done[k]) continue;
+      hit[k] = hits != 0;
+      // decided, or the window (and its alignment slot) is covered
+      done[k] = stops != 0 || start[k] + step + 2 * G >= end[k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (lane == k % G && i0 + k < n) out[i0 + k] = hit[k];
 }
 
 // A load at L2, so that a CAS made by another block of this launch is seen.
@@ -216,9 +288,11 @@ inline unsigned blocks_for(long long threads) {
 
 extern "C" int fp_probe_launch(const void* keys, const void* table, void* out, long long n,
                                long long mask, int tile_shift, void* stream) {
-  probe_kernel<<<blocks_for(n * 16), THREADS, 0, (cudaStream_t)stream>>>(
-      (const unsigned long long*)keys, (const unsigned long long*)table, (bool*)out, n, mask,
-      tile_shift);
+  const long long threads = (n + WALK_KEYS - 1) / WALK_KEYS * WALK_LANES;
+  probe_kernel<<<(unsigned)((threads + WALK_THREADS - 1) / WALK_THREADS), WALK_THREADS, 0,
+                 (cudaStream_t)stream>>>((const unsigned long long*)keys,
+                                         (const unsigned long long*)table, (bool*)out, n, mask,
+                                         tile_shift);
   return (int)cudaGetLastError();
 }
 

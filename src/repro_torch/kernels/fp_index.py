@@ -31,7 +31,7 @@ do not (see the kernel's source note).
 
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -123,18 +123,21 @@ def probe_host(t64: np.ndarray, keys: np.ndarray, cap: int) -> np.ndarray:
     never sits past a slot that was EMPTY when it arrived, and removals
     tombstone instead of emptying).  Every insert path — the plain version
     and the CUDA kernel — keeps that invariant, so this probe stays exact
-    over any table they built.
+    over any table they built.  The TOMBSTONE key alone walks its whole
+    window: a tombstone left by a key whose home lies past an EMPTY slot of
+    that window may follow the slot.
     """
     home = phys_homes_host(keys, cap)
     found = np.zeros(keys.size, dtype=bool)
     idx = np.arange(keys.size)
     rem = keys
+    tomb = np.uint64((1 << 64) - 1)  # TOMBSTONE
     for r in range(WINDOW):
         cur = t64[home + r]
         match = cur == rem
         if match.any():
             found[idx[match]] = True
-        undecided = ~(match | (cur == 0))
+        undecided = ~(match | ((cur == 0) & (rem != tomb)))
         if not undecided.any():
             break
         idx, rem, home = idx[undecided], rem[undecided], home[undecided]
@@ -260,54 +263,103 @@ def fp_remove_torch(keys: torch.Tensor, table: torch.Tensor, cap: int) -> torch.
 
 
 # -- wrappers: plain version on the CPU, CUDA kernel on the card ------------------
+#
+# A wrapper call sits on the index's hot path, where it costs more host time
+# than its kernel takes on the card (PERF.md §5), so the launch path does only
+# what a call needs: the table size's integers and the library's functions
+# are resolved once, the device guard is entered only when the table lies on
+# another card than the current one, and the pointers go to ``ctypes`` as
+# plain integers (the ``argtypes`` convert them).
 
 
-def _check(keys: torch.Tensor, table: torch.Tensor, cap: int) -> None:
-    if keys.dtype != torch.int64 or table.dtype != torch.int64:
-        raise TypeError(f"keys and table must be int64, got {keys.dtype}, {table.dtype}")
-    if keys.dim() != 1 or table.dim() != 1:
-        raise ValueError("keys and table must be flat 1-D tensors")
-    if not (keys.is_contiguous() and table.is_contiguous()):
-        raise ValueError("keys and table must be contiguous")
-    if keys.device != table.device:
-        raise ValueError(f"keys on {keys.device}, table on {table.device}")
-    if table.numel() != table_phys_len(cap):
-        raise ValueError(
-            f"table has {table.numel()} slots, capacity {cap} needs {table_phys_len(cap)}"
-        )
-
-
-def _launch(name: str, keys, table, out, cap: int) -> None:
+@functools.lru_cache(maxsize=64)
+def cap_args(cap: int) -> tuple:
+    """(physical slots, mask, tile shift) of logical capacity ``cap``."""
     _, tile_cap, _ = tile_shape(cap)
-    fn = getattr(_build.library("fp_index"), f"{name}_launch")
-    # the launch is asynchronous; tensors the caller drops meanwhile are safe,
-    # because the caching allocator reuses their memory in stream order
-    with torch.cuda.device(keys.device):  # launch in the context of the table's card
-        err = fn(
-            ctypes.c_void_p(keys.data_ptr()),
-            ctypes.c_void_p(table.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_longlong(keys.numel()),
-            ctypes.c_longlong(cap - 1),
-            ctypes.c_int(tile_cap.bit_length() - 1),
-            ctypes.c_void_p(torch.cuda.current_stream(keys.device).cuda_stream),
-        )
-    _build.check(err, name)
+    return table_phys_len(cap), cap - 1, tile_cap.bit_length() - 1
+
+
+_launchers: dict = {}  # kernel name -> the library's launch function
+
+
+def launcher(name: str):
+    """The library's launch function of kernel ``name`` (built on first use)."""
+    fn = _launchers.get(name)
+    if fn is None:
+        fn = _launchers[name] = getattr(_build.library("fp_index"), f"{name}_launch")
+    return fn
+
+
+def check_table(table: torch.Tensor, cap: int) -> None:
+    """Raise unless ``table`` is a flat contiguous int64 table of logical
+    capacity ``cap``."""
+    phys = cap_args(cap)[0]  # raises for a capacity that is not a power of two
+    if table.dtype != torch.int64:
+        raise TypeError(f"the table must be int64, got {table.dtype}")
+    if table.dim() != 1 or not table.is_contiguous():
+        raise ValueError("the table must be a flat contiguous 1-D tensor")
+    if table.numel() != phys:
+        raise ValueError(f"table has {table.numel()} slots, capacity {cap} needs {phys}")
+
+
+def check_args(keys: torch.Tensor, table: torch.Tensor, cap: int) -> None:
+    """Raise unless ``keys`` is a flat contiguous int64 tensor on the device
+    of ``table``, a valid table of logical capacity ``cap``."""
+    check_table(table, cap)
+    if keys.dtype != torch.int64:
+        raise TypeError(f"keys must be int64, got {keys.dtype}")
+    if keys.dim() != 1 or not keys.is_contiguous():
+        raise ValueError("keys must be a flat contiguous 1-D tensor")
+    if keys.get_device() != table.get_device():
+        raise ValueError(f"keys on {keys.device}, table on {table.device}")
+
+
+def launch(name: str, keys: torch.Tensor, table: torch.Tensor, out: torch.Tensor,
+           cap: int) -> None:
+    """Launch the ``name`` kernel (``fp_probe``, ``fp_insert`` or
+    ``fp_remove``) on the card that holds ``table``, on its current stream.
+
+    ``keys`` (int64) and ``out`` (one flag or status per key) lie on that card
+    or in pinned host memory, which the kernel reads or writes in place over
+    the bus (the host-key helpers of ``ops``).  The launch is asynchronous:
+    the caller keeps host buffers alive until the kernel has run; tensors on
+    the card are safe to drop, because the caching allocator reuses their
+    memory in stream order.  The wrappers below check the arguments first.
+    """
+    n = keys.numel()
+    if n == 0:
+        return
+    _, mask, tile_shift = cap_args(cap)
+    table_ptr = table.data_ptr()
+    if table_ptr % 16:
+        raise ValueError("the table must start on a 16-byte boundary (the kernels load slot pairs)")
+    fn = launcher(name)
+    args = (keys.data_ptr(), table_ptr, out.data_ptr(), n, mask, tile_shift)
+    index = table.get_device()
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):  # launch in the context of the table's card
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err:
+        _build.check(err, name)
     _build.LAUNCHES[name] += 1
 
 
 def _dispatch(name: str, plain, out_dtype, keys, table, cap: int) -> torch.Tensor:
-    _check(keys, table, cap)
-    if keys.device.type == "cpu":
+    check_args(keys, table, cap)
+    if keys.is_cpu:
         return plain(keys, table, cap)
-    out = torch.empty(keys.numel(), dtype=out_dtype, device=keys.device)
-    if keys.numel():
-        _launch(name, keys, table, out, cap)
+    if not keys.is_cuda:
+        raise ValueError(f"keys on {keys.device}: the index kernels run on CUDA devices")
+    out = keys.new_empty(keys.numel(), dtype=out_dtype)
+    launch(name, keys, table, out, cap)
     return out
 
 
 def fp_probe(keys: torch.Tensor, table: torch.Tensor, cap: int) -> torch.Tensor:
-    """(N,) bool membership of int64 ``keys`` in the flat ``table``."""
+    """(N,) bool membership of int64 ``keys`` in the flat ``table``; equal
+    to ``fp_probe_torch``, sentinel keys included."""
     return _dispatch("fp_probe", fp_probe_torch, torch.bool, keys, table, cap)
 
 
@@ -317,5 +369,12 @@ def fp_insert(keys: torch.Tensor, table: torch.Tensor, cap: int) -> torch.Tensor
 
 
 def fp_remove(keys: torch.Tensor, table: torch.Tensor, cap: int) -> torch.Tensor:
-    """Tombstone int64 ``keys`` in ``table`` in place; (N,) bool removed."""
+    """Tombstone int64 ``keys`` in ``table`` in place; (N,) bool removed.
+
+    On the card a key repeated in the batch is removed once, as in the plain
+    version, but the flag may sit on another of its copies than the plain
+    version's first one: the flag count and the table afterwards are equal.
+    Sentinel keys, which ``FingerprintIndex`` never passes: EMPTY reports
+    False; every copy of TOMBSTONE reports whether it read a tombstone in its
+    window (the plain version flags the first copy only)."""
     return _dispatch("fp_remove", fp_remove_torch, torch.bool, keys, table, cap)

@@ -17,7 +17,8 @@ import torch
 from . import _build
 from .cdc import HALO_WORDS, SEG_BYTES, SEG_WORDS, cdc_candidates, unpack_candidates
 from .fingerprint import LANES, NUM_HASHES, _M32, fingerprint, fingerprint_torch
-from .fp_index import fp_insert, fp_probe, fp_remove
+from .fp_index import check_table, fp_insert, fp_probe, fp_remove
+from .fp_index import launch as fp_index_launch
 from .histogram import NBINS_DEFAULT, ffh
 
 # chunks per step of the plain gather: bounds its int64 temporaries
@@ -263,22 +264,58 @@ def keys_to_device(keys: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(keys).to(device)
 
 
+def pinned_keys(keys: np.ndarray) -> torch.Tensor:
+    """uint64 host keys as an int64 tensor in pinned host memory, which the
+    index kernels read in place (no copy to the card first)."""
+    staged = torch.empty(keys.size, dtype=torch.int64, pin_memory=True)
+    np.copyto(staged.numpy(), np.ascontiguousarray(keys, dtype=np.uint64).view(np.int64))
+    return staged
+
+
 def fp_index_probe(keys: np.ndarray, table: torch.Tensor, cap: int) -> torch.Tensor:
-    """(N,) bool membership flags of uint64 host keys against the
-    device-resident flat table, left on the table's device: the launch is
-    asynchronous, so the caller overlaps host work before reading them."""
-    return fp_probe(keys_to_device(keys, table.device), table, cap)
+    """(N,) bool membership flags of uint64 host keys against the flat
+    table, left on the table's device: the launch is asynchronous, so the
+    caller overlaps host work before reading them.
+
+    On a card the kernel reads the keys in place from pinned host memory,
+    which the flags tensor keeps alive (``staged_keys``) until it is dropped:
+    a caller drops it only after reading the flags, which waits for the
+    kernel."""
+    if table.is_cpu:
+        return fp_probe(keys_to_device(keys, table.device), table, cap)
+    check_table(table, cap)
+    staged = pinned_keys(keys)
+    flags = torch.empty(staged.numel(), dtype=torch.bool, device=table.device)
+    fp_index_launch("fp_probe", staged, table, flags, cap)
+    flags.staged_keys = staged
+    return flags
+
+
+def _index_update(name: str, dtype, keys: np.ndarray, table: torch.Tensor, cap: int) -> np.ndarray:
+    """Run the insert or remove kernel on uint64 host keys and wait for it.
+    Keys and results stay in pinned host memory, which the kernel reads and
+    writes in place: a call makes no copy to or from the card."""
+    check_table(table, cap)
+    staged = pinned_keys(keys)
+    out = torch.empty(staged.numel(), dtype=dtype, pin_memory=True)
+    fp_index_launch(name, staged, table, out, cap)
+    torch.cuda.current_stream(table.device).synchronize()
+    return out.numpy()
 
 
 def fp_index_insert(keys: np.ndarray, table: torch.Tensor, cap: int) -> np.ndarray:
     """Insert uint64 host keys into the table in place; (N,) int32 numpy
     status in batch order (PLACED / PRESENT / OVERFLOW / PLACED_TOMB)."""
-    return fp_insert(keys_to_device(keys, table.device), table, cap).cpu().numpy()
+    if table.is_cpu:
+        return fp_insert(keys_to_device(keys, table.device), table, cap).numpy()
+    return _index_update("fp_insert", torch.int32, keys, table, cap)
 
 
 def fp_index_remove(keys: np.ndarray, table: torch.Tensor, cap: int) -> np.ndarray:
     """Tombstone uint64 host keys in the table in place; (N,) bool numpy."""
-    return fp_remove(keys_to_device(keys, table.device), table, cap).cpu().numpy()
+    if table.is_cpu:
+        return fp_remove(keys_to_device(keys, table.device), table, cap).numpy()
+    return _index_update("fp_remove", torch.bool, keys, table, cap)
 
 
 def ffh_counts(counts, nbins: int = NBINS_DEFAULT, device=None) -> torch.Tensor:

@@ -5,9 +5,15 @@
   interpret mode) bit for bit: tables and statuses.
 * Random op sequences give the same membership, ``len`` and spill as
   ``repro.core.fp_index.FingerprintIndex`` on both port backends, on the CPU.
+* On every table the plain insert and the numpy backend build, no key and
+  no tombstone lies past an EMPTY slot of its window, so the early-stop
+  probes equal the whole-window plain probe (sentinel keys included).
 * Membership equals a plain set's on both backends (hypothesis), including
   ``discard`` then ``add_many`` of a key still in the table, where the
-  reference answers "absent" (ROADMAP, faults found against the reference).
+  reference answers "absent", and ``add``, ``add_many`` then ``discard`` of
+  one key, where it answers "present" (ROADMAP, faults found against the
+  reference); then ``add`` of that key again after an ``add_many`` of
+  another.
 
 The CUDA kernels are held against these plain versions in
 ``tests/test_torch_gpu.py``.
@@ -252,6 +258,101 @@ def test_wrappers_reject_bad_tables():
                     64)
 
 
+def _track_tombstones(before, after, tomb_homes, cap):
+    """Record the home of the key each new tombstone replaced; forget
+    tombstones that a key took again."""
+    changed = np.nonzero(before != after)[0]
+    tomb = np.uint64(TOMB_KEY)
+    for s in changed.tolist():
+        if after[s] == tomb:
+            tomb_homes[s] = int(k.phys_homes_host(before[s:s + 1], cap)[0])
+        else:
+            tomb_homes.pop(s, None)
+
+
+def _assert_nothing_past_empty(t64, tomb_homes, cap):
+    """No key, and no tombstone, lies past a slot of its window that is EMPTY."""
+    empties = np.concatenate([[0], np.cumsum(t64 == 0)])
+    occupied = np.nonzero((t64 != 0) & (t64 != np.uint64(TOMB_KEY)))[0]
+    slots = np.concatenate([occupied, np.fromiter(tomb_homes, dtype=np.int64)])
+    homes = np.concatenate([k.phys_homes_host(t64[occupied], cap),
+                            np.fromiter(tomb_homes.values(), dtype=np.int64)])
+    assert ((slots >= homes) & (slots < homes + k.WINDOW)).all()
+    assert (empties[slots] - empties[homes] == 0).all()
+
+
+def _probe_batch(rng, t64):
+    """Every resident key, absent keys, and both sentinels."""
+    resident = t64[(t64 != 0) & (t64 != np.uint64(TOMB_KEY))]
+    sentinels = np.array([EMPTY_KEY, TOMB_KEY], dtype=np.uint64)
+    return np.concatenate([resident, _keys(rng, 300), sentinels])
+
+
+@pytest.mark.parametrize("built_by", ["plain", "numpy"])
+@pytest.mark.parametrize("cap,seed", [(64, 0), (1024, 1), (1 << 16, 2)])
+def test_early_stop_invariant_on_built_tables(built_by, cap, seed):
+    """The invariant the early-stop probes (``probe_host`` and the CUDA probe
+    and remove) rest on, over seeded random inserts and removes on tables
+    built by the plain ``fp_insert_torch`` and by the numpy backend's
+    ``_table_insert``: no key and no tombstone lies past an EMPTY slot of its
+    window.  On every such table the early-stop probe equals the
+    whole-window ``fp_probe_torch``, sentinel keys included."""
+    rng = np.random.default_rng(seed)
+    tomb_homes: dict = {}
+    if built_by == "plain":
+        table = torch.zeros(k.table_phys_len(cap), dtype=torch.int64)
+    else:
+        idx = FingerprintIndex(capacity=cap, small_batch=0, backend="numpy", device="cpu")
+    for step in range(24):
+        if built_by == "plain":
+            t_cap, before = cap, table.numpy().view(np.uint64).copy()
+            resident = before[(before != 0) & (before != np.uint64(TOMB_KEY))]
+            if step % 3 == 2 and resident.size:
+                gone = rng.choice(resident, size=max(1, resident.size // 3), replace=False)
+                k.fp_remove_torch(_t(np.concatenate([gone, _keys(rng, 8)])), table, cap)
+            else:
+                fresh = _keys(rng, int(rng.integers(1, cap // 3 + 2)))
+                k.fp_insert_torch(_t(np.concatenate([fresh, fresh[:3], resident[:5]])), table, cap)
+            after = table.numpy().view(np.uint64)
+        else:
+            t_cap, before = idx._cap, idx._t64.copy()
+            if step % 3 == 2 and len(idx):
+                pool = np.fromiter(idx, dtype=np.uint64, count=len(idx))
+                idx.remove_many(rng.choice(pool, size=max(1, pool.size // 3), replace=False))
+            else:
+                idx.add_many(_keys(rng, int(rng.integers(1, cap // 3 + 2))))
+            idx._flush()
+            if idx._cap != t_cap:  # the index grew: a fresh table, no tombstones
+                tomb_homes.clear()
+                t_cap, before = idx._cap, np.zeros_like(idx._t64)
+            after = idx._t64
+        _track_tombstones(before, after, tomb_homes, t_cap)
+        _assert_nothing_past_empty(after, tomb_homes, t_cap)
+        probe = _probe_batch(rng, after)
+        want = k.fp_probe_torch(_t(probe), torch.from_numpy(after.view(np.int64)), t_cap).numpy()
+        np.testing.assert_array_equal(k.probe_host(after, probe, t_cap), want)
+
+
+def test_tombstone_key_is_not_decided_by_an_empty_slot():
+    """A tombstone left by a key whose home lies past an EMPTY slot of the
+    TOMBSTONE key's window: the whole-window probe finds it, so the early-stop
+    probe may not stop the TOMBSTONE key at that EMPTY slot."""
+    cap = 64
+    tomb_home = int(k.phys_homes_host(np.array([TOMB_KEY], dtype=np.uint64), cap)[0])
+    assert tomb_home + 1 < cap
+    cand = _keys(np.random.default_rng(0), 4096)
+    later = cand[k.phys_homes_host(cand, cap) == tomb_home + 1][:1]
+    table = torch.zeros(k.table_phys_len(cap), dtype=torch.int64)
+    k.fp_insert_torch(_t(later), table, cap)
+    assert k.fp_remove_torch(_t(later), table, cap).all()
+    t64 = table.numpy().view(np.uint64)
+    assert t64[tomb_home] == 0 and t64[tomb_home + 1] == np.uint64(TOMB_KEY)
+    probe = np.array([TOMB_KEY, EMPTY_KEY], dtype=np.uint64)
+    want = k.fp_probe_torch(_t(probe), table, cap).numpy()
+    assert want.tolist() == [True, True]
+    np.testing.assert_array_equal(k.probe_host(t64, probe, cap), want)
+
+
 @pytest.mark.parametrize("backend", ["numpy", "torch"])
 def test_add_many_cancels_a_staged_removal(backend):
     """The shortest sequence on which the reference loses key 1: ``discard``
@@ -287,6 +388,8 @@ _op_st = st.tuples(
 @given(st.lists(_op_st, min_size=1, max_size=30))
 @example([("add", [0] * 9 + [25, 1, 32]), ("probe", [10]), ("remove", [1]), ("add_many", [1]),
           ("probe", [0, 1, 25, 32])])
+@example([("add", [1]), ("add_many", [1]), ("remove", [1]), ("probe", [1])])
+@example([("add", [1]), ("add_many", [2]), ("remove", [1]), ("add", [1]), ("probe", [1])])
 def test_property_matches_a_set_on_both_backends(ops):
     """Scalar and batched mutators mixed, at capacity 32 (window overflow and
     growth routine): every membership answer equals a plain set's."""

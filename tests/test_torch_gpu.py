@@ -120,6 +120,117 @@ def test_index_kernels_match_plain(cuda, cap, n):
         assert LAUNCHES[name] > before[name]
 
 
+def _keys_at(cap, home, count, seed):
+    """``count`` keys whose logical home slot at capacity ``cap`` is ``home``."""
+    rng = np.random.default_rng(seed)
+    found = []
+    while sum(f.size for f in found) < count:
+        cand = _keys(rng, cap * 16)
+        lo = (cand & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        hi = (cand >> np.uint64(32)).astype(np.uint32)
+        found.append(cand[(k.slot_hash_host(lo, hi) & np.uint32(cap - 1)) == home])
+    return np.concatenate(found)[:count]
+
+
+def _walk_case(case):
+    """(cap, table built by the plain insert on the host, probe keys, remove
+    keys) for one shape of the probe and remove walks."""
+    rng = np.random.default_rng(len(case))
+    if case == "odd_and_even_homes":
+        cap = 1024
+        at = [_keys_at(cap, h, 10, h) for h in (100, 201, 302, 403)]
+        placed = np.concatenate([a[:7] for a in at])
+        absent = np.concatenate([a[7:] for a in at])
+        gone = placed[::2]
+    elif case == "last_home_of_a_tile":
+        # windows from the last home of each of two tiles run into TILE_PAD
+        cap = 1 << 16
+        at = [_keys_at(cap, h, 20, h) for h in (k.TILE_SLOTS - 1, 2 * k.TILE_SLOTS - 1)]
+        placed = np.concatenate([a[:16] for a in at])
+        absent = np.concatenate([a[16:] for a in at])
+        gone = placed[5::6]
+    elif case == "full_window":
+        # no EMPTY slot in the window: an absent key walks every step
+        cap = 1024
+        at = [_keys_at(cap, h, 20, h) for h in (500, 601)]
+        placed = np.concatenate([a[:16] for a in at])
+        absent = np.concatenate([a[16:] for a in at])
+        gone = placed[-3:]
+    elif case == "tombstones_first":
+        cap = 1024
+        at = _keys_at(cap, 300, 14, 3)
+        placed, absent, gone = at[:12], at[12:], at[6:12]
+    elif case == "repeated_removes":
+        cap = 1 << 14
+        placed = np.unique(_keys(rng, 3000))
+        absent = _keys(rng, 200)
+        gone = np.concatenate([placed[:1000]] * 3)
+    table = torch.zeros(k.table_phys_len(cap), dtype=torch.int64)
+    k.fp_insert_torch(_t(np.concatenate([placed, _keys(rng, cap // 4)])), table, cap)
+    if case == "tombstones_first":  # tombstones in the window's first slots
+        assert k.fp_remove_torch(_t(placed[:6]), table, cap).all()
+    probe = np.concatenate([placed, absent, _keys(rng, 64)])
+    remove = np.concatenate([gone, absent])
+    return cap, table, probe, remove
+
+
+def _hold_walks(cuda, cap, table, probe, remove):
+    """Probe and remove on the card against the plain versions."""
+    np.testing.assert_array_equal(
+        k.fp_probe(_t(probe).to(cuda), table.to(cuda), cap).cpu().numpy(),
+        k.fp_probe_torch(_t(probe), table, cap).numpy())
+    got_t, want_t = table.to(cuda), table.clone()
+    got = k.fp_remove(_t(remove).to(cuda), got_t, cap).cpu().numpy()
+    want = k.fp_remove_torch(_t(remove), want_t, cap).numpy()
+    # one flag per removed key; the same keys; the same slots tombstoned
+    assert got.sum() == want.sum()
+    np.testing.assert_array_equal(np.sort(remove[got]), np.sort(remove[want]))
+    assert torch.equal(got_t.cpu(), want_t)
+
+
+@pytest.mark.parametrize("case", ["odd_and_even_homes", "last_home_of_a_tile", "full_window",
+                                  "tombstones_first", "repeated_removes"])
+def test_walk_kernels_match_plain(cuda, case):
+    """The probe and remove walks at the shapes that test their edges."""
+    cap, table, probe, remove = _walk_case(case)
+    _hold_walks(cuda, cap, table, probe, remove)
+
+
+def test_probe_kernel_sentinel_keys(cuda):
+    """Keys 0 and TOMBSTONE in a probe batch, on a table where a tombstone
+    lies past an EMPTY slot of TOMBSTONE's window: equal to the plain
+    whole-window probe."""
+    cap = 64
+    tomb_home = int(k.phys_homes_host(np.array([TOMB_KEY], dtype=np.uint64), cap)[0])
+    later = _keys_at(cap, tomb_home + 1, 2, 5)
+    table = torch.zeros(k.table_phys_len(cap), dtype=torch.int64)
+    k.fp_insert_torch(_t(later), table, cap)
+    k.fp_remove_torch(_t(later[:1]), table, cap)
+    sentinels = np.array([0, TOMB_KEY], dtype=np.uint64)
+    want = k.fp_probe_torch(_t(sentinels), table, cap).numpy()
+    assert want.tolist() == [True, True]
+    fuller = table.clone()
+    k.fp_insert_torch(_t(_keys(np.random.default_rng(6), 40)), fuller, cap)
+    for tbl in (table, fuller):
+        probe = np.concatenate([sentinels, later, sentinels])
+        _hold_walks(cuda, cap, tbl, probe, np.array([0], dtype=np.uint64))
+
+
+def test_walk_kernels_replay_batch_and_one_key(cuda):
+    """8,192 keys, half resident, as a replay batch probes them, and a
+    launch of one key, on a table at load 0.3."""
+    cap = 1 << 16
+    rng = np.random.default_rng(12)
+    placed = np.unique(_keys(rng, int(0.3 * cap)))
+    table = torch.zeros(k.table_phys_len(cap), dtype=torch.int64)
+    k.fp_insert_torch(_t(placed), table, cap)
+    probe = np.concatenate([placed[:4096], _keys(rng, 4096)])
+    rng.shuffle(probe)
+    _hold_walks(cuda, cap, table, probe, placed[:8192])
+    for one in (placed[:1], _keys(rng, 1)):
+        _hold_walks(cuda, cap, table, one, one)
+
+
 def test_index_on_card_matches_host_index(cuda):
     rng = np.random.default_rng(5)
     host = FingerprintIndex(capacity=128, small_batch=0, device="cpu")
