@@ -51,10 +51,15 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
 * ``cdc_kernels`` the Gear candidate kernel against its plain version on
                   4,096 random haloed rows at avg_size 256, 1,024 and 4,096,
                   and the fused chunk gather + fingerprint kernel against its
-                  plain version on chunks of every start phase, length 1 and
-                  max_size, crossing rows, reaching before the payload's
-                  first byte and past its last; bit for bit.  The golden cases of
-                  ``tests/golden/cdc_digests.json`` through the device backend.
+                  plain version, bit for bit, on random chunks and the edge
+                  families of ``kernels.ref.chunk_edge_cases`` (every start
+                  phase; lengths about 1, 512, a batch of groups and
+                  max_size; 1 to 8 row halos crossed; the payload's last
+                  byte; bytes before offset 0 and past the payload), over
+                  random, zero and 0xFF bytes, and on 200,000 chunks of
+                  uneven lengths; two calls must give equal bits.  The
+                  golden cases of ``tests/golden/cdc_digests.json`` through
+                  the device backend.
 * ``cdc``         the byte path at a realistic size: 32 VM images of 32 MiB
                   re-ingested in 3 edited snapshot rounds (about 4 GiB),
                   ``ContentDefinedChunker().batch_from_buffers`` once per
@@ -94,7 +99,8 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
 * ``kernels``     one object per kernel: launches on the main paths (replay,
                   cdc, serve, ffh and the paged pool, summed), largest
                   disagreement with its plain version, times, and the least
-                  time the card could take for the same work.
+                  time the card could take for the same work; for the chunk
+                  kernel also ptxas's registers and spill bytes.
 
 The next-to-last line is ``nvidia-smi``'s name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
@@ -106,6 +112,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -183,6 +190,29 @@ def ops_ms(alu: float, imad: float) -> float:
     """The least time for ``alu`` ALU-pipe and ``imad`` FMA-pipe integer
     instructions: the ALU pipe's share, or the issue limit of both."""
     return max(alu / ALU_OPS_PER_S, (alu + imad) / BOTH_PIPES_OPS_PER_S) * 1e3
+
+
+def ptxas_usage(source: str, kernel: str) -> dict:
+    """Registers and spill bytes ptxas reported for ``kernel`` in
+    ``csrc/<source>.cu`` (``_build.BUILD_LOG``)."""
+    from repro_torch.kernels import _build
+
+    lines = _build.BUILD_LOG.get(source, "").splitlines()
+    start = next((i for i, ln in enumerate(lines) if "Compiling entry" in ln and kernel in ln),
+                 None)
+    check(start is not None, f"no ptxas report for {kernel} in the build log of {source}.cu")
+    body = []
+    for ln in lines[start + 1:]:
+        if "Compiling entry" in ln:
+            break
+        body.append(ln)
+    text = " ".join(body)
+    regs = re.search(r"Used (\d+) registers", text)
+    spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+    check(regs is not None and spills is not None,
+          f"cannot read registers and spills of {kernel} ({source}.cu) from: {text}")
+    return {"registers": int(regs.group(1)), "spill_store_bytes": int(spills.group(1)),
+            "spill_load_bytes": int(spills.group(2))}
 
 
 def emit(phase: str, **fields) -> None:
@@ -845,8 +875,8 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
 def phase_cdc_kernels(dev, results: dict) -> None:
     from repro_torch.core import ContentDefinedChunker
     from repro_torch.kernels.cdc import SEG_BYTES, cdc_candidates, cdc_candidates_torch
-    from repro_torch.kernels.ops import chunk_fingerprint, chunk_fingerprint_torch
-    from repro_torch.kernels.ref import cdc_golden_buffer
+    from repro_torch.kernels.ops import CHUNK_FP_BATCH, chunk_fingerprint, chunk_fingerprint_torch
+    from repro_torch.kernels.ref import cdc_golden_buffer, chunk_edge_cases
 
     rng = np.random.default_rng(3)
     r, n_chunks = 4096, 20_000
@@ -861,21 +891,41 @@ def phase_cdc_kernels(dev, results: dict) -> None:
 
     total = r * SEG_BYTES
     chunk_err = 0
+    zeros, ones = torch.zeros_like(rows), torch.full_like(rows, -1)
     for w_pad in (1024, 4096):
         max_size = 4 * w_pad
         lens = rng.integers(1, max_size + 1, size=n_chunks)
         starts = rng.integers(0, total - max_size, size=n_chunks)
-        # every start phase mod 4, length 1 and max_size, the payload's ends;
-        # bytes before offset 0 and past the payload read as zero
-        lens[:11] = [1, max_size, 2, 3, 4, 5, max_size, 5, 7, max_size, max_size]
-        starts[:11] = [0, 1, 2, 3, 2046, 2047, total - max_size, total - 5, -3, -2049,
-                       total - 1001]
+        # every edge family: start phases, lengths about 1, 512, a batch of
+        # groups and max_size, 1 to 8 row halos crossed, the payload's last
+        # byte, bytes before offset 0 and past the payload (read as zero)
+        edges = chunk_edge_cases(r, max_size, CHUNK_FP_BATCH).values()
+        starts = np.concatenate([starts, *(e for e, _ in edges)])
+        lens = np.concatenate([lens, *(n for _, n in edges)])
         st = torch.from_numpy(starts.astype(np.int64)).to(dev)
         ln = torch.from_numpy(lens.astype(np.int32)).to(dev)
-        e = _max_err(chunk_fingerprint(rows, st, ln, w_pad),
-                     chunk_fingerprint_torch(rows, st, ln, w_pad))
-        check(e == 0, f"chunk_fingerprint kernel != plain at w_pad {w_pad}")
-        chunk_err = max(chunk_err, e)
+        for name, x in (("random", rows), ("zero", zeros), ("0xFF", ones)):
+            got = chunk_fingerprint(x, st, ln, w_pad)
+            e = _max_err(got, chunk_fingerprint_torch(x, st, ln, w_pad))
+            check(e == 0, f"chunk_fingerprint kernel != plain at w_pad {w_pad}, {name} bytes")
+            check(torch.equal(got, chunk_fingerprint(x, st, ln, w_pad)),
+                  f"chunk_fingerprint: two calls differ at w_pad {w_pad}, {name} bytes")
+            chunk_err = max(chunk_err, e)
+    # many uneven chunks: more than the persistent grid has warps, long ones
+    # clustered, so that the warps walk many chunks and end apart
+    c = 200_000
+    lens = np.minimum(16384, 1 + rng.geometric(1 / 3000, size=c))
+    lens[rng.random(c) < 0.05] = 16384
+    lens[50_000:52_000] = 16384
+    st = torch.from_numpy(rng.integers(0, total - 16384, size=c).astype(np.int64)).to(dev)
+    ln = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    got = chunk_fingerprint(rows, st, ln, 4096)
+    e = _max_err(got, chunk_fingerprint_torch(rows, st, ln, 4096))
+    check(e == 0, "chunk_fingerprint kernel != plain on 200,000 uneven chunks")
+    check(torch.equal(got, chunk_fingerprint(rows, st, ln, 4096)),
+          "chunk_fingerprint: two calls differ on 200,000 uneven chunks")
+    chunk_err = max(chunk_err, e)
+    del zeros, ones
 
     with open(os.path.join(ROOT, "tests", "golden", "cdc_digests.json")) as f:
         golden = json.load(f)
@@ -888,7 +938,9 @@ def phase_cdc_kernels(dev, results: dict) -> None:
     results.setdefault("cdc_candidates", {})["max_abs_err"] = cand_err
     results.setdefault("chunk_fingerprint", {})["max_abs_err"] = chunk_err
     emit("cdc_kernels", rows=r, avg_sizes=[256, 1024, 4096], chunks=n_chunks,
-         w_pads=[1024, 4096], golden_cases=len(golden["cases"]), agree=True)
+         w_pads=[1024, 4096], edge_families=["phases", "halos", "payload_end", "outside"],
+         row_bytes=["random", "zero", "0xFF"], uneven_chunks=c, equal_bits_twice=True,
+         golden_cases=len(golden["cases"]), agree=True)
 
 
 def phase_cdc(dev, results: dict, seed: int) -> None:
@@ -1015,6 +1067,7 @@ def phase_cdc(dev, results: dict, seed: int) -> None:
             library_ms=None, bytes_bound_ms=t_bytes, ops_bound_ms=t_ops,
             shape={"rows": r, "chunks": c, "payload_bytes": int(sum(b.size for b in bufs))},
         )
+    results["chunk_fingerprint"]["ptxas"] = ptxas_usage("cdc", "chunk_fingerprint_kernel")
     for name, n in launches.items():
         results.setdefault(name, {}).setdefault("launches_by_path", {})["cdc"] = n
     del rows, st, ln

@@ -45,18 +45,39 @@
 // What bounds it: each chunk's bytes read once, 12 bytes of start and
 // length, 16 bytes of digest written: about 0.32 ms per GiB of chunks.  The
 // hash needs 12 ALU instructions and 12 multiply-adds per word only for the
-// 128-word groups that hold chunk bytes: a group of zeros has a lane sum
-// that is the same for every group, so a padded group costs only its fold.
+// 128-word groups that hold chunk bytes: a group of zeros has a sum that is
+// the same for every chunk and group (fp_hash::zero_group_sum), so a padded
+// group costs only its fold.
 //
-// Design: one warp per chunk.  For each 512-byte group that holds chunk
-// bytes, lane l gathers bytes 16l..16l+15 of the group as four words: five
-// aligned payload-word loads (skipping each row's halo) and funnel shifts
-// by 8 * (start % 4), with bytes past the chunk's length masked to zero.
-// Then the shared block hash of fp_hash.cuh.  The groups past the data fold
-// the zero group's lane sum, computed once per chunk.  Loads stay inside the
-// chunk and the payload whatever the starts and lengths: bytes outside read
-// as zero, as in the plain version.
+// Design: a persistent grid, one warp per chunk at a time, the warps walking
+// the chunks with a grid stride (a long chunk holds up only its own warp),
+// each reading the next chunk's start and length before it hashes the
+// current one.  The data groups go in batches of BATCH = 4:
+//   - gather: for each group of the batch, lane l loads the two 16-byte
+//     units that hold bytes 16l..16l+15 of the group (payload units lie in
+//     one row each, 16-byte aligned), all loads of the batch issued before
+//     any is used; funnel shifts by the chunk's word and byte phase align the
+//     lane's four words.  Offsets are 32-bit, added to one 64-bit base per
+//     chunk.
+//   - hash: each lane's share of the four key sets' sums (fp_hash::LaneShare,
+//     the lane weight premultiplied by P2);
+//   - reduce: the BATCH x 4 shares of every lane go through shared memory
+//     at once, transposed, so that lanes m and m + 16 end with the whole sum
+//     of slot m (group m / 4, key set m % 4): 16 stores, 4 16-byte loads, the
+//     adds and one shuffle, in place of a 5-step butterfly per group and key
+//     set;
+//   - fold: lane l keeps key set l % 4's digest and folds each group's sum
+//     into it (one shuffle per group), so one instruction folds all four.
+// The zero groups past the data fold the constant zero-group sum.  Batches
+// that reach the chunk's end (or start before the payload) test each unit
+// against the chunk and mask the bytes past its end; the others test
+// nothing.  A unit is read only if it holds a byte of the chunk, and it
+// lies in the payload; bytes outside read as zero, as in the plain version.
+// Blocks of 4 warps, registers capped so that 7 fit an SM (28 warps): the
+// kernel waits on latency more than on any pipe, and more warps hide more
+// of it.  PERF.md holds the batch sizes, block shapes and caps tried.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -145,68 +166,202 @@ cdc_candidates_kernel(const uint4* __restrict__ in, uint4* __restrict__ out, lon
 
 // -- chunk gather + fingerprint -----------------------------------------------
 
-constexpr int WARPS_PER_BLOCK = 8;
+constexpr int WARPS_PER_BLOCK = 4;
+constexpr int MIN_BLOCKS_PER_SM = 7;  // 28 warps an SM: at most 72 registers a thread
 constexpr int GROUP_BYTES = fp_hash::LANES * 4;
+constexpr int BATCH = 4;                            // groups reduced in one exchange
+constexpr int SLOTS = BATCH * fp_hash::NUM_HASHES;  // (group, key set) sums per batch
+constexpr int SLOT_STRIDE = 36;  // words per slot in the exchange: 32 shares + 4 against conflicts
+constexpr int MAX_W_PAD = 1 << 24;  // keeps every chunk offset inside 32 bits
+constexpr unsigned FULL_MASK = 0xffffffffu;
+static_assert(SLOTS <= 32 && 32 % SLOTS == 0, "each slot's sum must end in whole lanes");
 
-// Payload word q of the concatenated stream: row q / 512, column 8 + q % 512.
-__device__ __forceinline__ uint32_t payload_word(const uint32_t* __restrict__ rows, long long q) {
-  return __ldg(rows + q + (long long)HALO_WORDS * ((q >> 9) + 1));
+// Payload word o (o >= 0) of the rows from the chunk's first row on, where
+// rp points at that row's payload.
+__device__ __forceinline__ const uint4* payload_unit(const uint32_t* rp, int o) {
+  return reinterpret_cast<const uint4*>(rp + (o + HALO_WORDS * (o >> 9)));
 }
 
-// Stream bytes p..p+15 as four little-endian words, zero before byte 0 and
-// from byte `end` on.
-__device__ __forceinline__ void gather16(const uint32_t* __restrict__ rows, long long p,
-                                         long long end, uint32_t words[4]) {
-  const long long q0 = p >> 2;
-  const int shift = 8 * (int)(p & 3);
-  uint32_t w[5];
+// The raw words of the batch: for group g, the 16-byte units at words x and
+// x + 4 (x = xb + 128 g, a multiple of 4).  Unchecked, unit B is read only
+// where words 4.. are needed (need_b); checked, a unit is read only if its
+// first word starts before the chunk's end (word hi), and never before word
+// 0.  A unit not read stays zero.
+template <bool CHECKED>
+__device__ __forceinline__ void load_batch(const uint32_t* __restrict__ rp, int xb, int hi,
+                                           bool need_b, uint32_t raw[BATCH][8]) {
 #pragma unroll
-  for (int j = 0; j < 5; ++j) {
-    const long long q = q0 + j;
-    w[j] = (q >= 0 && q * 4 < end) ? payload_word(rows, q) : 0u;
+  for (int g = 0; g < BATCH; ++g) {
+    const int x = xb + fp_hash::LANES * g;
+    const bool read_a = CHECKED ? (unsigned)x < (unsigned)hi : true;
+    const bool read_b = CHECKED ? (unsigned)(x + 4) < (unsigned)hi : need_b;
+    uint4 a = make_uint4(0u, 0u, 0u, 0u), b = a;
+    if (read_a) a = __ldg(payload_unit(rp, x));
+    if (read_b) b = __ldg(payload_unit(rp, x + 4));
+    raw[g][0] = a.x;
+    raw[g][1] = a.y;
+    raw[g][2] = a.z;
+    raw[g][3] = a.w;
+    raw[g][4] = b.x;
+    raw[g][5] = b.y;
+    raw[g][6] = b.z;
+    raw[g][7] = b.w;
   }
+}
+
+// The lane's four words of each group: bytes 4R + shift / 8 on of its raw
+// words, R being the chunk's word phase within a 16-byte unit.
+template <int R>
+__device__ __forceinline__ void align_batch(const uint32_t raw[BATCH][8], int shift,
+                                            uint32_t words[BATCH][4]) {
 #pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    uint32_t v = __funnelshift_r(w[m], w[m + 1], shift);
-    const long long keep = end - (p + 4 * m);  // bytes of v inside the chunk
-    if (keep <= 0) {
-      v = 0u;
-    } else if (keep < 4) {
-      v &= (1u << (8 * (int)keep)) - 1u;
+  for (int g = 0; g < BATCH; ++g) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) words[g][m] = __funnelshift_r(raw[g][R + m], raw[g][R + m + 1], shift);
+  }
+}
+
+// Zero the bytes of groups `first`.. that lie past the chunk's end: word m of
+// group g holds image bytes from 512 g + 4 m + (lane's offset); `keep0` is
+// the image bytes read (end - start) less the lane's offset in the batch.
+__device__ __forceinline__ void mask_batch(uint32_t words[BATCH][4], int keep0, int first) {
+#pragma unroll
+  for (int g = 0; g < BATCH; ++g) {
+    if (g < first) continue;  // uniform: a group wholly inside the chunk
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int keep = keep0 - GROUP_BYTES * g - 4 * m;
+      const uint32_t mask = keep <= 0 ? 0u : keep >= 4 ? 0xFFFFFFFFu : (1u << (8 * keep)) - 1u;
+      words[g][m] &= mask;
     }
-    words[m] = v;
   }
 }
 
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
+// What a batch needs to know of its chunk, in 32-bit coordinates from the
+// chunk's first row (negative only before the payload).
+struct ChunkView {
+  const uint32_t* rp;  // the payload of the chunk's first row
+  int xa;              // the lane's first word of group 0, a multiple of 4
+  int hi;              // words that start before the chunk's end
+  int r, shift;        // the start's word within a 16-byte unit; its byte, in bits
+  bool need_b;         // the lane's words reach the second unit
+  int read_bytes;      // image bytes read: end - start
+  int full, d;         // groups wholly inside the chunk; groups holding data
+};
+
+// Gather, hash, reduce and fold groups b .. b + BATCH - 1 of the chunk into
+// h, the digest of key set `lane % 4`.  CHECKED: some of them reach the
+// chunk's end, lie past it or start before the payload.
+template <bool CHECKED>
+__device__ __forceinline__ uint32_t fold_batch(const ChunkView& ck, int b, uint32_t h,
+                                               const fp_hash::LaneShare& share, uint32_t* xch,
+                                               int lane) {
+  uint32_t raw[BATCH][8];
+  load_batch<CHECKED>(ck.rp, ck.xa + fp_hash::LANES * b, ck.hi, ck.need_b, raw);
+  uint32_t words[BATCH][4];
+  switch (ck.r) {
+    case 0: align_batch<0>(raw, ck.shift, words); break;
+    case 1: align_batch<1>(raw, ck.shift, words); break;
+    case 2: align_batch<2>(raw, ck.shift, words); break;
+    default: align_batch<3>(raw, ck.shift, words); break;
+  }
+  if (CHECKED) mask_batch(words, ck.read_bytes - GROUP_BYTES * b - 16 * lane, ck.full - b);
+
+  uint32_t s[SLOTS];
+#pragma unroll
+  for (int g = 0; g < BATCH; ++g) {
+    if (!CHECKED || b + g < ck.d) {
+      share.sums(words[g], s + fp_hash::NUM_HASHES * g);
+    } else {
+#pragma unroll
+      for (int k = 0; k < fp_hash::NUM_HASHES; ++k) s[fp_hash::NUM_HASHES * g + k] = 0u;
+    }
+  }
+
+  // transpose through shared memory: the 32 shares of slot m into lane(s) m
+  __syncwarp();
+#pragma unroll
+  for (int m = 0; m < SLOTS; ++m) xch[m * SLOT_STRIDE + lane] = s[m];
+  __syncwarp();
+  constexpr int PER_SLOT = 32 / SLOTS, SPAN = 32 / PER_SLOT;
+  const uint4* slot =
+      reinterpret_cast<const uint4*>(xch + (lane % SLOTS) * SLOT_STRIDE + (lane / SLOTS) * SPAN);
+  uint32_t total = 0;
+#pragma unroll
+  for (int i = 0; i < SPAN / 4; ++i) {
+    const uint4 v = slot[i];
+    total += v.x + v.y + v.z + v.w;
+  }
+#pragma unroll
+  for (int off = SLOTS; off < 32; off <<= 1) total += __shfl_xor_sync(FULL_MASK, total, off);
+
+  const int hk = lane & (fp_hash::NUM_HASHES - 1);
+#pragma unroll
+  for (int g = 0; g < BATCH; ++g) {
+    if (!CHECKED || b + g < ck.d) {
+      const uint32_t sum = __shfl_sync(FULL_MASK, total, fp_hash::NUM_HASHES * g + hk);
+      h = fp_hash::fold_one(h, sum, b + g);
+    }
+  }
+  return h;
+}
+
+__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32, MIN_BLOCKS_PER_SM)
 chunk_fingerprint_kernel(const uint32_t* __restrict__ rows, long long payload_bytes,
                          const long long* __restrict__ starts, const int* __restrict__ lens,
                          uint32_t* __restrict__ out, long long chunks, int w_pad) {
-  const int lane = threadIdx.x & 31;
-  const long long chunk = (long long)blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  if (chunk >= chunks) return;  // whole warps exit together
-
-  const long long start = starts[chunk];
-  const int len = lens[chunk];
-  const long long end = min(start + len, payload_bytes);
-  fp_hash::Lane st(lane);
+  __shared__ __align__(16) uint32_t exchange[WARPS_PER_BLOCK][SLOTS * SLOT_STRIDE];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* xch = exchange[warp];
+  const int hk = lane & (fp_hash::NUM_HASHES - 1);  // the key set this lane folds
+  const fp_hash::LaneShare share(lane);
+  const uint32_t zero_sum = fp_hash::zero_group_sum(hk);
   const int groups = w_pad / fp_hash::LANES;
-  const int data_groups = min(groups, (len + GROUP_BYTES - 1) / GROUP_BYTES);
-  uint32_t zero_s[fp_hash::NUM_HASHES];
-  if (data_groups < groups) {  // uniform across the warp
-    const uint32_t zeros[4] = {0u, 0u, 0u, 0u};
-    st.group_sum(zeros, zero_s);
+  const long long span = 4LL * w_pad;  // image bytes
+  const long long stride = (long long)gridDim.x * WARPS_PER_BLOCK;
+
+  // whole warps walk the chunks together, each chunk's start and length
+  // read one chunk ahead
+  long long chunk = (long long)blockIdx.x * WARPS_PER_BLOCK + warp;
+  long long next_start = chunk < chunks ? __ldg(starts + chunk) : 0;
+  int next_len = chunk < chunks ? __ldg(lens + chunk) : 0;
+  for (; chunk < chunks; chunk += stride) {
+    const long long start = next_start;
+    const int len = next_len;
+    if (chunk + stride < chunks) {
+      next_start = __ldg(starts + chunk + stride);
+      next_len = __ldg(lens + chunk + stride);
+    }
+    // image bytes start .. end - 1 are read: inside the chunk, the image
+    // and the payload; the rest of the image is zero
+    const long long end = min(start + min((long long)len, span), payload_bytes);
+    ChunkView ck;
+    ck.d = end > max(start, 0LL) ? min(groups, (len - 1) / GROUP_BYTES + 1) : 0;
+    uint32_t h = fp_hash::seed(hk);
+    if (ck.d > 0) {  // then start > -span: the offsets below fit 32 bits
+      const long long q0 = start >> 2;
+      const long long row0 = max(q0, 0LL) >> 9;
+      const int qrel = (int)(q0 - row0 * SEG_WORDS);
+      const uint32_t* rp = rows + row0 * ROW_WORDS + HALO_WORDS;
+      asm("" : "+l"(rp));  // opaque: each load adds a 32-bit offset to this one base
+      ck.rp = rp;
+      ck.xa = (qrel & ~3) + 4 * lane;
+      ck.hi = (int)((end - row0 * SEG_BYTES + 3) >> 2);
+      ck.r = qrel & 3;
+      ck.shift = 8 * (int)(start & 3);
+      ck.need_b = (ck.r | ck.shift) != 0;
+      ck.read_bytes = (int)(end - start);
+      ck.full = start >= 0 ? min(ck.d, ck.read_bytes / GROUP_BYTES) : 0;
+      for (int b = 0; b < ck.d; b += BATCH) {
+        h = b + BATCH <= ck.full ? fold_batch<false>(ck, b, h, share, xch, lane)
+                                 : fold_batch<true>(ck, b, h, share, xch, lane);
+      }
+    }
+    for (int c = ck.d; c < groups; ++c) h = fp_hash::fold_one(h, zero_sum, c);
+    if (lane < fp_hash::NUM_HASHES) {
+      out[chunk * fp_hash::NUM_HASHES + lane] = fp_hash::finish_one(h, w_pad);
+    }
   }
-  for (int c = 0; c < data_groups; ++c) {
-    uint32_t words[4];
-    gather16(rows, start + (long long)c * GROUP_BYTES + 16 * lane, end, words);
-    uint32_t s[fp_hash::NUM_HASHES];
-    st.group_sum(words, s);
-    st.fold(s, c);
-  }
-  for (int c = data_groups; c < groups; ++c) st.fold(zero_s, c);
-  const uint32_t r = st.finish(lane, w_pad);
-  if (lane < fp_hash::NUM_HASHES) out[chunk * fp_hash::NUM_HASHES + lane] = r;
 }
 
 }  // namespace
@@ -222,14 +377,25 @@ extern "C" int cdc_candidates_launch(const void* rows, void* flags, long long n_
   return (int)cudaGetLastError();
 }
 
-// rows: (n_rows, 520) uint32.  starts: (chunks,) int64 stream byte offsets;
-// lens: (chunks,) int32 in [0, 4 * w_pad].  out: (chunks, 4) uint32.
-// w_pad a multiple of 128.  Returns cudaGetLastError() after the launch.
+// rows: (n_rows, 520) uint32, 16-byte aligned.  starts: (chunks,) int64
+// stream byte offsets; lens: (chunks,) int32.  out: (chunks, 4) uint32.
+// w_pad a multiple of 128, at most 2^24.  Launches at most as many blocks as
+// the card holds at once.  Returns the first CUDA error, 0 if none.
 extern "C" int chunk_fingerprint_launch(const void* rows, long long n_rows, const void* starts,
                                         const void* lens, void* out, long long chunks, int w_pad,
                                         void* stream) {
   if (chunks <= 0) return 0;
-  const long long blocks = (chunks + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
+  if (w_pad <= 0 || w_pad % fp_hash::LANES || w_pad > MAX_W_PAD) return (int)cudaErrorInvalidValue;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chunk_fingerprint_kernel,
+                                                        WARPS_PER_BLOCK * 32, 0);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = std::min((chunks + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK,
+                                    (long long)std::max(sms * per_sm, 1));
   chunk_fingerprint_kernel<<<(unsigned)blocks, WARPS_PER_BLOCK * 32, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)rows, n_rows * SEG_BYTES, (const long long*)starts, (const int*)lens,
       (uint32_t*)out, chunks, w_pad);

@@ -36,7 +36,7 @@ LAUNCHES: Dict[str, int] = {
     "fingerprint": 0, "fp_probe": 0, "fp_insert": 0, "fp_remove": 0,
     "cdc_candidates": 0, "chunk_fingerprint": 0, "ffh": 0, "paged_attention": 0,
 }
-# ptxas register/spill report of each library built by this process
+# ptxas register/spill report of each library built or loaded by this process
 BUILD_LOG: Dict[str, str] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -92,9 +92,13 @@ def _target(name: str) -> Path:
 
 def _start(name: str):
     """Start ``nvcc`` for one source; returns (process, temp output, target)
-    or None when the library is already built."""
+    or None when the library is already built (its ptxas report, kept
+    beside it, then goes to ``BUILD_LOG``)."""
     target = _target(name)
     if target.exists():
+        log = target.with_suffix(".log")
+        if log.exists():
+            BUILD_LOG[name] = log.read_text()
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
@@ -111,6 +115,7 @@ def _finish(name: str, started) -> None:
     BUILD_LOG[name] = (out + err).strip()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{out}{err}")
+    target.with_suffix(".log").write_text(BUILD_LOG[name])
     os.replace(tmp, target)  # atomic: a concurrent build never loads a partial file
 
 

@@ -53,11 +53,32 @@ def _rotl13(v: torch.Tensor) -> torch.Tensor:
     return ((v << 13) & _M32) | (v >> 19)
 
 
+def _fold(h: torch.Tensor, s, c) -> torch.Tensor:
+    """One key set's fold of chunk ``c``'s lane sum ``s`` into its digest ``h``."""
+    return _mul32(_rotl13((h + _mul32(s, PRIME3)) & _M32), PRIME1) ^ (((c + 1) * PRIME5) & _M32)
+
+
+def _finish(h: torch.Tensor, w: int) -> torch.Tensor:
+    """One key set's digest word from ``h``, for a block of ``w`` words."""
+    h = h ^ w
+    h = _mul32(h ^ (h >> 15), PRIME2)
+    h = _mul32(h ^ (h >> 13), PRIME3)
+    return h ^ (h >> 16)
+
+
 def _lane_constants(which: int, device):
     lane = torch.arange(LANES, dtype=torch.int64, device=device)
     keys = ((lane * 0x9E3779B9 + (0xA5A5A5A5 + 0x01000193 * which)) & _M32) | 1
     lane_mult = ((lane * PRIME4 + SEEDS[which]) & _M32) | 1
     return keys, lane_mult
+
+
+def _group_sum(words: torch.Tensor, keys: torch.Tensor, lane_mult: torch.Tensor) -> torch.Tensor:
+    """One key set's lane-weighted wrapping sum of 128-word groups ``words``
+    (int64 in [0, 2^32), groups along the last dim)."""
+    t = _mul32(words ^ keys, PRIME1)
+    t = t ^ (t >> 15)
+    return _mul32(_mul32(t, PRIME2), lane_mult).sum(dim=-1) & _M32
 
 
 def fingerprint_torch(x: torch.Tensor) -> torch.Tensor:
@@ -76,18 +97,8 @@ def fingerprint_torch(x: torch.Tensor) -> torch.Tensor:
         keys, lane_mult = _lane_constants(which, x.device)
         h = torch.full((b,), SEEDS[which], dtype=torch.int64, device=x.device)
         for c in range(w // LANES):
-            t = _mul32(words[:, c * LANES:(c + 1) * LANES] ^ keys, PRIME1)
-            t = t ^ (t >> 15)
-            t = _mul32(t, PRIME2)
-            s = _mul32(t, lane_mult).sum(dim=1) & _M32
-            h = _mul32(_rotl13((h + _mul32(s, PRIME3)) & _M32), PRIME1)
-            h = h ^ (((c + 1) * PRIME5) & _M32)
-        h = h ^ w
-        h = h ^ (h >> 15)
-        h = _mul32(h, PRIME2)
-        h = h ^ (h >> 13)
-        h = _mul32(h, PRIME3)
-        out[:, which] = h ^ (h >> 16)
+            h = _fold(h, _group_sum(words[:, c * LANES:(c + 1) * LANES], keys, lane_mult), c)
+        out[:, which] = _finish(h, w)
     return (out - ((out >> 31) << 32)).to(torch.int32)
 
 

@@ -16,13 +16,35 @@ import torch
 
 from . import _build
 from .cdc import HALO_WORDS, SEG_BYTES, SEG_WORDS, cdc_candidates, unpack_candidates
-from .fingerprint import LANES, NUM_HASHES, _M32, fingerprint, fingerprint_torch
+from .fingerprint import (
+    LANES,
+    NUM_HASHES,
+    PRIME1,
+    PRIME2,
+    SEEDS,
+    _M32,
+    _finish,
+    _fold,
+    _group_sum,
+    _lane_constants,
+    _mul32,
+    fingerprint,
+    fingerprint_torch,
+)
 from .fp_index import check_table, fp_insert, fp_probe, fp_remove
 from .fp_index import launch as fp_index_launch
 from .histogram import NBINS_DEFAULT, ffh
 
 # chunks per step of the plain gather: bounds its int64 temporaries
 _PLAIN_CHUNKS = 1024
+GROUP_BYTES = LANES * 4  # bytes of a 128-word group
+# groups the chunk kernel gathers, hashes and reduces together (csrc/cdc.cu BATCH)
+CHUNK_FP_BATCH = 4
+# each key set's sum over a group of 128 zero words: what the hash gives a
+# zero group wherever it lies (fp_hash::zero_group_sum in csrc/fp_hash.cuh)
+ZERO_GROUP_SUMS = tuple(
+    int(_group_sum(torch.zeros(LANES, dtype=torch.int64), *_lane_constants(k, "cpu")))
+    for k in range(NUM_HASHES))
 
 
 def as_words(blocks, device=None) -> torch.Tensor:
@@ -188,6 +210,88 @@ def chunk_fingerprint_torch(haloed: torch.Tensor, starts: torch.Tensor, lens: to
     return out
 
 
+def chunk_fingerprint_batched_torch(haloed: torch.Tensor, starts: torch.Tensor,
+                                    lens: torch.Tensor, w_pad: int,
+                                    batch: int = CHUNK_FP_BATCH) -> torch.Tensor:
+    """The chunk kernel's order of work in plain PyTorch (tests only).
+
+    Same result as ``chunk_fingerprint_torch``, reached as ``csrc/cdc.cu``
+    reaches it.  Per chunk: offsets from its first row; groups that hold
+    data in batches of ``batch``; per lane and group the two 16-byte units
+    at word ``x`` and ``x + 4`` (``x`` a multiple of 4), read unconditionally
+    in a batch wholly inside the chunk, else only where the unit's first
+    word starts before the chunk's end, then aligned by the start's word and
+    byte phase and, in such a batch, masked past the end; each lane's share
+    of the four sums with the lane weight premultiplied by P2; the shares of
+    a batch summed over the lanes at once; each key set's digest folded in
+    group order; the groups past the data folded with ``ZERO_GROUP_SUMS``.
+    """
+    dev = haloed.device
+    flat = haloed.reshape(-1).to(torch.int64) & _M32
+    total = haloed.shape[0] * SEG_BYTES
+    groups = w_pad // LANES
+    s = starts.to(torch.int64)[:, None]
+    n = lens.to(torch.int64)[:, None]
+    lane = torch.arange(32, dtype=torch.int64, device=dev)[None, :]
+    end = torch.minimum(s + torch.clamp(n, max=4 * w_pad), torch.full_like(s, total))
+    d = torch.where(end > s.clamp(min=0), torch.clamp((n - 1) // GROUP_BYTES + 1, max=groups), 0)
+    q0 = s >> 2
+    row0 = q0.clamp(min=0) >> 9
+    qrel = q0 - row0 * SEG_WORDS
+    r = qrel & 3
+    shift = (s & 3) * 8
+    xa = (qrel & ~3) + 4 * lane
+    hi = (end - row0 * SEG_BYTES + 3) >> 2
+    read_bytes = end - s
+    full = torch.where(s >= 0, torch.minimum(d, read_bytes // GROUP_BYTES), 0)
+    need_b = (r | shift) != 0
+    base = row0 * (HALO_WORDS + SEG_WORDS) + HALO_WORDS  # payload of the chunk's first row
+    consts = [_lane_constants(k, dev) for k in range(NUM_HASHES)]
+    keys = [key.reshape(32, 4) for key, _ in consts]
+    weights = [_mul32(mult, PRIME2).reshape(32, 4) for _, mult in consts]
+    h = [torch.full_like(s[:, 0], SEEDS[k]) for k in range(NUM_HASHES)]
+
+    def unit(x, read):  # the 4 words of the unit at payload word x, or zeros
+        idx = base + x + HALO_WORDS * (x >> 9)
+        idx = torch.where(read, idx, 0)[..., None] + torch.arange(4, device=dev)
+        return torch.where(read[..., None], flat[idx], 0)
+
+    for b in range(0, groups, batch):
+        checked = b + batch > full
+        shares = []
+        for g in range(batch):
+            live = b + g < d
+            x = xa + LANES * (b + g)
+            read_a = live & torch.where(checked, (x >= 0) & (x < hi), True)
+            read_b = live & torch.where(checked, (x + 4 >= 0) & (x + 4 < hi), need_b)
+            raw = torch.cat([unit(x, read_a), unit(x + 4, read_b)], dim=2)  # (C, 32, 8)
+            words = []
+            for m in range(4):
+                lo = torch.gather(raw, 2, (r + m)[:, :, None].expand(-1, 32, 1))[..., 0]
+                up = torch.gather(raw, 2, (r + m + 1)[:, :, None].expand(-1, 32, 1))[..., 0]
+                v = ((lo >> shift) | (up << (32 - shift))) & _M32
+                keep = read_bytes - GROUP_BYTES * (b + g) - 16 * lane - 4 * m
+                mask = torch.where(keep >= 4, _M32, (1 << (8 * keep.clamp(0, 3))) - 1)
+                words.append(torch.where(checked & (b + g >= full), v & mask, v))
+            for k in range(NUM_HASHES):
+                acc = torch.zeros_like(words[0])
+                for q in range(4):
+                    t = _mul32(words[q] ^ keys[k][:, q], PRIME1)
+                    acc = acc + _mul32(t ^ (t >> 15), weights[k][:, q])
+                shares.append(torch.where(live, acc & _M32, 0))
+        totals = [sh.sum(dim=1) & _M32 for sh in shares]  # over the lanes, slot by slot
+        for g in range(batch):
+            live = (b + g < d)[:, 0]
+            for k in range(NUM_HASHES):
+                h[k] = torch.where(live, _fold(h[k], totals[NUM_HASHES * g + k], b + g), h[k])
+    for c in range(groups):
+        zero = (c >= d)[:, 0]
+        for k in range(NUM_HASHES):
+            h[k] = torch.where(zero, _fold(h[k], ZERO_GROUP_SUMS[k], c), h[k])
+    out = torch.stack([_finish(hk, w_pad) for hk in h], dim=1)
+    return (out - ((out >> 31) << 32)).to(torch.int32)
+
+
 def chunk_fingerprint(haloed: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
                       w_pad: int) -> torch.Tensor:
     """(C, NUM_HASHES) int32 digests of chunks of resident CDC rows.
@@ -212,6 +316,8 @@ def chunk_fingerprint(haloed: torch.Tensor, starts: torch.Tensor, lens: torch.Te
         return chunk_fingerprint_torch(haloed, starts, lens, w_pad)
     if not (haloed.is_contiguous() and starts.is_contiguous() and lens.is_contiguous()):
         raise ValueError("the kernel reads contiguous rows, starts and lens")
+    if haloed.data_ptr() % 16:
+        raise ValueError("the kernel reads 16-byte units: pass 16-byte aligned rows")
     c = starts.shape[0]
     out = torch.empty((c, NUM_HASHES), dtype=torch.int32, device=haloed.device)
     if c == 0:

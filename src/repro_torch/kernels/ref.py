@@ -6,7 +6,8 @@ fault in ``kernels.fingerprint`` cannot hide behind shared code.
 ``fingerprint_golden_numpy`` is a third model in numpy uint64 arithmetic
 mod 2^32; the tests pin both to the golden digests.  ``cdc_golden_buffer``
 makes the byte buffers of the golden chunking cases
-(``tests/golden/cdc_digests.json``).  ``ffh_ref`` counts the histogram with
+(``tests/golden/cdc_digests.json``), and ``chunk_edge_cases`` the chunks
+that test the chunk kernel's edges.  ``ffh_ref`` counts the histogram with
 ``bincount``, where ``kernels.histogram``'s plain version compares one-hot.
 """
 
@@ -15,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .cdc import SEG_BYTES
 from .fingerprint import LANES, NUM_HASHES, PRIME1, PRIME2, PRIME3, PRIME4, PRIME5, SEEDS
 
 _M = 0xFFFFFFFF
@@ -111,3 +113,42 @@ def cdc_golden_buffer(name: str, n: int, salt: int) -> np.ndarray:
         return _cdc_mix_bytes(n, salt)
     half = _cdc_mix_bytes(n // 2, salt)
     return np.concatenate([half, half])
+
+
+def chunk_edge_cases(rows: int, max_size: int, batch: int) -> dict:
+    """Chunks at the edges of the chunk kernel, over ``rows`` rows of payload:
+    family name -> (starts int64, lens int32).
+
+    * ``phases``: every start phase mod 4, in a row and across one, at
+      lengths 1, 511, 512, 513, ``batch`` groups (of 512 bytes) and one
+      byte either side, and ``max_size`` and one byte less;
+    * ``halos``: chunks that cross 1 to 8 row boundaries (as far as
+      ``max_size`` reaches);
+    * ``payload_end``: chunks that end at the payload's last byte;
+    * ``outside``: chunks that start before byte 0, reach past the payload
+      or lie beyond it, and lengths of 0 and below (only the port defines
+      these: such bytes read as zero).
+
+    ``rows`` must be at least 12.
+    """
+    total = rows * SEG_BYTES
+    lengths = [1, 511, 512, 513, batch * 512 - 1, batch * 512, batch * 512 + 1,
+               max_size - 1, max_size]
+    phases = [(base + ph, n) for n in lengths
+              for base in (0, 2040, 3 * SEG_BYTES - 700, 5 * SEG_BYTES + 508) for ph in range(4)]
+    halos = []
+    for k in range(1, 9):
+        for ph in range(4):
+            start = 3 * SEG_BYTES - 5 - ph
+            n = min(max_size, 5 + ph + (k - 1) * SEG_BYTES + 1 + 97 * k)
+            if (start + n - 1) // SEG_BYTES - start // SEG_BYTES == k:
+                halos.append((start, n))
+    payload_end = [(total - n, n) for n in lengths]
+    outside = [(-3, 7), (-2049, max_size), (-1, 1), (-max_size, max_size), (-max_size - 9, 5),
+               (total - 5, max_size), (total - 1001, max_size), (total - 1, 2), (total, 3),
+               (total + 10, 100), (5, 0), (7, -5), (9, -2000), (-10**9, 50),
+               (3, max_size + 1000)]
+    return {name: (np.array([s for s, _ in pairs], dtype=np.int64),
+                   np.array([n for _, n in pairs], dtype=np.int32))
+            for name, pairs in (("phases", phases), ("halos", halos),
+                                ("payload_end", payload_end), ("outside", outside))}

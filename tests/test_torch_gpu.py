@@ -35,7 +35,7 @@ from repro_torch.kernels.paged_attention import (
     paged_attention_torch,
     split_pages,
 )
-from repro_torch.kernels.ref import cdc_golden_buffer, fingerprint_golden_numpy
+from repro_torch.kernels.ref import cdc_golden_buffer, chunk_edge_cases, fingerprint_golden_numpy
 
 pytestmark = pytest.mark.gpu
 
@@ -306,25 +306,64 @@ def test_cdc_candidates_kernel_matches_plain(cuda, avg_size):
     np.testing.assert_array_equal(got.cpu().numpy(), cdc.cdc_candidates_torch(t, avg_size).numpy())
 
 
+def _chunk_cases(r: int, w_pad: int, rng, n_random: int):
+    """Random chunks and every edge family of ``ref.chunk_edge_cases``."""
+    max_size = 4 * w_pad
+    total = r * cdc.SEG_BYTES
+    lens = rng.integers(1, max_size + 1, size=n_random)
+    starts = rng.integers(0, total - max_size, size=n_random)
+    edges = chunk_edge_cases(r, max_size, ops.CHUNK_FP_BATCH).values()
+    starts = np.concatenate([starts, *(s for s, _ in edges)]).astype(np.int64)
+    lens = np.concatenate([lens, *(n for _, n in edges)]).astype(np.int32)
+    return torch.from_numpy(starts), torch.from_numpy(lens)
+
+
 @pytest.mark.parametrize("w_pad", [128, 1024, 4096])
 def test_chunk_fingerprint_kernel_matches_plain(cuda, w_pad):
-    r, max_size = 64, 4 * w_pad
+    """Random chunks and the edges: every start phase, lengths about 1, 512,
+    a batch of groups and max_size, chunks across 1 to 8 row halos, at the
+    payload's last byte, before byte 0 and past the payload; rows of zero
+    bytes and of 0xFF bytes."""
+    r = 64
     t = _haloed(r, w_pad)
-    total = r * cdc.SEG_BYTES
-    rng = np.random.default_rng(w_pad)
-    lens = rng.integers(1, max_size + 1, size=500)
-    lens[:11] = [1, max_size, 2, 3, 4, 5, max_size, 5, 7, max_size, max_size]
-    starts = rng.integers(0, total - max_size, size=500)
-    # bytes before offset 0 and past the payload read as zero
-    starts[:11] = [0, 1, 2, 3, 2046, 2047, total - max_size, total - 5, -3, -2049,
-                   total - 1001]
-    s, n = torch.from_numpy(starts.astype(np.int64)), torch.from_numpy(lens.astype(np.int32))
-    before = LAUNCHES["chunk_fingerprint"]
-    got = ops.chunk_fingerprint(t.to(cuda), s.to(cuda), n.to(cuda), w_pad)
+    s, n = _chunk_cases(r, w_pad, np.random.default_rng(w_pad), 500)
+    for rows in (t, torch.zeros_like(t), torch.full_like(t, -1)):
+        before = LAUNCHES["chunk_fingerprint"]
+        got = ops.chunk_fingerprint(rows.to(cuda), s.to(cuda), n.to(cuda), w_pad)
+        torch.cuda.synchronize()
+        assert LAUNCHES["chunk_fingerprint"] == before + 1
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      ops.chunk_fingerprint_torch(rows, s, n, w_pad).numpy())
+
+
+def test_chunk_fingerprint_kernel_on_many_uneven_chunks(cuda):
+    """More chunks than the persistent grid has warps, of very uneven
+    lengths (1 byte to max_size, long ones clustered), so that warps walk
+    many chunks and finish at different times; two calls give equal bits."""
+    r, w_pad = 2048, 4096
+    t = _haloed(r, 5).to(cuda)
+    rng = np.random.default_rng(5)
+    c = 60_000
+    lens = np.minimum(4 * w_pad, 1 + rng.geometric(1 / 3000, size=c))
+    lens[rng.random(c) < 0.05] = 4 * w_pad
+    lens[20_000:21_000] = 4 * w_pad  # a run of long chunks for a few warps
+    starts = rng.integers(0, r * cdc.SEG_BYTES - 4 * w_pad, size=c)
+    s = torch.from_numpy(starts.astype(np.int64)).to(cuda)
+    n = torch.from_numpy(lens.astype(np.int32)).to(cuda)
+    got = ops.chunk_fingerprint(t, s, n, w_pad)
+    again = ops.chunk_fingerprint(t, s, n, w_pad)
+    want = ops.chunk_fingerprint_torch(t, s, n, w_pad)
     torch.cuda.synchronize()
-    assert LAUNCHES["chunk_fingerprint"] == before + 1
-    np.testing.assert_array_equal(got.cpu().numpy(),
-                                  ops.chunk_fingerprint_torch(t, s, n, w_pad).numpy())
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+def test_chunk_fingerprint_kernel_rejects_unaligned_rows(cuda):
+    flat = torch.zeros(64 * 520 + 1, dtype=torch.int32, device=cuda)
+    rows = flat[1:].view(64, 520)
+    one = torch.zeros(1, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        ops.chunk_fingerprint(rows, one, one.to(torch.int32) + 5, 128)
 
 
 def test_candidate_positions_on_card_match_unpack(cuda):
