@@ -96,8 +96,31 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   float32 atol 3e-5); two calls on each case must give equal
                   bits; device time beside the SDPA call's, and the pages
                   per split the kernel used.
+* ``cluster``     the sharded cluster at the reference's cluster benchmark
+                  settings (4 shards, 32,768 cache entries, batch 8,192),
+                  replication factor 2, over 2,000,000 requests of workload A
+                  through ``ingest_batched`` a chunk at a time, with the
+                  shard engines' worker threads: a GC step (512 moves a
+                  shard) every 4 chunks; at half the trace a snapshot ->
+                  JSON -> ``restore_engine`` to carry on with; ``resize`` to
+                  8 shards at three quarters; shard 1 failed and recovered
+                  at seven eighths.  The same schedule runs serially on the
+                  card and with workers on the host: the three reports,
+                  per-shard reports, ``moved_fps``, GC and recovery stats
+                  must be equal, the counts equal a single ``HPDedup``'s, and
+                  every shard consistent.  Launch counts are zeroed just
+                  before the card run and read just after: the three index
+                  kernels must have run.  The sizes of the cluster's index
+                  launches, and each kernel's device time on a table like a
+                  shard's at the median size.  Then ``cluster_serve``:
+                  ``DedupKVServer(num_shards=4)`` on the ``serve`` phase's
+                  model and mix beside a one-engine server, 6 requests, a
+                  snapshot round trip and a GC step, one more request and 4
+                  decode steps: infos, metrics, caches, pages and tokens
+                  equal.
 * ``kernels``     one object per kernel: launches on the main paths (replay,
-                  cdc, serve, ffh and the paged pool, summed), largest
+                  cdc, serve, ffh, the paged pool, cluster and the cluster
+                  server, summed), largest
                   disagreement with its plain version, times, and the least
                   time the card could take for the same work; for the chunk
                   kernel also ptxas's registers and spill bytes.
@@ -1439,6 +1462,331 @@ def phase_paged_attention(dev, results: dict, srv, mix, seed: int) -> None:
          agree=True)
 
 
+# The cluster phase: the reference's cluster benchmark settings
+# (``benchmarks/cluster_scaling.py``: 4 shards, 32,768 cache entries, batch
+# 8,192) and GC schedule (``benchmarks/gc_reclaim.py``: a step every 4
+# chunks, 512 moves a shard), over 2 M requests of workload A.
+CLUSTER_REQUESTS = 2_000_000
+CLUSTER_SHARDS, CLUSTER_GROWN, CLUSTER_REPLICAS = 4, 8, 2
+CLUSTER_CACHE, CLUSTER_BATCH = 32768, 8192
+CLUSTER_GC_EVERY, CLUSTER_GC_MOVES = 4, 512
+CLUSTER_SERVE_REQUESTS = 6  # then one more after a snapshot round trip and a GC step
+
+
+def _cluster_schedule(trace: np.ndarray, device, parallel: bool, seed: int) -> dict:
+    """Ingest ``trace`` into ``ShardedCluster(4 shards, R=2)`` with
+    ``ingest_batched`` one chunk (batch x shards records) a call, a GC step
+    every 4 chunks; at half the trace snapshot -> JSON -> ``restore_engine``
+    and carry on with the restored cluster; at three quarters ``resize`` to 8
+    shards; at seven eighths fail shard 1 and recover it.  ``parallel``
+    attaches the executor (one worker thread per shard).  Returns the
+    cluster, its report, the stats of each step and the seconds of each."""
+    from repro_torch.core import ShardedCluster, restore_engine, snapshot_engine
+
+    t0 = time.perf_counter()
+    c = ShardedCluster(num_shards=CLUSTER_SHARDS, replication_factor=CLUSTER_REPLICAS,
+                       cache_entries=CLUSTER_CACHE, seed=seed, device=device)
+    if parallel:
+        c.start_executor()
+    n = len(trace)
+    marks = (n // 2, 3 * n // 4, 7 * n // 8, n)
+    a = chunks = 0
+    gc, secs = [], {"gc": 0.0, "snapshot": 0.0, "restore": 0.0, "resize": 0.0,
+                    "fail_recover": 0.0}
+    out = {}
+    for mark in marks:
+        while a < mark:
+            b = min(a + CLUSTER_BATCH * c.num_shards, mark)
+            c.ingest_batched(trace[a:b], batch_size=CLUSTER_BATCH)
+            a, chunks = b, chunks + 1
+            if chunks % CLUSTER_GC_EVERY == 0:
+                t1 = time.perf_counter()
+                gc.append(c.run_gc(max_moves_per_shard=CLUSTER_GC_MOVES))
+                secs["gc"] += time.perf_counter() - t1
+        t1 = time.perf_counter()
+        if mark == marks[0]:
+            payload = json.dumps(snapshot_engine(c))
+            t2 = time.perf_counter()
+            secs["snapshot"] = t2 - t1
+            c.stop_executor()
+            c = restore_engine(json.loads(payload), device=device)
+            if parallel:
+                c.start_executor()
+            secs["restore"] = time.perf_counter() - t2
+            out["snapshot_bytes"] = len(payload)
+        elif mark == marks[1]:
+            out["resize"] = c.resize(CLUSTER_GROWN)
+            secs["resize"] = time.perf_counter() - t1
+        elif mark == marks[2]:
+            c.fail_shard(1)
+            out["recover"] = c.recover_shard(1)
+            secs["fail_recover"] = time.perf_counter() - t1
+    report = c.finish()
+    c.stop_executor()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    out.update(cluster=c, report=report, gc=gc, chunks=chunks, seconds=secs,
+               total_s=time.perf_counter() - t0)
+    return out
+
+
+def _cluster_kernel_times(k, dev, rng, index, sizes: dict) -> dict:
+    """Device ms of one launch of each index kernel on a table like a
+    shard's own (its seen-fingerprint index's keys, at its capacity), with
+    the keys in pinned host memory as the cluster's launches have them, at
+    the median size the cluster launched each kernel; and the bytes bound
+    there.  Probes run half resident, half absent keys; each insert (fresh
+    keys) and each remove (resident keys) runs on its own copy of the table."""
+    from repro_torch.kernels import ops
+
+    cap = index.table_stats()["capacity"]
+    resident = np.fromiter(index, dtype=np.uint64, count=len(index))
+    resident = resident[(resident != 0) & (resident != np.uint64(TOMB_KEY))]
+    rng.shuffle(resident)
+    table = torch.zeros(k.table_phys_len(cap), dtype=torch.int64, device=dev)
+    ops.fp_index_insert(resident, table, cap)
+    t64 = table.cpu().numpy().view(np.uint64)
+    resident = resident[k.probe_host(t64, resident, cap)]  # not the few that overflowed
+    reps, warm = 20, 2
+    out = {}
+    for name, dtype in (("fp_probe", torch.bool), ("fp_insert", torch.int32),
+                        ("fp_remove", torch.bool)):
+        if not sizes[name]:
+            continue
+        size = min(int(np.median(sizes[name])), resident.size)
+        absent = rng.integers(1, 2**64 - 1, size=2 * size, dtype=np.uint64)
+        absent = absent[~np.isin(absent, resident)]
+        keys = {"fp_probe": _mixed(rng, resident, absent, size),
+                "fp_insert": absent[:size], "fp_remove": resident[:size]}[name]
+        staged = ops.pinned_keys(keys)
+        res = (torch.empty(size, dtype=dtype, device=dev) if name == "fp_probe"
+               else torch.empty(size, dtype=dtype, pin_memory=True))
+        tables = iter([table] * (reps + warm) if name == "fp_probe"
+                      else [table.clone() for _ in range(reps + warm)])
+        ms = device_ms(lambda: k.launch(name, staged, next(tables), res, cap), reps, warm)
+        out[name] = {"keys": size, "ms": ms,
+                     "bound_ms": _index_bytes(name, t64, keys, cap) / HBM_BYTES_PER_S * 1e3,
+                     "table_capacity": cap, "table_keys": len(index)}
+        del tables
+    return out
+
+
+def _cluster_outcome(run: dict) -> dict:
+    """What every run of the schedule must agree on, as plain JSON."""
+    from repro_torch.core import report_to_tree
+
+    return json.loads(json.dumps({
+        "report": report_to_tree(run["report"]),
+        "shard_reports": [report_to_tree(r) for r in run["cluster"].shard_reports],
+        "resize": run["resize"], "gc": run["gc"], "recover": run["recover"],
+    }))
+
+
+def _cluster_child(spec: str) -> None:
+    """One run of the schedule in a process of its own, which
+    ``phase_cluster`` starts (``spec``: JSON of device, parallel, seed,
+    requests and whether to run the single-engine oracle after it); prints
+    the outcome, its seconds and the oracle's report as the last line."""
+    from repro_torch.core import HPDedup, generate_workload, report_to_tree
+
+    args = json.loads(spec)
+    trace, _ = generate_workload("A", total_requests=args["requests"], seed=args["seed"])
+    run = _cluster_schedule(trace, args["device"], args["parallel"], args["seed"])
+    out = dict(_cluster_outcome(run), total_s=run["total_s"], seconds=run["seconds"])
+    if args["oracle"]:
+        t0 = time.perf_counter()
+        oracle = HPDedup(cache_entries=CLUSTER_CACHE, device="cpu").replay_batched(
+            trace, CLUSTER_BATCH).finish()
+        out.update(oracle=report_to_tree(oracle), oracle_s=time.perf_counter() - t0)
+    print(json.dumps(out), flush=True)
+
+
+def _start_cluster_child(device: str, parallel: bool, seed: int, oracle: bool):
+    spec = json.dumps({"device": device, "parallel": parallel, "seed": seed,
+                       "requests": CLUSTER_REQUESTS, "oracle": oracle})
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            "chip_smoke._cluster_child(sys.argv[1])")
+    return subprocess.Popen([sys.executable, "-c", code, spec], cwd=ROOT, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+
+def _child_outcome(proc, what: str) -> dict:
+    out, _ = proc.communicate()
+    lines = out.strip().splitlines()
+    check(proc.returncode == 0 and lines, f"the cluster run {what} failed:\n{out[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def phase_cluster(dev, results: dict, srv, mix, seed: int) -> None:
+    """The sharded cluster on the card: the schedule of ``_cluster_schedule``
+    through the parallel executor on the card, and at the same time, each in
+    a process of its own, serially on the card and through the executor on
+    the host (then a single ``HPDedup`` on the host).  The three reports,
+    per-shard reports, ``moved_fps``, GC and recovery stats must be equal,
+    and the counts equal the single engine's.  Then the cluster-backed
+    server on the ``serve`` phase's model."""
+    import repro_torch.core.fp_index as core_index
+    from repro_torch.core import generate_workload, report_from_tree
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fp_index as k
+
+    children = [_start_cluster_child("cuda", False, seed, oracle=False),
+                _start_cluster_child("cpu", True, seed, oracle=True)]
+    try:
+        t0 = time.perf_counter()
+        trace, streams = generate_workload("A", total_requests=CLUSTER_REQUESTS, seed=seed)
+        gen_s = time.perf_counter() - t0
+
+        # the sizes of the cluster's index launches, read off the helpers the
+        # indexes call (a list append per call, on the card run only)
+        sizes = {"fp_probe": [], "fp_insert": [], "fp_remove": []}
+        helpers = {nm: getattr(core_index, f"fp_index_{nm[3:]}") for nm in sizes}
+
+        def recorder(nm):
+            def call(keys, table, cap):
+                sizes[nm].append(int(np.asarray(keys).size))
+                return helpers[nm](keys, table, cap)
+            return call
+
+        for nm in sizes:
+            setattr(core_index, f"fp_index_{nm[3:]}", recorder(nm))
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        core_index.reset_probe_routes()
+        try:
+            card = _cluster_schedule(trace, dev, parallel=True, seed=seed)
+        finally:
+            for nm in sizes:
+                setattr(core_index, f"fp_index_{nm[3:]}", helpers[nm])
+        launches = dict(_build.LAUNCHES)
+        routes = dict(core_index.PROBE_ROUTES)
+        peak = torch.cuda.max_memory_allocated()
+        for name in ("fp_probe", "fp_insert", "fp_remove"):
+            check(launches[name] > 0, f"kernel {name} never launched on the cluster path")
+        serial = _child_outcome(children[0], "serially on the card")
+        host = _child_outcome(children[1], "on the host")
+    finally:
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    want = _cluster_outcome(card)
+    for other, what in ((serial, "serially on the card"), (host, "on the host")):
+        check(report_from_tree(other["report"]) == card["report"],
+              f"cluster HybridReport {what} != on the card")
+        check([report_from_tree(r) for r in other["shard_reports"]]
+              == card["cluster"].shard_reports, f"cluster per-shard reports {what} differ")
+        for key in ("resize", "gc", "recover"):
+            check(other[key] == want[key], f"cluster {key} stats {what} differ")
+    oracle = report_from_tree(host["oracle"])
+    rep = card["report"]
+    check((rep.final_disk_blocks, rep.unique_fingerprints, rep.total_writes,
+           rep.total_dup_writes) == (oracle.final_disk_blocks, oracle.unique_fingerprints,
+                                     oracle.total_writes, oracle.total_dup_writes),
+          "cluster counts != the single-engine oracle's")
+    cluster = card["cluster"]
+    cluster.check_consistency()
+    for e in cluster.shards:
+        for idx in (e._seen_fps, e.inline.cache.index, e.store.fp_index):
+            check(idx.table_stats()["backend"] == "torch", "a shard's index is not on the card")
+            idx.check_consistency()
+    timings = _cluster_kernel_times(k, dev, np.random.default_rng(seed + 11),
+                                    cluster.shards[0]._seen_fps, sizes)
+    for name, n in launches.items():
+        results.setdefault(name, {}).setdefault("launches_by_path", {})["cluster"] = n
+    for name, entry in timings.items():
+        results[name]["cluster"] = entry
+
+    def size_stats(v):
+        return ({"launches": len(v), "min": int(np.min(v)), "median": float(np.median(v)),
+                 "mean": float(np.mean(v)), "max": int(np.max(v))} if v else {"launches": 0})
+
+    moved = [sum(g[key] for g in card["gc"]) for key in ("moved", "collected")]
+    emit("cluster", workload="A", streams=len(streams), requests=int(trace.size), seed=seed,
+         shards=[CLUSTER_SHARDS, CLUSTER_GROWN], replication_factor=CLUSTER_REPLICAS,
+         cache_entries=CLUSTER_CACHE, batch=CLUSTER_BATCH, chunks=card["chunks"],
+         generate_s=gen_s, card_s=card["total_s"], card_requests_per_s=trace.size / card["total_s"],
+         serial_card_s=serial["total_s"],
+         serial_card_requests_per_s=trace.size / serial["total_s"],
+         host_s=host["total_s"], host_requests_per_s=trace.size / host["total_s"],
+         runs_at_once=3, card_step_s=card["seconds"], serial_card_step_s=serial["seconds"],
+         host_step_s=host["seconds"], oracle_host_s=host["oracle_s"], reports_equal=True,
+         oracle_counts_equal=True,
+         inline_dedup_ratio=rep.inline_dedup_ratio, final_disk_blocks=rep.final_disk_blocks,
+         moved_fps=card["resize"]["moved_fps"], moved_fraction=card["resize"]["moved_fraction"],
+         recover=card["recover"], gc_steps=len(card["gc"]), gc_moved=moved[0],
+         gc_collected=moved[1], snapshot_bytes=card["snapshot_bytes"],
+         replica_blocks=cluster.replica_blocks, launches=launches, probe_routes=routes,
+         launch_sizes={nm: size_stats(v) for nm, v in sizes.items()},
+         kernel_ms_at_cluster_sizes=timings, max_memory_allocated=peak)
+    del card, cluster
+    _phase_cluster_serve(dev, results, srv, mix, seed)
+
+
+def _phase_cluster_serve(dev, results: dict, srv, mix, seed: int) -> None:
+    """``DedupKVServer(num_shards=4)`` on the ``serve`` phase's model and mix
+    beside a one-engine server: equal infos, metrics, caches and pages for
+    the first requests; then the cluster server takes a snapshot, loads it
+    back and runs a GC step, and the next request and its decoded tokens
+    still equal the one-engine server's."""
+    from repro_torch.core import snapshot_engine
+    from repro_torch.kernels import _build
+    from repro_torch.serving.dedup_kv import DedupKVServer
+
+    kw = dict(page_tokens=srv.page_tokens, max_slots=srv.max_slots, cache_entries=512,
+              seed=seed, device=dev)
+    one = DedupKVServer(srv.model, None, **kw)
+    clu = DedupKVServer(srv.model, None, num_shards=CLUSTER_SHARDS, **kw)
+    requests = mix[:CLUSTER_SERVE_REQUESTS + 1]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got = [clu.prefill_request(t, toks) for t, toks in requests[:-1]]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    snap = clu.snapshot()
+    engine_json = json.dumps(snap["engine"])
+    clu.load_state(dict(snap, engine=json.loads(engine_json)))
+    gc = clu.run_gc()
+    state_s = time.perf_counter() - t0
+    got.append(clu.prefill_request(*requests[-1]))
+    launches = dict(_build.LAUNCHES)
+    want = [one.prefill_request(t, toks) for t, toks in requests]
+    check(launches["fingerprint"] > 0, "the fingerprint kernel never launched on the cluster "
+                                       "server's path")
+    check(dataclasses.asdict(clu.metrics) == dataclasses.asdict(one.metrics),
+          "cluster server metrics != one-engine server's")
+    for r, ((c1, p1, i1), (c2, p2, i2)) in enumerate(zip(got, want)):
+        check(p1 == p2 and i1 == i2, f"request {r}: positions or hits differ")
+        check(torch.equal(c1.k, c2.k) and torch.equal(c1.v, c2.v), f"request {r}: caches differ")
+    pages = 0
+    for r, (tenant, toks) in enumerate(requests):
+        for i in range(toks.size // clu.page_tokens):
+            lba = (r << 24) | i
+            a = one.pages[one.dedup.store.lba_map[(tenant, lba)]]
+            shard = next(e for e in clu.dedup.shards if (tenant, lba) in e.store.lba_map)
+            b = clu.pages[shard.store.lba_map[(tenant, lba)]]
+            check(torch.equal(a.k, b.k) and torch.equal(a.v, b.v), f"page {r}.{i} differs")
+            pages += 1
+    c1, p1, _ = got[-1]
+    c2, p2, _ = want[-1]
+    tokens = clu.decode(c1, p1, steps=4)[0]
+    check(tokens == one.decode(c2, p2, steps=4)[0], "cluster server decodes other tokens")
+    clu.dedup.check_consistency()
+    for name, n in launches.items():
+        results.setdefault(name, {}).setdefault("launches_by_path", {})["cluster_serve"] = n
+    shards_used = len({pba >> 48 for pba in clu.pages})
+    emit("cluster_serve", shards=CLUSTER_SHARDS, requests=len(requests),
+         blocks_total=clu.metrics.blocks_total,
+         blocks_prefill_skipped=clu.metrics.blocks_prefill_skipped, pages=len(clu.pages),
+         pages_checked=pages, shards_holding_pages=shards_used, prefill_s=prefill_s,
+         snapshot_load_gc_s=state_s, engine_tree_bytes=len(engine_json), gc=gc,
+         decoded_tokens=tokens, equal_to_one_engine=True, launches=launches,
+         tree_kind=json.loads(json.dumps(snapshot_engine(clu.dedup)))["kind"])
+    del one, clu, got, want
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--requests", type=int, default=2_000_000)
@@ -1463,6 +1811,7 @@ def main() -> int:
     phase_ffh(dev, results, content_fps, args.seed)
     srv, mix = phase_serve(dev, results, args.seed)
     phase_paged_attention(dev, results, srv, mix, args.seed)
+    phase_cluster(dev, results, srv, mix, args.seed)
     for name in KERNELS:
         results[name]["launches"] = sum(results[name]["launches_by_path"].values())
         check(results[name]["launches"] > 0, f"kernel {name} never launched on a main path")

@@ -6,6 +6,16 @@ Public surface (each the counterpart of ``repro.core``'s name):
   drives any engine, batched or scalar, over a merged trace.
 * ``HPDedup`` / ``HybridReport`` — the hybrid prioritized dedup mechanism.
 * baselines: ``make_idedup``, ``PurePostProcessing``, ``DIODE``.
+* ``ShardedCluster`` — consistent-hash fingerprint partitioning across N
+  per-shard engines, same ``Engine`` protocol (``core.cluster``); grows and
+  shrinks live via ``resize``, replicates, fails and recovers shards, and
+  runs shards on worker threads (``ParallelShardExecutor``).
+* ``snapshot_engine`` / ``restore_engine`` / ``load_engine_state`` —
+  versioned, JSON-serializable state trees for every engine, equal to the
+  reference's; a restored engine is bit-exact on all future writes
+  (``core.snapshot``).
+* ``gc_engine`` — one online-GC step (epoch drain + PBA compaction) for one
+  engine (``core.gc``); ``HPDedup.run_gc`` and ``ShardedCluster.run_gc``.
 * ``ReplayBatch`` — columnar batched ingestion (``core.batch_replay``).
 * ``ContentDefinedChunker`` — content-defined chunking of raw byte streams
   (Gear rolling hash on the card, ``kernels.cdc``) into ``ReplayBatch``
@@ -19,8 +29,9 @@ Public surface (each the counterpart of ``repro.core``'s name):
 * ``BlockStore`` / ``PostProcessEngine`` — storage substrate + exact phase.
 * ``generate_workload`` — FIU-like synthetic multi-tenant traces.
 
-Every class that holds a fingerprint index, and the chunker, takes
-``device`` (default ``"cuda"``); pass ``device="cpu"`` to run on the host.
+Every class that holds a fingerprint index, the cluster, ``restore_engine``
+and the chunker take ``device`` (default ``"cuda"``); pass ``device="cpu"``
+to run on the host.
 """
 
 from typing import Protocol, runtime_checkable
@@ -36,16 +47,34 @@ from .batch_replay import (
     run_replay,
 )
 from .cdc import CDCConfig, ContentDefinedChunker
+from .cluster import (
+    ConsistentHashRing,
+    ParallelShardExecutor,
+    ShardedCluster,
+    ShardWorkerError,
+    aggregate_reports,
+)
 from .cache import ARCCache, GlobalCache, LFUCache, LRUCache, PrioritizedCache
 from .ffh import ffh_from_counts, ffh_from_sample, occurrence_counts
 from .fingerprint import OP_READ, OP_WRITE, TRACE_DTYPE, host_fingerprint
 from .fp_index import FingerprintIndex
+from .gc import gc_engine
 from .hybrid import HPDedup, HybridReport
 from .inline_engine import InlineDedupEngine
 from .ldss import HoltPredictor, StreamLocalityEstimator
 from .postprocess import PostProcessEngine
 from .reservoir import Reservoir
 from .segment_tree import FenwickSegments
+from .snapshot import (
+    SNAPSHOT_FORMAT,
+    SNAPSHOT_VERSION,
+    check_engine_compatible,
+    load_engine_state,
+    report_from_tree,
+    report_to_tree,
+    restore_engine,
+    snapshot_engine,
+)
 from .store import BlockStore
 from .threshold import SpatialThreshold
 from .traces import TEMPLATES, WORKLOADS, generate_workload, trace_stats
@@ -79,11 +108,25 @@ class Engine(Protocol):
 
 __all__ = [
     "Engine",
+    "ShardedCluster",
+    "ConsistentHashRing",
+    "ParallelShardExecutor",
+    "ShardWorkerError",
+    "aggregate_reports",
     "ReplayBatch",
     "run_replay",
     "engine_ingest",
     "engine_finish_replay",
     "DEFAULT_BATCH_SIZE",
+    "SNAPSHOT_FORMAT",
+    "SNAPSHOT_VERSION",
+    "snapshot_engine",
+    "restore_engine",
+    "check_engine_compatible",
+    "load_engine_state",
+    "report_to_tree",
+    "report_from_tree",
+    "gc_engine",
     "DIODE",
     "PurePostProcessing",
     "make_idedup",

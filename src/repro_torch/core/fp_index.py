@@ -50,6 +50,7 @@ set to 0 by tests that want the table path exercised unconditionally).
 
 from __future__ import annotations
 
+import threading
 from typing import Iterable
 
 import numpy as np
@@ -92,13 +93,23 @@ SMALL_BATCH_CARD = 512
 
 # Batched membership probes (``contains_many_async``) by route: ``host``
 # answered from the host set under ``small_batch``, ``table`` through the
-# table (on the torch backend, one probe launch).  Calls and keys of each.
+# table (on the torch backend, one probe launch).  Calls and keys of each,
+# counted under a lock: a cluster's shard workers probe at once.
 PROBE_ROUTES = {"host_calls": 0, "host_keys": 0, "table_calls": 0, "table_keys": 0}
+_routes_lock = threading.Lock()
 
 
 def reset_probe_routes() -> None:
-    for k in PROBE_ROUTES:
-        PROBE_ROUTES[k] = 0
+    with _routes_lock:
+        for k in PROBE_ROUTES:
+            PROBE_ROUTES[k] = 0
+
+
+def count_probe(route: str, keys: int) -> None:
+    """Add one probe of ``keys`` keys on ``route`` (``host`` or ``table``)."""
+    with _routes_lock:
+        PROBE_ROUTES[f"{route}_calls"] += 1
+        PROBE_ROUTES[f"{route}_keys"] += keys
 
 
 def _auto_backend(device: torch.device) -> str:
@@ -387,12 +398,10 @@ class FingerprintIndex(set):
             out = np.zeros(0, dtype=bool)
             return lambda: out
         if n <= self.small_batch:
-            PROBE_ROUTES["host_calls"] += 1
-            PROBE_ROUTES["host_keys"] += n
+            count_probe("host", n)
             out = np.fromiter(map(self.__contains__, keys.tolist()), dtype=bool, count=n)
             return lambda: out
-        PROBE_ROUTES["table_calls"] += 1
-        PROBE_ROUTES["table_keys"] += n
+        count_probe("table", n)
         self._flush()
         consume = self._table_probe_launch(keys)
         special = (keys == np.uint64(EMPTY_KEY)) | (keys == np.uint64(TOMB_KEY))

@@ -10,7 +10,7 @@ embed; trace replay drives it directly for the paper-validation benchmarks.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterable, Optional
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 
@@ -175,6 +175,21 @@ class HPDedup:
             elif hasattr(self.inline.cache, "cache") and fp in self.inline.cache.cache:
                 self.inline.cache.cache.insert(fp, pba)
         self._writes_since_post = 0
+
+    # -- online GC -------------------------------------------------------------
+    def run_gc(
+        self, max_moves: Optional[int] = None, max_merges: Optional[int] = None
+    ) -> Dict[str, int]:
+        """One epoch-drain + compaction step (see ``core.gc.gc_engine``).
+
+        Decision-neutral by default: inline dedup decisions and the final
+        ``HybridReport`` are bit-exact with a run that never calls this.
+        ``max_merges`` additionally runs a budgeted post-process window,
+        which (like ``run_postprocess``) is schedule-visible.
+        """
+        from .gc import gc_engine
+
+        return gc_engine(self, max_moves=max_moves, max_merges=max_merges)
 
     # -- snapshot/restore ---------------------------------------------------------
     def snapshot(self) -> dict:

@@ -9,7 +9,9 @@ wrapper launches its kernel (or when ``build_all`` is called), so the
 package imports on a host without ``nvcc`` or a card.
 
 ``LAUNCHES`` counts kernel launches per wrapper; each wrapper adds one
-where it launches its kernel and nowhere else.
+through ``count_launch`` where it launches its kernel and nowhere else.
+The count is taken under a lock, so shard worker threads that launch at
+once lose none.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ BUILD_LOG: Dict[str, str] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 _SIGNATURES = {
     "fingerprint": {
@@ -70,8 +73,15 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of ``name``'s kernel to ``LAUNCHES``."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

@@ -138,7 +138,7 @@ def cdc_candidates(haloed: torch.Tensor, avg_size: int) -> torch.Tensor:
             ctypes.c_void_p(torch.cuda.current_stream(haloed.device).cuda_stream),
         )
     _build.check(err, "cdc_candidates")
-    _build.LAUNCHES["cdc_candidates"] += 1
+    _build.count_launch("cdc_candidates")
     return out
 
 

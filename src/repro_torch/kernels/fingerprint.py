@@ -131,5 +131,5 @@ def fingerprint(x: torch.Tensor) -> torch.Tensor:
             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
         )
     _build.check(err, "fingerprint")
-    _build.LAUNCHES["fingerprint"] += 1
+    _build.count_launch("fingerprint")
     return out

@@ -343,7 +343,7 @@ def launch(name: str, keys: torch.Tensor, table: torch.Tensor, out: torch.Tensor
             err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err:
         _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+    _build.count_launch(name)
 
 
 def _dispatch(name: str, plain, out_dtype, keys, table, cap: int) -> torch.Tensor:

@@ -70,5 +70,5 @@ def ffh(counts: torch.Tensor, nbins: int = NBINS_DEFAULT) -> torch.Tensor:
             ctypes.c_void_p(torch.cuda.current_stream(counts.device).cuda_stream),
         )
     _build.check(err, "ffh")
-    _build.LAUNCHES["ffh"] += 1
+    _build.count_launch("ffh")
     return out

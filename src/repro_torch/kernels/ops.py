@@ -335,7 +335,7 @@ def chunk_fingerprint(haloed: torch.Tensor, starts: torch.Tensor, lens: torch.Te
             ctypes.c_void_p(torch.cuda.current_stream(haloed.device).cuda_stream),
         )
     _build.check(err, "chunk_fingerprint")
-    _build.LAUNCHES["chunk_fingerprint"] += 1
+    _build.count_launch("chunk_fingerprint")
     return out
 
 

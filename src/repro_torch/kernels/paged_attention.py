@@ -200,5 +200,5 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
             ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
         )
     _build.check(err, "paged_attention")
-    _build.LAUNCHES["paged_attention"] += 1
+    _build.count_launch("paged_attention")
     return out

@@ -16,25 +16,24 @@ as one decode step per token, dense attention, as the reference does).
 A page is the (layers, page_tokens, KVH, hd) K/V slice of every layer of a
 request's cache; pages live in ``DedupKVServer.pages`` keyed by PBA, the
 store's reclaim hooks drop a page whose PBA is freed and move one whose PBA
-is relocated.  One engine serves the pages: the cluster-backed server
-(``num_shards > 1``), snapshots and online GC wait for the ports of
-``core.snapshot``, ``core.gc`` and ``core.cluster`` (ROADMAP.md, modules to
-port, "Snapshots and GC" and "Cluster").
+is relocated.  With ``num_shards > 1`` a ``ShardedCluster`` serves the
+pages: fingerprints partition across shards, whose disjoint PBA namespaces
+keep page ids unique, and the hooks sit on every shard's store.
+``snapshot``/``load_state`` carry the engine's state tree (the reference's)
+and ``run_gc`` compacts the PBAs, with pages following their blocks.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..core import HPDedup
+from ..core import HPDedup, ShardedCluster, load_engine_state, snapshot_engine
 from ..kernels.ops import fingerprint_ints
 from ..models.attention import KVCache
-
-_PENDING = "(ROADMAP.md, modules to port, 'Snapshots and GC' and 'Cluster')"
 
 
 def chain_fingerprint(prev_fp: int, tokens: np.ndarray, device=None) -> int:
@@ -137,16 +136,13 @@ class DedupKVServer:
         *,
         device="cuda",
     ):
-        if num_shards != 1:
-            raise ValueError(f"num_shards={num_shards}: the cluster-backed server is not "
-                             f"ported yet {_PENDING}")
         self.device = torch.device(device)
         if params is not None:
             model.load(params)
         self.model = model.to(self.device)
         self.page_tokens = page_tokens
         self.max_slots = max_slots
-        self.dedup = HPDedup(
+        engine_kwargs = dict(
             cache_entries=cache_entries,
             policy="lru",
             adaptive_threshold=False,
@@ -154,8 +150,15 @@ class DedupKVServer:
             postprocess_period=postprocess_period,
             use_jax_estimator=True,
             seed=seed,
-            device=self.device,
         )
+        self.dedup: Union[HPDedup, ShardedCluster]
+        if num_shards > 1:
+            # the device stays out of engine_kwargs: those go into the
+            # cluster's snapshot tree, which must stay the reference's
+            self.dedup = ShardedCluster(num_shards=num_shards, device=self.device,
+                                        **engine_kwargs)
+        else:
+            self.dedup = HPDedup(device=self.device, **engine_kwargs)
         self.pages: Dict[int, KVCache] = {}  # pba -> page
         self.metrics = ServeMetrics()
         self._request_counter = 0
@@ -163,9 +166,11 @@ class DedupKVServer:
 
     def _attach_reclaim_hooks(self) -> None:
         """A freed PBA drops its page the moment the store reclaims it, and
-        a block that compaction moves carries its page to the new PBA."""
-        self.dedup.store.on_free = self._on_page_free
-        self.dedup.store.on_relocate = self._on_page_relocate
+        a block that compaction moves carries its page to the new PBA, on
+        every shard's store."""
+        for engine in self._engines():
+            engine.store.on_free = self._on_page_free
+            engine.store.on_relocate = self._on_page_relocate
 
     def _on_page_free(self, pba: int) -> None:
         if self.pages.pop(pba, None) is not None:
@@ -175,6 +180,15 @@ class DedupKVServer:
         page = self.pages.pop(old, None)
         if page is not None:
             self.pages[new] = page
+
+    def _engines(self) -> List[HPDedup]:
+        return self.dedup.shards if isinstance(self.dedup, ShardedCluster) else [self.dedup]
+
+    def _engine_of(self, fp: int) -> HPDedup:
+        """The shard engine owning ``fp`` (the engine itself when unsharded)."""
+        if isinstance(self.dedup, ShardedCluster):
+            return self.dedup.engine_for(fp)
+        return self.dedup
 
     # -- internals -------------------------------------------------------------
     def _token(self, t: int) -> torch.Tensor:
@@ -204,12 +218,14 @@ class DedupKVServer:
         fps = chain_fingerprints_batched(0, np.stack(blocks), device=self.device) if blocks else []
         lbas = [(req << 24) | i for i in range(nblocks)]
         # probe cached PBAs first (prefix fps are unique within a request, so
-        # probes are independent of this request's own writes)...
-        pbas = [self.dedup.inline.cache.lookup(tenant, fp) for fp in fps]
+        # probes are independent of this request's own writes); each probe
+        # goes to the shard owning that fingerprint's partition...
+        pbas = [self._engine_of(fp).inline.cache.lookup(tenant, fp) for fp in fps]
         # ...then push the whole request through the batched write path
         if nblocks:
             self.dedup.write_batch(np.full(nblocks, tenant, dtype=np.int64), lbas, fps)
-            self.dedup.inline.flush_stream(tenant)
+            for engine in self._engines():
+                engine.inline.flush_stream(tenant)
         self.metrics.blocks_total += nblocks
         self.metrics.pages_logical += nblocks
         for i, blk in enumerate(blocks):
@@ -221,7 +237,7 @@ class DedupKVServer:
                 info["hit_blocks"] += 1
             else:
                 cache = self._compute_page(cache, blk, pos)
-                new_pba = self.dedup.store.lba_map.get((tenant, lbas[i]))
+                new_pba = self._engine_of(fps[i]).store.lba_map.get((tenant, lbas[i]))
                 if new_pba is not None and new_pba not in self.pages:
                     self.pages[new_pba] = _slot_slice(cache, pos, pt)
                     self.metrics.pages_allocated += 1
@@ -246,21 +262,61 @@ class DedupKVServer:
             pos += 1
         return out, cache
 
+    # -- snapshot/restore --------------------------------------------------------
+    def snapshot(self, include_pages: bool = True) -> dict:
+        """Crash-recovery state for the serving layer.
+
+        The dedup engine state is the JSON-safe versioned tree of
+        ``core.snapshot`` (the reference's tree for the same state); the
+        pages are copied to host tensors, so the full snapshot is picklable
+        but not JSON (``include_pages=False`` gives a JSON-only tree: a
+        restored server then prefills pages again on first miss, losing
+        only prefill skips, never correctness).
+        """
+        return {
+            "engine": snapshot_engine(self.dedup),
+            "request_counter": self._request_counter,
+            "metrics": dataclasses.asdict(self.metrics),
+            "pages": (
+                [[pba, KVCache(page.k.cpu(), page.v.cpu())] for pba, page in self.pages.items()]
+                if include_pages
+                else None
+            ),
+        }
+
+    def load_state(self, tree: dict) -> None:
+        """Restore into this server in place (model and config unchanged).
+
+        The stores' reclaim hooks are process-local, so they are attached
+        again here rather than serialized.
+        """
+        load_engine_state(self.dedup, tree["engine"])
+        self._request_counter = int(tree["request_counter"])
+        self.metrics = ServeMetrics(**tree["metrics"])
+        self._attach_reclaim_hooks()
+        if tree["pages"] is None:
+            self.pages = {}
+        else:
+            self.pages = {
+                int(pba): KVCache(page.k.to(self.device), page.v.to(self.device))
+                for pba, page in tree["pages"]
+            }
+
     def run_postprocess(self) -> int:
         """Background exact pass: merge duplicate pages the cache missed.
 
-        The store's ``on_free`` hook drops each merged-away page the moment
-        its PBA is released.  Returns the duplicate fingerprints found."""
-        before = len(self.dedup.store.duplicate_fingerprints())
-        self.dedup.post.run()  # LBA tables are remapped by the store
+        Runs shard-locally on a cluster; the stores' ``on_free`` hook drops
+        each merged-away page the moment its PBA is released.  Returns the
+        duplicate fingerprints found."""
+        before = sum(len(e.store.duplicate_fingerprints()) for e in self._engines())
+        for engine in self._engines():
+            engine.post.run()  # LBA tables are remapped by the store
         return before
 
-    # -- waiting for their modules -----------------------------------------------
-    def snapshot(self, include_pages: bool = True) -> dict:
-        raise NotImplementedError(f"server snapshots wait for core.snapshot {_PENDING}")
-
-    def load_state(self, tree: dict) -> None:
-        raise NotImplementedError(f"server restores wait for core.snapshot {_PENDING}")
-
     def run_gc(self, max_moves: Optional[int] = None) -> Dict[str, int]:
-        raise NotImplementedError(f"online GC waits for core.gc {_PENDING}")
+        """One online-GC step (epoch drain + PBA compaction) on the backing
+        engine or cluster; freed pages drop and relocated pages follow their
+        blocks through the reclaim hooks."""
+        if isinstance(self.dedup, ShardedCluster):
+            return self.dedup.run_gc(max_moves_per_shard=max_moves)
+        return self.dedup.run_gc(max_moves=max_moves)

@@ -9,7 +9,9 @@ installed:
 The plain versions themselves are held against the reference package on the
 CPU in ``test_torch_fingerprint.py``, ``test_torch_fp_index.py``,
 ``test_torch_engine.py``, ``test_torch_cdc.py``, ``test_torch_ffh.py``,
-``test_torch_paged_attention.py`` and ``test_torch_serving.py``.
+``test_torch_paged_attention.py`` and ``test_torch_serving.py``; the cluster, the
+snapshot envelope and online GC in ``test_torch_cluster.py``,
+``test_torch_cluster_ops.py`` and ``test_torch_snapshot_gc.py``.
 """
 
 import dataclasses
@@ -20,7 +22,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import ContentDefinedChunker, HPDedup, generate_workload
+from repro_torch.core import (
+    ContentDefinedChunker,
+    HPDedup,
+    ShardedCluster,
+    generate_workload,
+    restore_engine,
+    snapshot_engine,
+)
 from repro_torch.core.fp_index import SMALL_BATCH_CARD, TOMB_KEY, FingerprintIndex
 from repro_torch.core.unseen import ldss_batch
 from repro_torch.kernels import cdc
@@ -618,3 +627,91 @@ def test_server_on_card_matches_host(cuda):
     (srv, c1, p1), _, (nodedup, c2, p2) = caches
     assert torch.equal(c1.k, c2.k) and torch.equal(c1.v, c2.v)
     assert srv.decode(c1, p1, steps=4)[0] == nodedup.decode(c2, p2, steps=4)[0]
+
+
+# -- the sharded cluster on the card -------------------------------------------------
+
+
+def _cluster_run(device, trace, parallel, batch=2048):
+    c = ShardedCluster(num_shards=4, cache_entries=8192, device=device)
+    c.min_parallel_batch = 0
+    c.replay_batched(trace, batch_size=batch, parallel=parallel)
+    return c, c.finish()
+
+
+@pytest.mark.parametrize("parallel", [False, True], ids=["serial", "workers"])
+def test_cluster_on_card_matches_host(cuda, parallel):
+    """Four shards, each with its own index tables on the card, serially and
+    from one worker thread per shard: the host's reports, per-shard reports
+    and tree; the index kernels launched from the shards."""
+    trace = generate_workload("A", total_requests=60_000, seed=1)[0]
+    before = dict(LAUNCHES)
+    card, rep = _cluster_run(cuda, trace, parallel)
+    launched = {n: LAUNCHES[n] - before[n] for n in ("fp_probe", "fp_insert", "fp_remove")}
+    host, want = _cluster_run("cpu", trace, False)
+    assert dataclasses.asdict(rep) == dataclasses.asdict(want)
+    assert [dataclasses.asdict(r) for r in card.shard_reports] == \
+        [dataclasses.asdict(r) for r in host.shard_reports]
+    assert json.dumps(snapshot_engine(card)) == json.dumps(snapshot_engine(host))
+    assert launched["fp_probe"] > 0 and launched["fp_insert"] > 0
+    for e in card.shards:
+        assert e._seen_fps.table_stats()["backend"] == "torch"
+        e._seen_fps.check_consistency()
+    card.check_consistency()
+
+
+def test_cluster_operations_on_card_match_host(cuda):
+    """GC, a snapshot restored onto the card, resize, and a shard failed and
+    recovered, on the card and on the host: equal reports and ``moved_fps``."""
+    trace = generate_workload("A", total_requests=40_000, seed=2)[0]
+
+    def run(device):
+        c = ShardedCluster(num_shards=4, replication_factor=2, cache_entries=8192,
+                           device=device)
+        n = len(trace)
+        c.ingest_batched(trace[:n // 2], batch_size=2048)
+        gc1 = c.run_gc(max_moves_per_shard=512)
+        c = restore_engine(json.loads(json.dumps(snapshot_engine(c))), device=device)
+        c.ingest_batched(trace[n // 2:3 * n // 4], batch_size=2048)
+        moved = c.resize(8)["moved_fps"]
+        gc2 = c.run_gc(max_moves_per_shard=512)
+        c.fail_shard(1)
+        c.ingest_batched(trace[3 * n // 4:], batch_size=2048)
+        c.recover_shard(1)
+        rep = c.finish()
+        c.check_consistency()
+        return dataclasses.asdict(rep), moved, gc1, gc2, json.dumps(snapshot_engine(c))
+
+    card, host = run(cuda), run("cpu")
+    assert card == host
+    assert card[1] > 0 and card[3]["moved"] > 0
+
+
+def test_cluster_server_on_card_matches_host(cuda):
+    """``DedupKVServer(num_shards=4)`` on the smoke TinyLlama: the card and
+    the host give equal metrics and engine trees, pages lie on several
+    shards, a snapshot round trip and a GC step leave the next request as
+    it was."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.dedup_kv import DedupKVServer
+
+    cfg = get_config("tinyllama-1.1b", smoke=True)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, 48)
+    reqs = [np.concatenate([prompt, rng.integers(0, cfg.vocab_size, 8)]) for _ in range(5)]
+    out = []
+    for device in (cuda, "cpu"):
+        srv = DedupKVServer(build_model(cfg), params, page_tokens=16, max_slots=128,
+                            cache_entries=128, num_shards=4, device=device)
+        for toks in reqs[:4]:
+            srv.prefill_request(0, toks)
+        snap = srv.snapshot()
+        srv.load_state(snap)
+        srv.run_gc()
+        cache, pos, info = srv.prefill_request(0, reqs[4])
+        out.append((dataclasses.asdict(srv.metrics), json.dumps(snapshot_engine(srv.dedup)),
+                    info, srv.decode(cache, pos, steps=3)[0]))
+        assert len({pba >> 48 for pba in srv.pages}) > 1
+    assert out[0][:3] == out[1][:3] and out[0][2]["hit_blocks"] == 3

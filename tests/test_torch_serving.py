@@ -30,7 +30,7 @@ import repro.models as RM
 import repro.serving.dedup_kv as RS
 import repro_torch.launch.serve as port_serve
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.core import HPDedup
+from repro_torch.core import HPDedup, ShardedCluster, snapshot_engine
 from repro_torch.launch.serve import request_mix
 from repro_torch.models import build_model, layers
 from repro_torch.models.convert import params_from_jax
@@ -200,13 +200,19 @@ def test_postprocess_merges_pages_like_reference():
 
 
 def test_server_refuses_what_is_not_ported():
+    """Every part of the server is ported now: the cluster-backed server,
+    snapshots and online GC run on the host when asked.  What it still
+    refuses is a card that is not there: by default it runs on the card."""
     _, _, port = _models("float32")
-    with pytest.raises(ValueError, match="num_shards"):
-        PS.DedupKVServer(port, None, num_shards=4, device="cpu")
-    srv = PS.DedupKVServer(port, None, device="cpu")
-    for call in (srv.snapshot, lambda: srv.load_state({}), srv.run_gc):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    for num_shards in (1, 4):
+        srv = PS.DedupKVServer(port, None, num_shards=num_shards, device="cpu")
+        assert isinstance(srv.dedup, ShardedCluster) == (num_shards > 1)
+        assert json.loads(json.dumps(srv.snapshot(include_pages=False)))["engine"]["kind"] == \
+            ("cluster" if num_shards > 1 else "hpdedup")
+        assert srv.run_gc()["moved"] == 0
+        if not torch.cuda.is_available():
+            with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
+                PS.DedupKVServer(port, None, num_shards=num_shards)
 
 
 def test_serve_cli_matches_reference(monkeypatch, capsys):
@@ -256,3 +262,131 @@ def test_every_block_maps_to_a_page():
         if tenant == 0 and r:
             first = [srv.dedup.store.lba_map[(0, i)] for i in range(6)]
             assert row[:6] == first  # the shared prompt's pages, deduplicated
+
+
+# -- the cluster-backed server ----------------------------------------------------------
+
+
+def _uint64_writes(ref_srv):
+    """Make the reference server's cluster take its fingerprint lists as
+    ``uint64``.  Unpatched, ``np.asarray`` turns a request's list that mixes
+    values at or above 2^63 with smaller ones into float64 (ROADMAP §3, the
+    ``write_batch`` fault): the cluster then routes each write by a rounded
+    fingerprint, while the server's cache lookups route by the exact one, so
+    prefix hits go to the wrong shard and are lost.  The port converts with
+    ``dtype=np.uint64``; the patch shows that this fault is the only
+    difference."""
+    write_batch = ref_srv.dedup.write_batch
+    ref_srv.dedup.write_batch = lambda streams, lbas, fps: write_batch(
+        streams, lbas, np.asarray(fps, dtype=np.uint64))
+    return ref_srv
+
+
+def _cluster_servers(compute_dtype, num_shards, patched=True, **kw):
+    ref, params, port = _models(compute_dtype, scales=False)
+    kw = dict(dict(page_tokens=16, max_slots=128, cache_entries=128), num_shards=num_shards, **kw)
+    ref_srv = RS.DedupKVServer(ref, params, **kw)
+    return (ref, params, _uint64_writes(ref_srv) if patched else ref_srv,
+            PS.DedupKVServer(port, None, device="cpu", **kw))
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_cluster_server_matches_reference(compute_dtype):
+    """``DedupKVServer(num_shards=4)``: the reference's metrics, hit counts,
+    page ids (each shard's PBA namespace), engine tree, post-process and GC
+    results; float32 decodes the reference's tokens, and every dtype decodes
+    what a one-engine server decodes."""
+    _, _, ref_srv, srv = _cluster_servers(compute_dtype, 4)
+    one = PS.DedupKVServer(srv.model, None, page_tokens=16, max_slots=128, cache_entries=128,
+                           device="cpu")
+    ref_out, _ = _serve_mix(ref_srv, 512, np.random.default_rng(0))
+    out, _ = _serve_mix(srv, 512, np.random.default_rng(0))
+    one_out, _ = _serve_mix(one, 512, np.random.default_rng(0))
+    assert dataclasses.asdict(srv.metrics) == dataclasses.asdict(ref_srv.metrics) == \
+        dataclasses.asdict(one.metrics)
+    assert srv.metrics.blocks_prefill_skipped > 0
+    assert [o[1:] for o in out] == [o[1:] for o in ref_out]
+    assert sorted(srv.pages) == sorted(ref_srv.pages)
+    assert len({pba >> 48 for pba in srv.pages}) > 1  # pages live on several shards
+    assert json.dumps(snapshot_engine(srv.dedup)) == json.dumps(R.snapshot_engine(ref_srv.dedup))
+    for (c, p, _), (rc, rp, _), (oc, op, _) in zip(out, ref_out, one_out):
+        tokens = srv.decode(c, p, steps=3)[0]
+        assert tokens == one.decode(oc, op, steps=3)[0]
+        if compute_dtype == "float32":
+            assert tokens == ref_srv.decode(rc, rp, steps=3)[0]
+    assert srv.run_postprocess() == ref_srv.run_postprocess()
+    assert srv.run_gc(max_moves=8) == ref_srv.run_gc(max_moves=8)
+    assert dataclasses.asdict(srv.metrics) == dataclasses.asdict(ref_srv.metrics)
+    srv.dedup.check_consistency()
+
+
+@pytest.mark.parametrize("num_shards", [2, 4])
+def test_cluster_server_snapshot_resumes_like_reference(num_shards):
+    """Snapshot after three requests, go on; a second server loads the
+    snapshot and serves the same rest: equal metrics and engine trees, in
+    the port and against the reference.  A JSON-only snapshot of the
+    reference's server loads into the port's."""
+    ref, params, r1, s1 = _cluster_servers("float32", num_shards)
+    faulty = RS.DedupKVServer(ref, params, page_tokens=16, max_slots=128, cache_entries=128,
+                              num_shards=num_shards)
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, 512, 48)
+    requests = [np.concatenate([prompt, rng.integers(0, 512, 8)]) for _ in range(6)]
+    snaps = []
+    for srv in (r1, s1, faulty):
+        for toks in requests[:3]:
+            srv.prefill_request(0, toks)
+        snaps.append(srv.snapshot())
+        for toks in requests[3:]:
+            srv.prefill_request(0, toks)
+    s2 = PS.DedupKVServer(s1.model, None, page_tokens=16, max_slots=128, cache_entries=128,
+                          num_shards=num_shards, device="cpu")
+    s2.load_state(snaps[1])
+    assert all(isinstance(p.k, torch.Tensor) and p.k.device.type == "cpu"
+               for p in s2.pages.values())
+    outs = [s2.prefill_request(0, toks) for toks in requests[3:]]
+    assert s2.metrics == s1.metrics
+    assert dataclasses.asdict(s1.metrics) == dataclasses.asdict(r1.metrics)
+    assert json.dumps(snapshot_engine(s2.dedup)) == json.dumps(snapshot_engine(s1.dedup)) == \
+        json.dumps(R.snapshot_engine(r1.dedup))
+    assert all(info["hit_blocks"] == 3 for _, _, info in outs)
+    # the unpatched reference loses prefix hits to its write_batch fault
+    assert faulty.metrics.blocks_prefill_skipped < s1.metrics.blocks_prefill_skipped
+    # the reference's JSON-only snapshot: the port restores its engine tree
+    s3 = PS.DedupKVServer(s1.model, None, page_tokens=16, max_slots=128, cache_entries=128,
+                          num_shards=num_shards, device="cpu")
+    s3.load_state(json.loads(json.dumps(dict(snaps[0], pages=None))))
+    assert s3.pages == {}
+    assert json.dumps(snapshot_engine(s3.dedup)) == json.dumps(snaps[0]["engine"])
+    c, p, info = s3.prefill_request(0, requests[3])
+    assert info["hit_blocks"] == 0  # no pages: prefilled again, never wrong
+    s3.run_postprocess()  # the reclaim hooks sit on every shard again
+    s3.dedup.check_consistency()
+
+
+def test_cluster_server_pages_follow_compaction_like_reference():
+    """Cache of one entry: duplicates reach the pages, the post-process pass
+    frees PBAs, and ``run_gc`` moves blocks on every shard; pages follow
+    their blocks and a request decodes as on a server that caches nothing."""
+    ref, params, ref_srv, srv = _cluster_servers("float32", 4, cache_entries=1)
+    for s in (ref_srv, srv):
+        rng = np.random.default_rng(2)
+        prompt = rng.integers(0, 512, 32)
+        for _ in range(3):
+            s.prefill_request(0, np.concatenate([prompt, rng.integers(0, 512, 16)]))
+            s.prefill_request(1, rng.integers(0, 512, 48))
+    assert srv.run_postprocess() == ref_srv.run_postprocess()
+    assert any(e.store._free_pbas for e in srv.dedup.shards)
+    stats = srv.run_gc()
+    assert stats == ref_srv.run_gc() and stats["moved"] > 0
+    assert sorted(srv.pages) == sorted(ref_srv.pages)
+    live = set().union(*(set(e.store.fp_of_pba) for e in srv.dedup.shards))
+    assert set(srv.pages) <= live
+    srv.dedup.check_consistency()
+    rng = np.random.default_rng(5)
+    toks = np.concatenate([rng.integers(0, 512, 32), rng.integers(0, 512, 16)])
+    nodedup = PS.DedupKVServer(srv.model, None, page_tokens=16, max_slots=128, cache_entries=0,
+                               device="cpu")
+    c1, p1, _ = srv.prefill_request(0, toks)
+    c2, p2, _ = nodedup.prefill_request(0, toks)
+    assert srv.decode(c1, p1, steps=3)[0] == nodedup.decode(c2, p2, steps=3)[0]
