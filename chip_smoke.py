@@ -98,7 +98,7 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   per split the kernel used.
 * ``cluster``     the sharded cluster at the reference's cluster benchmark
                   settings (4 shards, 32,768 cache entries, batch 8,192),
-                  replication factor 2, over 2,000,000 requests of workload A
+                  replication factor 2, over 1,000,000 requests of workload A
                   through ``ingest_batched`` a chunk at a time, with the
                   shard engines' worker threads: a GC step (512 moves a
                   shard) every 4 chunks; at half the trace a snapshot ->
@@ -118,9 +118,38 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   snapshot round trip and a GC step, one more request and 4
                   decode steps: infos, metrics, caches, pages and tokens
                   equal.
+* ``ingest``      the training-data ingest pipeline at its class defaults
+                  (256-token blocks, 64 a fingerprint launch, 8,192 cache
+                  entries) over ``launch/train.py``'s four-tenant mix and a
+                  32,000-token vocabulary: ``next_batch(8, 2048)`` until
+                  2^18 blocks are in, four runs at once: one engine on the
+                  card, the same on the host (equal batches and metrics
+                  expected, else within 0.02 of dedup saving, the first
+                  difference printed), and 4 shards on the card with shard
+                  workers on every batch and without them (equal batches).
+                  The state after 32,768 blocks, through JSON into a fresh
+                  pipeline on the card, must continue the uninterrupted run
+                  bit for bit for 16 batches.  Blocks/s, admitted tokens/s,
+                  the seconds of hashing, engine writes and stream
+                  generation, one fingerprint launch's device time at 64 x
+                  256 words, the snapshot's seconds and bytes, launches,
+                  probe routes and the index tables' staged keys.
+* ``frontend``    ``AsyncDedupFrontend`` at ``benchmarks/serving_latency.py``'s
+                  default scale (16 Zipf-skewed tenants, 256 connections,
+                  120,000 requests, 4 shards of 8,192 cache entries) on the
+                  card, then the same on the host; ``contended`` (cache
+                  192), ``resize_under_load`` (4 -> 6 shards) and
+                  ``gc_under_load`` (a GC step every 400 writes of a
+                  connection) at 30,000 requests; and 4,000 writes over the
+                  ``serve`` phase's server.  Each executed trace replayed on
+                  the card and on the host gives the served report (the
+                  resize: the fixed-layout oracle's counts; the GC: a GC-free
+                  oracle's report, then ``check_consistency``).  Per
+                  scenario: rps, p50/p99 ms, mean batch, batches, throttled
+                  writes, launches and probe routes.
 * ``kernels``     one object per kernel: launches on the main paths (replay,
-                  cdc, serve, ffh, the paged pool, cluster and the cluster
-                  server, summed), largest
+                  cdc, serve, ffh, the paged pool, cluster, the cluster
+                  server, ingest and frontend, summed), largest
                   disagreement with its plain version, times, and the least
                   time the card could take for the same work; for the chunk
                   kernel also ptxas's registers and spill bytes.
@@ -132,7 +161,9 @@ is ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -1465,8 +1496,9 @@ def phase_paged_attention(dev, results: dict, srv, mix, seed: int) -> None:
 # The cluster phase: the reference's cluster benchmark settings
 # (``benchmarks/cluster_scaling.py``: 4 shards, 32,768 cache entries, batch
 # 8,192) and GC schedule (``benchmarks/gc_reclaim.py``: a step every 4
-# chunks, 512 moves a shard), over 2 M requests of workload A.
-CLUSTER_REQUESTS = 2_000_000
+# chunks, 512 moves a shard), over 1 M requests of workload A (cut from the
+# replay's 2 M to keep the whole script well inside its time limit).
+CLUSTER_REQUESTS = 1_000_000
 CLUSTER_SHARDS, CLUSTER_GROWN, CLUSTER_REPLICAS = 4, 8, 2
 CLUSTER_CACHE, CLUSTER_BATCH = 32768, 8192
 CLUSTER_GC_EVERY, CLUSTER_GC_MOVES = 4, 512
@@ -1602,18 +1634,22 @@ def _cluster_child(spec: str) -> None:
 
 
 def _start_cluster_child(device: str, parallel: bool, seed: int, oracle: bool):
-    spec = json.dumps({"device": device, "parallel": parallel, "seed": seed,
-                       "requests": CLUSTER_REQUESTS, "oracle": oracle})
+    return _start_child("_cluster_child", {"device": device, "parallel": parallel, "seed": seed,
+                                           "requests": CLUSTER_REQUESTS, "oracle": oracle})
+
+
+def _start_child(entry: str, spec: dict):
+    """``chip_smoke.<entry>(json.dumps(spec))`` in a process of its own."""
     code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
-            "chip_smoke._cluster_child(sys.argv[1])")
-    return subprocess.Popen([sys.executable, "-c", code, spec], cwd=ROOT, text=True,
+            f"chip_smoke.{entry}(sys.argv[1])")
+    return subprocess.Popen([sys.executable, "-c", code, json.dumps(spec)], cwd=ROOT, text=True,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
 
 
 def _child_outcome(proc, what: str) -> dict:
     out, _ = proc.communicate()
     lines = out.strip().splitlines()
-    check(proc.returncode == 0 and lines, f"the cluster run {what} failed:\n{out[-4000:]}")
+    check(proc.returncode == 0 and lines, f"{what} failed:\n{out[-4000:]}")
     return json.loads(lines[-1])
 
 
@@ -1663,8 +1699,8 @@ def phase_cluster(dev, results: dict, srv, mix, seed: int) -> None:
         peak = torch.cuda.max_memory_allocated()
         for name in ("fp_probe", "fp_insert", "fp_remove"):
             check(launches[name] > 0, f"kernel {name} never launched on the cluster path")
-        serial = _child_outcome(children[0], "serially on the card")
-        host = _child_outcome(children[1], "on the host")
+        serial = _child_outcome(children[0], "the cluster run serially on the card")
+        host = _child_outcome(children[1], "the cluster run on the host")
     finally:
         for proc in children:
             if proc.poll() is None:
@@ -1787,6 +1823,476 @@ def _phase_cluster_serve(dev, results: dict, srv, mix, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+# The ingest phase: the training launcher's tenant mix (``launch/train.py``'s
+# ``default_tenants``) through ``DedupIngestPipeline`` at its class defaults
+# (256-token blocks, 8,192 cache entries, 64 blocks a fingerprint launch,
+# post-processing every 4,096 blocks, Zipf 1.2 tokens) over TinyLlama's
+# 32,000-token vocabulary, ``next_batch(8, 2048)`` until 2^18 blocks are in.
+INGEST_TENANTS = (
+    dict(tenant_id=0, rate=3.0, dup_ratio=0.8, locality="good", overlap_group="g"),
+    dict(tenant_id=1, rate=2.0, dup_ratio=0.15, locality="weak", overlap_group="g"),
+    dict(tenant_id=2, rate=1.0, dup_ratio=0.5, locality="good"),
+    dict(tenant_id=3, rate=0.5, dup_ratio=0.3, locality="good"),
+)
+INGEST_VOCAB = 32000
+INGEST_BLOCKS = 1 << 18
+INGEST_BATCH = (8, 2048)
+INGEST_SHARDS = 4
+INGEST_CRASH_AT = 32768  # blocks in when the crash snapshot is taken
+INGEST_AFTER_CRASH = 16  # batches the restored pipeline takes
+RATIO_TOL = 0.02  # inline-ratio tolerance of the float32 LDSS solver (ROADMAP §3)
+
+
+def _batch_digest(batch: dict) -> str:
+    h = hashlib.blake2b(digest_size=16)
+    for key in ("inputs", "targets", "mask"):
+        h.update(np.ascontiguousarray(batch[key]).tobytes())
+    return h.hexdigest()
+
+
+def _ingest_pipeline(device, seed: int, num_shards: int = 1, parallel: bool = False):
+    from repro_torch.data import DedupIngestPipeline, TenantSpec
+
+    return DedupIngestPipeline([TenantSpec(**t) for t in INGEST_TENANTS], vocab=INGEST_VOCAB,
+                               num_shards=num_shards, parallel_shards=parallel, seed=seed,
+                               device=device)
+
+
+def _predicted_ldss(pipe) -> dict:
+    """Each tenant's predicted LDSS, summed over the shards' estimators."""
+    out: dict = {}
+    for est in pipe._estimators():
+        for s, v in est.predicted.items():
+            if v is not None:
+                out[str(s)] = out.get(str(s), 0.0) + float(v)
+    return out
+
+
+def _ingest_run(device, seed: int, num_shards: int = 1, parallel: bool = False,
+                crash_at: int = 0) -> dict:
+    """Take ``next_batch(8, 2048)`` until the pipeline has ingested 2^18
+    blocks.  Returns each batch's digest, the metrics and predicted LDSS
+    after it, the seconds of the run and of its fingerprinting, engine
+    writes and stream generation; with ``crash_at``, the pipeline's state
+    as JSON after the first batch that brings the blocks in to
+    ``crash_at`` (its seconds are not counted in the run's)."""
+    import repro_torch.data.pipeline as pipeline_mod
+
+    pipe = _ingest_pipeline(device, seed, num_shards, parallel)
+    if parallel:
+        # fan every batch out to the shard workers: at the cluster's default
+        # floor of 2,048 records no 64-block batch would reach them
+        pipe.engine.min_parallel_batch = 0
+    secs = {"fingerprint": 0.0, "write_batch": 0.0, "streams": 0.0}
+
+    def timed(key, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                secs[key] += time.perf_counter() - t0
+        return call
+
+    for stream in pipe.streams.values():
+        stream.next_block = timed("streams", stream.next_block)
+    pipe.engine.write_batch = timed("write_batch", pipe.engine.write_batch)
+    fingerprint_ints = pipeline_mod.fingerprint_ints
+    pipeline_mod.fingerprint_ints = timed("fingerprint", fingerprint_ints)
+    out: dict = {"digests": [], "metrics": [], "ldss": []}
+    paused = 0.0
+    try:
+        t0 = time.perf_counter()
+        while pipe.metrics.blocks_in < INGEST_BLOCKS:
+            batch = pipe.next_batch(*INGEST_BATCH)
+            out["digests"].append(_batch_digest(batch))
+            out["metrics"].append(dataclasses.asdict(pipe.metrics))
+            out["ldss"].append(_predicted_ldss(pipe))
+            if crash_at and "state" not in out and pipe.metrics.blocks_in >= crash_at:
+                t1 = time.perf_counter()
+                out["state"] = json.dumps(pipe.state_dict())
+                out["snapshot_s"] = time.perf_counter() - t1
+                out["crash_batches"] = len(out["digests"])
+                paused += out["snapshot_s"]
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0 - paused
+    finally:
+        pipeline_mod.fingerprint_ints = fingerprint_ints
+        if parallel:
+            pipe.engine.stop_executor()
+    out["step_s"] = secs
+    out["admitted_tokens"] = pipe.metrics.blocks_admitted * pipe.block_tokens
+    out["index_tables"] = _index_tables(pipe.engine)
+    return out
+
+
+def _index_tables(engine) -> dict:
+    """Keys in the engine's fingerprint indexes, summed over its shards:
+    in the host set, in the table, and staged for the table but not yet
+    folded into it (folded at the next probe through the table)."""
+    out = {"set": 0, "table": 0, "staged": 0}
+    for e in getattr(engine, "shards", [engine]):
+        for index in (e._seen_fps, e.inline.cache.index, e.store.fp_index):
+            st = index.table_stats()
+            out["set"] += len(index)
+            out["table"] += st["live"]
+            out["staged"] += st["pending"]
+    return out
+
+
+def _ingest_child(spec: str) -> None:
+    """One ingest run in a process of its own, which ``phase_ingest`` starts
+    (``spec``: JSON of ``_ingest_run``'s arguments); prints its outcome and
+    its launch counts as the last line."""
+    from repro_torch.kernels import _build
+
+    args = json.loads(spec)
+    _build.reset_launches()
+    out = _ingest_run(**args)
+    out["launches"] = dict(_build.LAUNCHES)
+    print(json.dumps(out), flush=True)
+
+
+def _first_difference(a: list, b: list):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def _ingest_rates(run: dict) -> dict:
+    blocks = run["metrics"][-1]["blocks_in"]
+    return {"seconds": run["seconds"], "blocks_in": blocks,
+            "blocks_per_s": blocks / run["seconds"],
+            "admitted_tokens_per_s": run["admitted_tokens"] / run["seconds"],
+            "batches": len(run["digests"]), "step_s": run["step_s"],
+            "dedup_saving": blocks and run["metrics"][-1]["blocks_deduped_inline"] / blocks}
+
+
+def phase_ingest(dev, results: dict, seed: int) -> None:
+    """The ingest pipeline, four runs at once, each but (a) in a process of
+    its own: (a) one engine on the card; (b) the same on the host; (c) four
+    shards on the card with shard worker threads, fanned out on every batch,
+    and without them.  Then (d): the state after 32,768 blocks of (a),
+    through JSON into a fresh pipeline on the card, which takes the next 16
+    batches.  (c) and (d) must equal their serial and uninterrupted runs
+    bit for bit; (a) and (b) are expected equal, else within 0.02 of inline
+    ratio with the first difference printed.  The fingerprint kernel must
+    launch in (a), and the restore in (d) must rebuild the index tables on
+    the card (insert launches); the path's launches are those of (a) and
+    (d)."""
+    import repro_torch.core.fp_index as core_index
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.fingerprint import fingerprint
+
+    children = [_start_child("_ingest_child", spec) for spec in (
+        {"device": "cpu", "seed": seed},
+        {"device": "cuda", "seed": seed, "num_shards": INGEST_SHARDS, "parallel": True},
+        {"device": "cuda", "seed": seed, "num_shards": INGEST_SHARDS})]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        core_index.reset_probe_routes()
+        card = _ingest_run(dev, seed, crash_at=INGEST_CRASH_AT)
+        launches = dict(_build.LAUNCHES)
+        routes = dict(core_index.PROBE_ROUTES)
+        peak = torch.cuda.max_memory_allocated()
+        host_run, sharded, serial_run = (
+            _child_outcome(proc, f"the ingest run {what}") for proc, what in zip(
+                children, ("on the host", "on 4 shards with workers", "on 4 shards")))
+    finally:
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    check(launches["fingerprint"] > 0, "the fingerprint kernel never launched on the ingest path")
+    check(sharded["digests"] == serial_run["digests"],
+          "sharded ingest with worker threads != without them on the card")
+    check(sharded["metrics"][-1] == serial_run["metrics"][-1], "sharded ingest metrics differ")
+
+    # (a) against (b): equal, or within the estimator's tolerance
+    first = _first_difference(card["digests"], host_run["digests"])
+    versus_host = {"batches_equal": first is None,
+                   "metrics_equal": card["metrics"][-1] == host_run["metrics"][-1]}
+    if first is not None or not versus_host["metrics_equal"]:
+        at = min(first if first is not None else len(card["ldss"]) - 1,
+                 len(card["ldss"]) - 1, len(host_run["ldss"]) - 1)
+        a, b = card["ldss"][at], host_run["ldss"][at]
+        rel = max((abs(a[s] - b[s]) / max(abs(a[s]), abs(b[s]), 1e-30)
+                   for s in set(a) & set(b)), default=0.0)
+        gap = abs(_ingest_rates(card)["dedup_saving"] - _ingest_rates(host_run)["dedup_saving"])
+        versus_host.update(first_differing_batch=first, ldss_max_rel_diff_there=rel,
+                           ldss_keys_differ=sorted(set(a) ^ set(b)), dedup_saving_gap=gap)
+        check(gap <= RATIO_TOL, f"ingest dedup saving on the card is {gap} from the host's")
+
+    # (d) crash and restore
+    from repro_torch.data import PipelineMetrics
+
+    k = card["crash_batches"]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    cold = _ingest_pipeline(dev, seed)
+    cold.load_state(json.loads(card["state"]))
+    load_s = time.perf_counter() - t0
+    after = [_batch_digest(cold.next_batch(*INGEST_BATCH)) for _ in range(INGEST_AFTER_CRASH)]
+    restore_launches = dict(_build.LAUNCHES)
+    check(restore_launches["fp_insert"] > 0,
+          "no insert launched: the restored pipeline did not rebuild its index tables on the card")
+    check(after == card["digests"][k:k + INGEST_AFTER_CRASH],
+          "the restored pipeline's batches != the uninterrupted run's")
+    check(cold.metrics == PipelineMetrics(**card["metrics"][k + INGEST_AFTER_CRASH - 1]),
+          "the restored pipeline's metrics != the uninterrupted run's")
+
+    # one fingerprint launch at the pipeline's shape, and one whole call
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(0, INGEST_VOCAB, size=(64, 256), dtype=np.int32)
+    x = torch.from_numpy(blocks).to(dev)
+    launch_ms = device_ms(lambda: fingerprint(x), reps=50)
+    ops.fingerprint_ints(blocks, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        ops.fingerprint_ints(blocks, device=dev)
+    call_ms = (time.perf_counter() - t0) / 200 * 1e3
+    for name, n in launches.items():
+        results.setdefault(name, {}).setdefault("launches_by_path", {})["ingest"] = (
+            n + restore_launches[name])
+    emit("ingest", tenants=len(INGEST_TENANTS), vocab=INGEST_VOCAB, block_tokens=256,
+         fingerprint_batch=64, cache_entries=8192, batch=list(INGEST_BATCH), seed=seed,
+         card=_ingest_rates(card), host=_ingest_rates(host_run), runs_at_once=4,
+         versus_host=versus_host, launches=launches, probe_routes=routes,
+         index_tables=card["index_tables"],
+         max_memory_allocated=peak,
+         sharded={"shards": INGEST_SHARDS, "workers": _ingest_rates(sharded),
+                  "serial": _ingest_rates(serial_run), "equal": True,
+                  "launches": sharded["launches"], "serial_launches": serial_run["launches"]},
+         crash={"at_blocks": card["metrics"][k - 1]["blocks_in"], "batches_before": k,
+                "snapshot_s": card["snapshot_s"], "json_bytes": len(card["state"]),
+                "load_s": load_s, "batches_after": INGEST_AFTER_CRASH, "equal": True,
+                "launches": restore_launches},
+         fingerprint_launch_ms=launch_ms, fingerprint_ints_call_ms=call_ms,
+         fingerprint_shape=[64, 256])
+    del card, host_run, sharded, serial_run, cold
+
+
+# The frontend phase: ``benchmarks/serving_latency.py`` at its default scale
+# (16 tenants with Zipf volume skew, 16 connections each, 120,000 requests, 4
+# shards of 8,192 cache entries, batches of up to 1,024 writes or 2 ms, 16,384
+# writes pending, an admission budget of half the connections) with the
+# engine on the card; its ``contended`` (cache 192) and ``resize_under_load``
+# (4 -> 6 shards) scenarios, GC steps under traffic as ``tests/test_gc_online.py``
+# runs them, and a front end over the ``serve`` phase's server.
+FE_TENANTS = 16
+FE_CONNS = 16
+FE_REQUESTS = 120_000
+FE_SIDE_REQUESTS = 30_000  # contended, resize_under_load, gc_under_load
+FE_SHARDS, FE_GROWN = 4, 6
+FE_CACHE, FE_CONTENDED_CACHE = 8192, 192
+FE_MAX_BATCH, FE_MAX_DELAY, FE_MAX_PENDING = 1024, 0.002, 16384
+FE_BUDGET = FE_TENANTS * FE_CONNS // 2
+FE_GC_EVERY, FE_GC_MOVES = 400, 64
+# the writes over the server's engine use tenants past its own (0 and 1)
+FE_SERVER_WRITES, FE_SERVER_CONNS, FE_SERVER_TENANT0 = 4000, 4, 100
+
+
+def _fe_workload(n_requests: int, seed: int) -> dict:
+    """Per-tenant (lba, fp) columns, as ``benchmarks/serving_latency.py``'s
+    ``make_tenant_workload`` draws them: tenant t's share of requests goes
+    as 1/(t+1), its duplicate ratio falls from 0.7 to 0.05, about 4% of
+    requests hit a pool shared by all tenants, and 10% of LBAs jump back."""
+    rng = np.random.default_rng(seed)
+    weights = 1.0 / (np.arange(FE_TENANTS) + 1.0)
+    weights /= weights.sum()
+    shared_pool = rng.integers(1, 2**62, size=256, dtype=np.uint64)
+    out = {}
+    for t in range(FE_TENANTS):
+        n = max(64, int(n_requests * weights[t]))
+        dup_ratio = 0.7 - 0.65 * t / (FE_TENANTS - 1)
+        n_unique = max(8, int(n * (1.0 - dup_ratio)))
+        pool = rng.integers(1, 2**62, size=n_unique, dtype=np.uint64)
+        take_shared = rng.random(n) < 0.04
+        fps = np.where(
+            take_shared,
+            shared_pool[rng.integers(0, len(shared_pool), size=n)],
+            pool[rng.integers(0, n_unique, size=n)],
+        ).astype(np.uint64)
+        lbas = np.arange(n, dtype=np.int64)
+        jump = rng.random(n) < 0.1
+        lbas[jump] = rng.integers(0, n, size=int(jump.sum()))
+        out[t] = (lbas, fps)
+    return out
+
+
+async def _fe_serve(engine, workload: dict, conns: int, resize_to: int = 0,
+                    gc_every: int = 0):
+    """Each tenant's columns strided over ``conns`` connections, all at once,
+    through ``AsyncDedupFrontend``; with ``resize_to`` a resize 10 ms in,
+    with ``gc_every`` a GC step after every that many writes of a
+    connection.  Returns the front end's stats (with wall seconds and
+    rps), the executed trace, the GC and resize results, and the front end."""
+    from repro_torch.serving.frontend import AsyncDedupFrontend
+
+    fe = AsyncDedupFrontend(engine, max_batch=FE_MAX_BATCH, max_delay=FE_MAX_DELAY,
+                            max_pending=FE_MAX_PENDING, admission_budget=FE_BUDGET,
+                            record_trace=True)
+    extra: dict = {"gc": []}
+
+    async def connection(tenant, lbas, fps):
+        for i, (lba, fp) in enumerate(zip(lbas.tolist(), fps.tolist())):
+            await fe.write(tenant, fp, lba=lba)
+            if gc_every and i % gc_every == gc_every - 1:
+                extra["gc"].append(await fe.run_gc(max_moves_per_shard=FE_GC_MOVES))
+
+    async def resize_midway():
+        await asyncio.sleep(0.01)
+        extra["resize"] = await fe.resize(resize_to)
+
+    clients = [connection(t, lbas[c::conns], fps[c::conns])
+               for t, (lbas, fps) in workload.items() for c in range(conns)]
+    if resize_to:
+        clients.append(resize_midway())
+    t0 = time.perf_counter()
+    await asyncio.gather(*clients)
+    await fe.drain()
+    wall = time.perf_counter() - t0
+    stats = fe.stats()
+    stats.update(wall_s=wall, rps=stats["completed"] / wall,
+                 connections=len(workload) * conns)
+    await fe.close()
+    return stats, fe.executed_trace(), extra, fe
+
+
+def _fe_cluster(device, cache: int):
+    from repro_torch.core import ShardedCluster
+
+    return ShardedCluster(num_shards=FE_SHARDS, cache_entries=cache, device=device)
+
+
+def _fe_scenario(device, workload: dict, cache: int, counted: bool, **kw) -> dict:
+    """One scenario on a fresh 4-shard cluster on ``device``; ``counted``
+    zeroes the launch and probe-route counts just before and reads them
+    just after (the served run and its ``finish``)."""
+    import repro_torch.core.fp_index as core_index
+    from repro_torch.kernels import _build
+
+    engine = _fe_cluster(device, cache)
+    if kw.get("gc_every"):
+        engine.min_parallel_batch = 0  # shard workers on every batch, as the GC test runs
+    if counted:
+        _build.reset_launches()
+        core_index.reset_probe_routes()
+    stats, cols, extra, _ = asyncio.run(_fe_serve(engine, workload, FE_CONNS, **kw))
+    report = engine.finish()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    out = {"stats": stats, "cols": cols, "extra": extra, "report": report, "engine": engine,
+           "index_tables": _index_tables(engine)}
+    if counted:
+        out.update(launches=dict(_build.LAUNCHES), probe_routes=dict(core_index.PROBE_ROUTES))
+    return out
+
+
+def _fe_line(run: dict) -> dict:
+    st = run["stats"]
+    line = {k: st[k] for k in ("completed", "connections", "rps", "wall_s", "p50_ms", "p99_ms",
+                               "mean_batch", "batches", "throttled", "deduped")}
+    line.update(dup_writes=run["report"].total_dup_writes, launches=run.get("launches"),
+                probe_routes=run.get("probe_routes"), index_tables=run["index_tables"])
+    return line
+
+
+def phase_frontend(dev, results: dict, srv, seed: int) -> None:
+    """``AsyncDedupFrontend`` over engines on the card.  Each scenario's
+    executed trace, replayed through a fresh engine on the card and on the
+    host, must give the served report (``resize_under_load``: the aggregate
+    counts of the fixed-layout oracle; ``gc_under_load``: a GC-free oracle,
+    then ``check_consistency``); ``contended`` must throttle.  Launches,
+    probe routes and the index tables' staged keys are read after each
+    served card run.  ``skewed16`` also runs on the host, after the card
+    run."""
+    import gc
+
+    import repro_torch.core.fp_index as core_index
+    from repro_torch.core import restore_engine, snapshot_engine
+    from repro_torch.kernels import _build
+
+    counts = ("total_writes", "unique_fingerprints", "final_disk_blocks")
+    lines, total = {}, {}
+
+    def replays_equal(run, cache, what, exact=True):
+        for device in (dev, "cpu"):
+            oracle = _fe_cluster(device, cache)
+            oracle.write_batch(*run["cols"])
+            want = oracle.finish()
+            if exact:
+                check(want == run["report"], f"frontend {what}: replay on {device} != served")
+            else:
+                check(all(getattr(want, c) == getattr(run["report"], c) for c in counts),
+                      f"frontend {what}: counts of the fixed-layout oracle on {device} differ")
+
+    def keep(name, run, **extra):
+        lines[name] = dict(_fe_line(run), **extra)
+        for k, n in run["launches"].items():
+            total[k] = total.get(k, 0) + n
+        emit("frontend", scenario=name, **lines[name])
+
+    full = _fe_workload(FE_REQUESTS, seed=11)
+    side = _fe_workload(FE_SIDE_REQUESTS, seed=11)
+    run = _fe_scenario(dev, full, FE_CACHE, counted=True)
+    replays_equal(run, FE_CACHE, "skewed16")
+    keep("skewed16", run)
+    del run  # the host run starts with no engine of the card run alive
+    gc.collect()
+    host = _fe_scenario("cpu", full, FE_CACHE, counted=False)
+    replays_equal(host, FE_CACHE, "skewed16 on the host")
+    lines["skewed16_host"] = _fe_line(host)
+    emit("frontend", scenario="skewed16_host", **lines["skewed16_host"])
+    del host
+
+    run = _fe_scenario(dev, side, FE_CONTENDED_CACHE, counted=True)
+    check(run["stats"]["throttled"] > 0, "frontend contended: admission control throttled nothing")
+    replays_equal(run, FE_CONTENDED_CACHE, "contended")
+    keep("contended", run)
+
+    run = _fe_scenario(dev, side, FE_CACHE, counted=True, resize_to=FE_GROWN)
+    check(run["engine"].num_shards == FE_GROWN and "resize" in run["extra"],
+          "frontend resize_under_load did not resize")
+    check(run["report"].total_writes == run["stats"]["completed"],
+          "frontend resize_under_load lost writes")
+    replays_equal(run, FE_CACHE, "resize_under_load", exact=False)
+    keep("resize_under_load", run, moved_fps=run["extra"]["resize"]["moved_fps"])
+
+    run = _fe_scenario(dev, side, FE_CACHE, counted=True, gc_every=FE_GC_EVERY)
+    steps = run["extra"]["gc"]
+    check(steps and all(g is not None for g in steps), "frontend gc_under_load ran no GC step")
+    replays_equal(run, FE_CACHE, "gc_under_load")
+    run["engine"].check_consistency()
+    keep("gc_under_load", run, gc={"steps": len(steps), "moved": sum(g["moved"] for g in steps)})
+
+    # a front end over the serve phase's server: its engine from where the
+    # serve phase left it, replayed from a snapshot taken just before
+    tree = json.loads(json.dumps(snapshot_engine(srv.dedup)))
+    wl = {FE_SERVER_TENANT0 + t: c for t, c in _fe_workload(FE_SERVER_WRITES, seed + 1).items()}
+    _build.reset_launches()
+    core_index.reset_probe_routes()
+    stats, cols, _, fe = asyncio.run(_fe_serve(srv, wl, FE_SERVER_CONNS))
+    report = srv.dedup.finish()
+    torch.cuda.synchronize()
+    run = {"stats": stats, "report": report, "launches": dict(_build.LAUNCHES),
+           "probe_routes": dict(core_index.PROBE_ROUTES), "index_tables": _index_tables(srv.dedup)}
+    check(fe.engine is srv.dedup, "the front end did not unwrap the server's engine")
+    for device in (dev, "cpu"):
+        oracle = restore_engine(tree, device=device)
+        oracle.write_batch(*cols)
+        check(oracle.finish() == report, f"frontend server: replay on {device} != served")
+    keep("server", run)
+    for name, n in total.items():
+        results.setdefault(name, {}).setdefault("launches_by_path", {})["frontend"] = n
+    emit("frontend_summary", requests=FE_REQUESTS, side_requests=FE_SIDE_REQUESTS,
+         tenants=FE_TENANTS, connections=FE_TENANTS * FE_CONNS, shards=FE_SHARDS,
+         cache_entries=FE_CACHE, max_batch=FE_MAX_BATCH, max_delay=FE_MAX_DELAY,
+         max_pending=FE_MAX_PENDING, admission_budget=FE_BUDGET, replays_equal=True,
+         launches=total, scenarios=lines)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--requests", type=int, default=2_000_000)
@@ -1812,6 +2318,8 @@ def main() -> int:
     srv, mix = phase_serve(dev, results, args.seed)
     phase_paged_attention(dev, results, srv, mix, args.seed)
     phase_cluster(dev, results, srv, mix, args.seed)
+    phase_ingest(dev, results, args.seed)
+    phase_frontend(dev, results, srv, args.seed)
     for name in KERNELS:
         results[name]["launches"] = sum(results[name]["launches_by_path"].values())
         check(results[name]["launches"] > 0, f"kernel {name} never launched on a main path")

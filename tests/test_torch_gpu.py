@@ -715,3 +715,110 @@ def test_cluster_server_on_card_matches_host(cuda):
                     info, srv.decode(cache, pos, steps=3)[0]))
         assert len({pba >> 48 for pba in srv.pages}) > 1
     assert out[0][:3] == out[1][:3] and out[0][2]["hit_blocks"] == 3
+
+
+# -- the ingest pipeline and the async front end on the card ------------------------
+
+INGEST_TENANTS = [
+    dict(tenant_id=0, rate=3.0, dup_ratio=0.8, locality="good", overlap_group="g"),
+    dict(tenant_id=1, rate=2.0, dup_ratio=0.15, locality="weak", overlap_group="g"),
+    dict(tenant_id=2, rate=1.0, dup_ratio=0.5, locality="good"),
+    dict(tenant_id=3, rate=0.5, dup_ratio=0.3, locality="good"),
+]
+
+
+def _pipeline(device, **kw):
+    from repro_torch.data import DedupIngestPipeline, TenantSpec
+
+    kw = {"block_tokens": 64, "vocab": 1000, "fingerprint_batch": 64, "seed": 3, **kw}
+    return DedupIngestPipeline([TenantSpec(**t) for t in INGEST_TENANTS], device=device, **kw)
+
+
+def _batches(pipe, n):
+    return [pipe.next_batch(4, 256) for _ in range(n)]
+
+
+def test_pipeline_on_card_matches_host(cuda):
+    """A cache that evicts nothing: the card's batches, metrics and block
+    store equal the host's bit for bit; the fingerprint kernel hashes each
+    batch of 64 blocks in one launch."""
+    card, host = _pipeline(cuda, cache_entries=1 << 16), _pipeline("cpu", cache_entries=1 << 16)
+    before = LAUNCHES["fingerprint"]
+    got, want = _batches(card, 40), _batches(host, 40)
+    refills = card.metrics.blocks_in // 64
+    assert LAUNCHES["fingerprint"] == before + refills
+    for a, b in zip(got, want):
+        for key in a:
+            np.testing.assert_array_equal(a[key], b[key])
+    assert card.metrics == host.metrics and card.metrics.blocks_deduped_inline > 0
+    assert sorted(card.block_content) == sorted(host.block_content)
+    assert card.engine._seen_fps.table_stats()["backend"] == "torch"
+
+
+def test_sharded_pipeline_on_card_restores_bit_exact(cuda):
+    """Four shards on the card, with and without worker threads, equal; a
+    JSON checkpoint loaded into a fresh pipeline on the card continues the
+    uninterrupted run bit for bit."""
+    serial = _pipeline(cuda, cache_entries=512, num_shards=4)
+    workers = _pipeline(cuda, cache_entries=512, num_shards=4, parallel_shards=True)
+    workers.engine.min_parallel_batch = 0
+    try:
+        head = _batches(serial, 10)
+        for a, b in zip(head, _batches(workers, 10)):
+            np.testing.assert_array_equal(a["inputs"], b["inputs"])
+        payload = json.dumps(serial.state_dict())
+        want = _batches(serial, 6)
+        assert json.dumps(workers.state_dict()) == payload
+    finally:
+        workers.engine.stop_executor()
+    cold = _pipeline(cuda, cache_entries=512, num_shards=4)
+    cold.load_state(json.loads(payload))
+    for a, b in zip(want, _batches(cold, 6)):
+        np.testing.assert_array_equal(a["inputs"], b["inputs"])
+        np.testing.assert_array_equal(a["targets"], b["targets"])
+    assert cold.metrics == serial.metrics
+
+
+def test_frontend_on_card_replays_on_host(cuda):
+    """256 connections through the async front end into a 4-shard cluster
+    on the card: the executed trace replayed on the card and on the host
+    gives the served report.  The front end's batches probe a few keys a
+    shard, which the host set answers; the replay's one batch of 20,000
+    writes probes through the tables on the card."""
+    import asyncio
+
+    from repro_torch.serving.frontend import AsyncDedupFrontend
+
+    trace = generate_workload("A", total_requests=20_000, seed=5)[0]
+    tenants = {int(t): (trace["lba"][trace["stream"] == t].astype(np.int64),
+                        trace["fp"][trace["stream"] == t]) for t in np.unique(trace["stream"])}
+
+    def cluster(device):
+        # the front-end benchmark's 8,192 entries: the estimation interval
+        # (4,096 writes) lets the replay's sub-batches pass the 512-key
+        # host-set threshold
+        return ShardedCluster(num_shards=4, cache_entries=8192, device=device)
+
+    async def run(engine):
+        fe = AsyncDedupFrontend(engine, max_batch=256, max_delay=0.001, record_trace=True)
+
+        async def conn(t, lbas, fps):
+            for lba, fp in zip(lbas.tolist(), fps.tolist()):
+                await fe.write(t, fp, lba=lba)
+
+        await asyncio.gather(*(conn(t, l[c::8], f[c::8]) for t, (l, f) in tenants.items()
+                               for c in range(8)))
+        await fe.close()
+        return fe
+
+    engine = cluster(cuda)
+    fe = asyncio.run(run(engine))
+    rep = engine.finish()
+    assert fe.stats()["completed"] == trace.size
+    for device in (cuda, "cpu"):
+        before = LAUNCHES["fp_probe"] + LAUNCHES["fp_insert"]
+        oracle = cluster(device)
+        oracle.write_batch(*fe.executed_trace())
+        assert oracle.finish() == rep
+        assert (LAUNCHES["fp_probe"] + LAUNCHES["fp_insert"] > before) == (device is cuda)
+    engine.check_consistency()
