@@ -98,7 +98,7 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   per split the kernel used.
 * ``cluster``     the sharded cluster at the reference's cluster benchmark
                   settings (4 shards, 32,768 cache entries, batch 8,192),
-                  replication factor 2, over 1,000,000 requests of workload A
+                  replication factor 2, over 2,000,000 requests of workload A
                   through ``ingest_batched`` a chunk at a time, with the
                   shard engines' worker threads: a GC step (512 moves a
                   shard) every 4 chunks; at half the trace a snapshot ->
@@ -122,11 +122,12 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   (256-token blocks, 64 a fingerprint launch, 8,192 cache
                   entries) over ``launch/train.py``'s four-tenant mix and a
                   32,000-token vocabulary: ``next_batch(8, 2048)`` until
-                  2^18 blocks are in, four runs at once: one engine on the
-                  card, the same on the host (equal batches and metrics
-                  expected, else within 0.02 of dedup saving, the first
-                  difference printed), and 4 shards on the card with shard
-                  workers on every batch and without them (equal batches).
+                  2^18 blocks are in: one engine on the card, then the same
+                  on the host, each with no other run alive (equal batches
+                  and metrics expected, else within 0.02 of dedup saving,
+                  the first difference printed), then two runs at once of 4
+                  shards on the card, with shard workers on every batch and
+                  without them (equal batches).
                   The state after 32,768 blocks, through JSON into a fresh
                   pipeline on the card, must continue the uninterrupted run
                   bit for bit for 16 batches.  Blocks/s, admitted tokens/s,
@@ -174,6 +175,7 @@ import time
 import numpy as np
 import torch
 
+START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
@@ -270,7 +272,9 @@ def ptxas_usage(source: str, kernel: str) -> dict:
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``script_s`` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields, "script_s": time.perf_counter() - START}),
+          flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -1496,9 +1500,8 @@ def phase_paged_attention(dev, results: dict, srv, mix, seed: int) -> None:
 # The cluster phase: the reference's cluster benchmark settings
 # (``benchmarks/cluster_scaling.py``: 4 shards, 32,768 cache entries, batch
 # 8,192) and GC schedule (``benchmarks/gc_reclaim.py``: a step every 4
-# chunks, 512 moves a shard), over 1 M requests of workload A (cut from the
-# replay's 2 M to keep the whole script well inside its time limit).
-CLUSTER_REQUESTS = 1_000_000
+# chunks, 512 moves a shard), over 2 M requests of workload A.
+CLUSTER_REQUESTS = 2_000_000
 CLUSTER_SHARDS, CLUSTER_GROWN, CLUSTER_REPLICAS = 4, 8, 2
 CLUSTER_CACHE, CLUSTER_BATCH = 32768, 8192
 CLUSTER_GC_EVERY, CLUSTER_GC_MOVES = 4, 512
@@ -1969,42 +1972,76 @@ def _ingest_rates(run: dict) -> dict:
 
 
 def phase_ingest(dev, results: dict, seed: int) -> None:
-    """The ingest pipeline, four runs at once, each but (a) in a process of
-    its own: (a) one engine on the card; (b) the same on the host; (c) four
+    """The ingest pipeline: (a) one engine on the card, then (b) the same on
+    the host, each in this process with no other run alive; then (c) four
     shards on the card with shard worker threads, fanned out on every batch,
-    and without them.  Then (d): the state after 32,768 blocks of (a),
-    through JSON into a fresh pipeline on the card, which takes the next 16
-    batches.  (c) and (d) must equal their serial and uninterrupted runs
-    bit for bit; (a) and (b) are expected equal, else within 0.02 of inline
-    ratio with the first difference printed.  The fingerprint kernel must
-    launch in (a), and the restore in (d) must rebuild the index tables on
-    the card (insert launches); the path's launches are those of (a) and
-    (d)."""
+    and without them, at once in two processes of their own.  (d): the state
+    after 32,768 blocks of (a), through JSON into a fresh pipeline on the
+    card, which takes the next 16 batches (run between (a) and (b)).  (c)
+    and (d) must equal their serial and uninterrupted runs bit for bit; (a)
+    and (b) are expected equal, else within 0.02 of inline ratio with the
+    first difference printed.  The fingerprint kernel must launch in (a),
+    and the restore in (d) must rebuild the index tables on the card (insert
+    launches); the path's launches are those of (a) and (d)."""
     import repro_torch.core.fp_index as core_index
+    from repro_torch.data import PipelineMetrics
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.fingerprint import fingerprint
 
+    # (a) the card, alone
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    core_index.reset_probe_routes()
+    card = _ingest_run(dev, seed, crash_at=INGEST_CRASH_AT)
+    launches = dict(_build.LAUNCHES)
+    routes = dict(core_index.PROBE_ROUTES)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["fingerprint"] > 0, "the fingerprint kernel never launched on the ingest path")
+
+    # (d) crash and restore
+    k = card["crash_batches"]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    cold = _ingest_pipeline(dev, seed)
+    cold.load_state(json.loads(card["state"]))
+    load_s = time.perf_counter() - t0
+    after = [_batch_digest(cold.next_batch(*INGEST_BATCH)) for _ in range(INGEST_AFTER_CRASH)]
+    restore_launches = dict(_build.LAUNCHES)
+    check(restore_launches["fp_insert"] > 0,
+          "no insert launched: the restored pipeline did not rebuild its index tables on the card")
+    check(after == card["digests"][k:k + INGEST_AFTER_CRASH],
+          "the restored pipeline's batches != the uninterrupted run's")
+    check(cold.metrics == PipelineMetrics(**card["metrics"][k + INGEST_AFTER_CRASH - 1]),
+          "the restored pipeline's metrics != the uninterrupted run's")
+    del cold
+
+    # one fingerprint launch at the pipeline's shape, and one whole call
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(0, INGEST_VOCAB, size=(64, 256), dtype=np.int32)
+    x = torch.from_numpy(blocks).to(dev)
+    launch_ms = device_ms(lambda: fingerprint(x), reps=50)
+    ops.fingerprint_ints(blocks, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        ops.fingerprint_ints(blocks, device=dev)
+    call_ms = (time.perf_counter() - t0) / 200 * 1e3
+
+    # (b) the host, alone
+    host_run = _ingest_run("cpu", seed)
+
+    # (c) four shards, with and without workers, at once
     children = [_start_child("_ingest_child", spec) for spec in (
-        {"device": "cpu", "seed": seed},
         {"device": "cuda", "seed": seed, "num_shards": INGEST_SHARDS, "parallel": True},
         {"device": "cuda", "seed": seed, "num_shards": INGEST_SHARDS})]
     try:
-        torch.cuda.reset_peak_memory_stats()
-        _build.reset_launches()
-        core_index.reset_probe_routes()
-        card = _ingest_run(dev, seed, crash_at=INGEST_CRASH_AT)
-        launches = dict(_build.LAUNCHES)
-        routes = dict(core_index.PROBE_ROUTES)
-        peak = torch.cuda.max_memory_allocated()
-        host_run, sharded, serial_run = (
+        sharded, serial_run = (
             _child_outcome(proc, f"the ingest run {what}") for proc, what in zip(
-                children, ("on the host", "on 4 shards with workers", "on 4 shards")))
+                children, ("on 4 shards with workers", "on 4 shards")))
     finally:
         for proc in children:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    check(launches["fingerprint"] > 0, "the fingerprint kernel never launched on the ingest path")
     check(sharded["digests"] == serial_run["digests"],
           "sharded ingest with worker threads != without them on the card")
     check(sharded["metrics"][-1] == serial_run["metrics"][-1], "sharded ingest metrics differ")
@@ -2024,44 +2061,15 @@ def phase_ingest(dev, results: dict, seed: int) -> None:
                            ldss_keys_differ=sorted(set(a) ^ set(b)), dedup_saving_gap=gap)
         check(gap <= RATIO_TOL, f"ingest dedup saving on the card is {gap} from the host's")
 
-    # (d) crash and restore
-    from repro_torch.data import PipelineMetrics
-
-    k = card["crash_batches"]
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    cold = _ingest_pipeline(dev, seed)
-    cold.load_state(json.loads(card["state"]))
-    load_s = time.perf_counter() - t0
-    after = [_batch_digest(cold.next_batch(*INGEST_BATCH)) for _ in range(INGEST_AFTER_CRASH)]
-    restore_launches = dict(_build.LAUNCHES)
-    check(restore_launches["fp_insert"] > 0,
-          "no insert launched: the restored pipeline did not rebuild its index tables on the card")
-    check(after == card["digests"][k:k + INGEST_AFTER_CRASH],
-          "the restored pipeline's batches != the uninterrupted run's")
-    check(cold.metrics == PipelineMetrics(**card["metrics"][k + INGEST_AFTER_CRASH - 1]),
-          "the restored pipeline's metrics != the uninterrupted run's")
-
-    # one fingerprint launch at the pipeline's shape, and one whole call
-    rng = np.random.default_rng(seed)
-    blocks = rng.integers(0, INGEST_VOCAB, size=(64, 256), dtype=np.int32)
-    x = torch.from_numpy(blocks).to(dev)
-    launch_ms = device_ms(lambda: fingerprint(x), reps=50)
-    ops.fingerprint_ints(blocks, device=dev)
-    t0 = time.perf_counter()
-    for _ in range(200):
-        ops.fingerprint_ints(blocks, device=dev)
-    call_ms = (time.perf_counter() - t0) / 200 * 1e3
     for name, n in launches.items():
         results.setdefault(name, {}).setdefault("launches_by_path", {})["ingest"] = (
             n + restore_launches[name])
     emit("ingest", tenants=len(INGEST_TENANTS), vocab=INGEST_VOCAB, block_tokens=256,
          fingerprint_batch=64, cache_entries=8192, batch=list(INGEST_BATCH), seed=seed,
-         card=_ingest_rates(card), host=_ingest_rates(host_run), runs_at_once=4,
-         versus_host=versus_host, launches=launches, probe_routes=routes,
-         index_tables=card["index_tables"],
-         max_memory_allocated=peak,
-         sharded={"shards": INGEST_SHARDS, "workers": _ingest_rates(sharded),
+         card=_ingest_rates(card), host=_ingest_rates(host_run), card_host_runs_at_once=1,
+         host_cpus=os.cpu_count(), versus_host=versus_host, launches=launches,
+         probe_routes=routes, index_tables=card["index_tables"], max_memory_allocated=peak,
+         sharded={"shards": INGEST_SHARDS, "runs_at_once": 2, "workers": _ingest_rates(sharded),
                   "serial": _ingest_rates(serial_run), "equal": True,
                   "launches": sharded["launches"], "serial_launches": serial_run["launches"]},
          crash={"at_blocks": card["metrics"][k - 1]["blocks_in"], "batches_before": k,
@@ -2070,7 +2078,7 @@ def phase_ingest(dev, results: dict, seed: int) -> None:
                 "launches": restore_launches},
          fingerprint_launch_ms=launch_ms, fingerprint_ints_call_ms=call_ms,
          fingerprint_shape=[64, 256])
-    del card, host_run, sharded, serial_run, cold
+    del card, host_run, sharded, serial_run
 
 
 # The frontend phase: ``benchmarks/serving_latency.py`` at its default scale

@@ -62,6 +62,13 @@ class TenantStream:
         self.history: List[np.ndarray] = []
         self.shared_pools = shared_pools
         self.token_probs = token_probs  # skewed unigram dist -> learnable data
+        # ``rng.choice(vocab, size, p=token_probs)`` looks ``rng.random(size)``
+        # up in p's normalised cumulative sum; the sum is taken once here
+        # instead of once a block (the same draws and the same tokens)
+        self._token_cdf = None
+        if token_probs is not None:
+            self._token_cdf = np.asarray(token_probs, dtype=np.float64).cumsum()
+            self._token_cdf /= self._token_cdf[-1]
         self.emitted = 0
 
     def next_block(self) -> np.ndarray:
@@ -76,8 +83,9 @@ class TenantStream:
         elif pool is not None and pool and self.rng.random() < s.overlap_prob:
             block = pool[int(self.rng.integers(0, len(pool)))]
         else:
-            if self.token_probs is not None:
-                block = self.rng.choice(self.vocab, size=self.block_tokens, p=self.token_probs).astype(np.int32)
+            if self._token_cdf is not None:
+                u = self.rng.random(self.block_tokens)
+                block = self._token_cdf.searchsorted(u, side="right").astype(np.int32)
             else:
                 block = self.rng.integers(0, self.vocab, size=self.block_tokens, dtype=np.int32)
             if pool is not None and len(pool) < 4096:

@@ -203,11 +203,12 @@ def test_pipeline_periodic_snapshots_flow():
 # -- bit for bit against the reference --------------------------------------------
 
 
-@pytest.mark.parametrize("skew", [1.2, 0.0], ids=["zipf-tokens", "uniform-tokens"])
-def test_tenant_stream_blocks_equal_reference(skew):
-    """Every locality, an overlap group, both token distributions: the same
+@pytest.mark.parametrize("skew,vocab,width", [(1.2, 700, 32), (0.0, 700, 32), (1.2, 32000, 256)],
+                         ids=["zipf-tokens", "uniform-tokens", "zipf-tokens-ingest-size"])
+def test_tenant_stream_blocks_equal_reference(skew, vocab, width):
+    """Every locality, an overlap group, both token distributions (and the
+    ingest phase's 32,000-token vocabulary and 256-token blocks): the same
     seed gives the reference's blocks, and the same state trees."""
-    vocab, width = 700, 32
     probs = None
     if skew:
         probs = 1.0 / np.arange(1, vocab + 1) ** skew
