@@ -135,13 +135,39 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   generation, one fingerprint launch's device time at 64 x
                   256 words, the snapshot's seconds and bytes, launches,
                   probe routes and the index tables' staged keys.
+* ``train``       the training path through ``repro_torch.launch.train``'s
+                  ``build`` at the launcher's defaults (its tenants, 64-token
+                  blocks, 4,096 cache entries, batch 8 x 256, lr 1e-3, warmup
+                  5), the pipeline on the card in the trainer's producer
+                  thread: (a) TinyLlama-1.1B at full width and depth, float32
+                  weights, bf16 compute, 30 steps: finite losses, the last 3
+                  below the first 3, no restart, the fingerprint kernel
+                  launched, the batches consumed in the order made and equal
+                  to the same pipeline's on the host (else within 0.02 of
+                  dedup saving, the first difference printed); median step
+                  ms, tokens/s, model FLOPs and TFLOP/s, peak memory, two
+                  steps under the profiler, and the producer's fingerprint
+                  calls against an idle card's (their wait behind the queued
+                  step).  (b) A 2-layer cut at full width, 10 steps, a
+                  checkpoint every 5, one failure injected before step 7: one
+                  restart, step 10 reached, the batches after the restore
+                  the uninterrupted run's, losses within 1e-3 of its;
+                  checkpoint bytes, save and restore seconds.  (c) Prefill of
+                  4 x 255 tokens and one decode step against a prefill of 4 x
+                  256, float32 and bf16, at TinyLlama's widths: held at 2
+                  layers (float32 within 1e-3, bf16 within the larger of 5e-2
+                  and the bf16 prefill's distance from the float32 one),
+                  printed at 4, 8 and 22.  (d) The same, held, for
+                  DeepSeek-67B, Yi-34B and Phi-3-medium at full width cut to 2
+                  layers, with peak memory.  Launch counts are zeroed just
+                  before each trainer run of (a) and (b) and read just after.
 * ``frontend``    ``AsyncDedupFrontend`` at ``benchmarks/serving_latency.py``'s
                   default scale (16 Zipf-skewed tenants, 256 connections,
                   120,000 requests, 4 shards of 8,192 cache entries) on the
-                  card, then the same on the host; ``contended`` (cache
-                  192), ``resize_under_load`` (4 -> 6 shards) and
-                  ``gc_under_load`` (a GC step every 400 writes of a
-                  connection) at 30,000 requests; and 4,000 writes over the
+                  card; ``contended`` (cache 192), ``resize_under_load`` (4
+                  -> 6 shards) and ``gc_under_load`` (a GC step every 400
+                  writes of a connection) at 30,000 requests; and 4,000
+                  writes over the
                   ``serve`` phase's server.  Each executed trace replayed on
                   the card and on the host gives the served report (the
                   resize: the fixed-layout oracle's counts; the GC: a GC-free
@@ -150,7 +176,7 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   writes, launches and probe routes.
 * ``kernels``     one object per kernel: launches on the main paths (replay,
                   cdc, serve, ffh, the paged pool, cluster, the cluster
-                  server, ingest and frontend, summed), largest
+                  server, ingest, train and frontend, summed), largest
                   disagreement with its plain version, times, and the least
                   time the card could take for the same work; for the chunk
                   kernel also ptxas's registers and spill bytes.
@@ -1826,17 +1852,11 @@ def _phase_cluster_serve(dev, results: dict, srv, mix, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
-# The ingest phase: the training launcher's tenant mix (``launch/train.py``'s
-# ``default_tenants``) through ``DedupIngestPipeline`` at its class defaults
-# (256-token blocks, 8,192 cache entries, 64 blocks a fingerprint launch,
-# post-processing every 4,096 blocks, Zipf 1.2 tokens) over TinyLlama's
-# 32,000-token vocabulary, ``next_batch(8, 2048)`` until 2^18 blocks are in.
-INGEST_TENANTS = (
-    dict(tenant_id=0, rate=3.0, dup_ratio=0.8, locality="good", overlap_group="g"),
-    dict(tenant_id=1, rate=2.0, dup_ratio=0.15, locality="weak", overlap_group="g"),
-    dict(tenant_id=2, rate=1.0, dup_ratio=0.5, locality="good"),
-    dict(tenant_id=3, rate=0.5, dup_ratio=0.3, locality="good"),
-)
+# The ingest phase: the training launcher's tenant mix
+# (``repro_torch.launch.train.default_tenants``) through
+# ``DedupIngestPipeline`` at its class defaults (256-token blocks, 8,192
+# cache entries, 64 blocks a fingerprint launch, post-processing every 4,096
+# blocks, Zipf 1.2 tokens) over TinyLlama's 32,000-token vocabulary, ``next_batch(8, 2048)`` until 2^18 blocks are in.
 INGEST_VOCAB = 32000
 INGEST_BLOCKS = 1 << 18
 INGEST_BATCH = (8, 2048)
@@ -1854,9 +1874,10 @@ def _batch_digest(batch: dict) -> str:
 
 
 def _ingest_pipeline(device, seed: int, num_shards: int = 1, parallel: bool = False):
-    from repro_torch.data import DedupIngestPipeline, TenantSpec
+    from repro_torch.data import DedupIngestPipeline
+    from repro_torch.launch.train import default_tenants
 
-    return DedupIngestPipeline([TenantSpec(**t) for t in INGEST_TENANTS], vocab=INGEST_VOCAB,
+    return DedupIngestPipeline(default_tenants(), vocab=INGEST_VOCAB,
                                num_shards=num_shards, parallel_shards=parallel, seed=seed,
                                device=device)
 
@@ -1987,6 +2008,7 @@ def phase_ingest(dev, results: dict, seed: int) -> None:
     from repro_torch.data import PipelineMetrics
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.fingerprint import fingerprint
+    from repro_torch.launch.train import default_tenants
 
     # (a) the card, alone
     torch.cuda.reset_peak_memory_stats()
@@ -2064,7 +2086,7 @@ def phase_ingest(dev, results: dict, seed: int) -> None:
     for name, n in launches.items():
         results.setdefault(name, {}).setdefault("launches_by_path", {})["ingest"] = (
             n + restore_launches[name])
-    emit("ingest", tenants=len(INGEST_TENANTS), vocab=INGEST_VOCAB, block_tokens=256,
+    emit("ingest", tenants=len(default_tenants()), vocab=INGEST_VOCAB, block_tokens=256,
          fingerprint_batch=64, cache_entries=8192, batch=list(INGEST_BATCH), seed=seed,
          card=_ingest_rates(card), host=_ingest_rates(host_run), card_host_runs_at_once=1,
          host_cpus=os.cpu_count(), versus_host=versus_host, launches=launches,
@@ -2079,6 +2101,335 @@ def phase_ingest(dev, results: dict, seed: int) -> None:
          fingerprint_launch_ms=launch_ms, fingerprint_ints_call_ms=call_ms,
          fingerprint_shape=[64, 256])
     del card, host_run, sharded, serial_run
+
+
+# The train phase: ``repro_torch.launch.train``'s pipeline and trainer at the
+# launcher's defaults (``default_tenants()``, 64-token blocks, 4,096 cache
+# entries, batch 8 x 256, lr 1e-3, warmup max(steps // 20, 5)).  (a)
+# TinyLlama-1.1B at full width and depth, 30 steps.  (b) The same widths cut
+# to 2 layers (about 2.6 GB a checkpoint), 10 steps with a checkpoint every
+# 5 and one failure injected before step 7.  (c) Prefill + one decode step
+# against a longer prefill at TinyLlama's widths: held at 2 layers, printed at
+# 4, 8 and 22 (with the reference's random initialisation the rounding gap
+# grows about 2.3x a layer, ROADMAP.md §3).  (d) The other three dense
+# configs at full width cut to 2 layers, held alike: at full depth none of
+# them trains on one card, and DeepSeek-67B's bf16 weights alone are about
+# 134 GB.
+TRAIN_STEPS = 30
+FT_LAYERS, FT_STEPS, FT_EVERY, FT_FAIL_AT = 2, 10, 5, 7
+FT_LOSS_TOL = 1e-3  # the embedding backward accumulates with atomics
+PREFILL_SHAPE = (4, 256)
+PREFILL_DEPTHS = (2, 4, 8, 22)  # TinyLlama-1.1B; held at PREFILL_HELD_AT
+PREFILL_HELD_AT = 2
+OTHER_DENSE = ("deepseek-67b", "yi-34b", "phi3-medium-14b")
+PREFILL_F32_TOL = 1e-3
+PREFILL_BF16_TOL = 5e-2  # or the bf16 prefill's distance from the float32 one, if larger
+
+
+def _train_run(dev, seed: int, steps: int, cfg=None, ckpt_dir: str = "", chaos=None) -> dict:
+    """``launch.train.build`` at the launcher's defaults on the card, run:
+    the outcome, the digest of each batch the trainer consumed (in order),
+    each batch the pipeline made (digest, metrics after it), each step's
+    seconds (synchronised), the launches of the run and the trainer and
+    pipeline for what follows."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as launch
+
+    argv = ["--steps", str(steps), "--seed", str(seed), "--device", str(dev)]
+    if ckpt_dir:
+        argv += ["--ckpt-dir", ckpt_dir, "--ckpt-every", str(FT_EVERY)]
+    args = launch.parse_args(argv)
+    tr, pipe = launch.build(args, cfg=cfg, chaos=chaos)
+    rec = {"consumed": [], "made": [], "step_s": [], "args": args}
+    source, to_device, step = tr.batch_iter, tr._device_batch, tr._step
+
+    def made():
+        batch = next(source)
+        rec["made"].append((_batch_digest(batch), dataclasses.asdict(pipe.metrics)))
+        return batch
+
+    def consume(batch):
+        rec["consumed"].append(_batch_digest(batch))
+        return to_device(batch)
+
+    def timed_step(*a):
+        t0 = time.perf_counter()
+        out = step(*a)
+        torch.cuda.synchronize()
+        rec["step_s"].append(time.perf_counter() - t0)
+        return out
+
+    tr.batch_iter, tr._device_batch, tr._step = iter(made, None), consume, timed_step
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rec["out"] = tr.run()
+    torch.cuda.synchronize()
+    rec["run_s"] = time.perf_counter() - t0
+    rec["launches"] = dict(_build.LAUNCHES)
+    rec["trainer"], rec["pipe"] = tr, pipe
+    tr._device_batch, tr._step = to_device, step
+    return rec
+
+
+def _versus_host(rec: dict, vocab: int) -> dict:
+    """The card pipeline's batches against the launcher's pipeline on the
+    host: equal, else dedup saving within ``RATIO_TOL`` (the first
+    difference printed)."""
+    from repro_torch.launch import train as launch
+
+    host = launch.make_pipeline(rec["args"], vocab, "cpu")
+    b, s = rec["args"].batch, rec["args"].seq
+    want = []
+    for _ in rec["made"]:
+        batch = host.next_batch(b, s)
+        want.append((_batch_digest(batch), dataclasses.asdict(host.metrics)))
+    first = _first_difference([d for d, _ in rec["made"]], [d for d, _ in want])
+    out = {"batches": len(want), "batches_equal": first is None,
+           "metrics_equal": [m for _, m in rec["made"]] == [m for _, m in want]}
+    if first is not None or not out["metrics_equal"]:
+        def saving(m):
+            return m["blocks_deduped_inline"] / max(m["blocks_in"], 1)
+        gap = abs(saving(rec["made"][-1][1]) - saving(want[-1][1]))
+        out.update(first_differing_batch=first, dedup_saving_gap=gap)
+        check(gap <= RATIO_TOL, f"train: dedup saving on the card is {gap} from the host's")
+    return out
+
+
+def _step_flops(cfg, b: int, s: int) -> float:
+    """Model FLOPs of one train step: 6 per weight of a matrix product and
+    token (forward, and twice that backward) and the attention's QK^T and PV
+    over the whole S x S as computed, 3x their forward; the loss chunks'
+    recompute is not counted."""
+    d, hd = cfg.d_model, cfg.head_dim
+    per_layer = d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads) + 3 * d * cfg.d_ff
+    matmul = cfg.num_layers * per_layer + d * cfg.vocab_size
+    attention = cfg.num_layers * 4 * b * s * s * cfg.num_heads * hd
+    return 6.0 * matmul * b * s + 3.0 * attention
+
+
+def _producer_wait(calls: list, dev, vocab: int, block_tokens: int, seed: int) -> dict:
+    """The producer's ``fingerprint_ints`` calls under training against the
+    same call on an idle card: their sum less as many idle calls is the time
+    they waited on the stream behind the step's queued work."""
+    from repro_torch.kernels import ops
+
+    blocks = np.random.default_rng(seed).integers(0, vocab, (64, block_tokens), dtype=np.int32)
+    ops.fingerprint_ints(blocks, device=dev)
+    idle = []
+    for _ in range(100):
+        t0 = time.perf_counter()
+        ops.fingerprint_ints(blocks, device=dev)
+        idle.append(time.perf_counter() - t0)
+    idle_ms = float(np.median(idle)) * 1e3
+    return {"calls": len(calls), "total_s": float(np.sum(calls)),
+            "median_ms": float(np.median(calls)) * 1e3, "max_ms": float(np.max(calls)) * 1e3,
+            "idle_call_ms": idle_ms,
+            "wait_s": float(np.sum(calls)) - len(calls) * idle_ms / 1e3}
+
+
+def _train_full(dev, results: dict, seed: int) -> None:
+    """(a) TinyLlama-1.1B at full width and depth through the launcher's
+    trainer, the pipeline on the card in its producer thread."""
+    import repro_torch.data.pipeline as pipeline_mod
+    from repro_torch.pytree import leaves
+
+    fp_calls = []
+    fingerprint_ints = pipeline_mod.fingerprint_ints
+
+    def timed_fingerprint(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fingerprint_ints(*args, **kw)
+        finally:
+            fp_calls.append(time.perf_counter() - t0)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pipeline_mod.fingerprint_ints = timed_fingerprint
+    try:
+        rec = _train_run(dev, seed, TRAIN_STEPS)
+    finally:
+        pipeline_mod.fingerprint_ints = fingerprint_ints
+    peak = torch.cuda.max_memory_allocated()
+    tr, pipe, out, launches = rec["trainer"], rec["pipe"], rec["out"], rec["launches"]
+    cfg, b, s = tr.model.cfg, rec["args"].batch, rec["args"].seq
+    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff,
+           cfg.vocab_size) == (22, 2048, 32, 4, 64, 5632, 32000), "TinyLlama-1.1B's widths")
+    losses = out["losses"]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"train: losses not all finite: {losses}")
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"train: loss did not fall: first {losses[:3]}, last {losses[-3:]}")
+    check(out["restarts"] == 0, f"train: {out['restarts']} restarts, no failure injected")
+    check(launches["fingerprint"] > 0, "the fingerprint kernel never launched on the train path")
+    check(rec["consumed"] == [d for d, _ in rec["made"][:TRAIN_STEPS]],
+          "train: the trainer did not consume the pipeline's batches in order")
+    versus_host = _versus_host(rec, cfg.vocab_size)
+
+    median_s = float(np.median(rec["step_s"][3:]))
+    flops = _step_flops(cfg, b, s)
+    batches = [tr._device_batch(pipe.next_batch(b, s)) for _ in range(2)]
+
+    def two_steps():
+        for batch in batches:
+            tr.params, tr.opt_state, _, _ = tr._step(tr.params, tr.opt_state, batch)
+
+    busy = _device_busy(two_steps)
+    busy["launches_a_step"] = busy["device_entries"] / 2
+    m = pipe.metrics
+    emit("train", part="full", model=cfg.name, params=sum(t.numel() for t in leaves(tr.params)),
+         layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size, batch=[b, s],
+         steps=out["final_step"], restarts=out["restarts"], backup_fires=out["backup_fires"],
+         first_loss=losses[0], final_loss=losses[-1], losses=losses, run_s=rec["run_s"],
+         median_step_ms=median_s * 1e3, step_ms=[x * 1e3 for x in rec["step_s"]],
+         tokens_per_s=b * s / median_s, step_model_flops=flops,
+         model_tflops_per_s=flops / median_s / 1e12, max_memory_allocated=peak,
+         profiled_2_steps=busy,
+         producer=_producer_wait(fp_calls, dev, cfg.vocab_size, rec["args"].block_tokens, seed),
+         versus_host=versus_host, launches=launches, ingest_blocks=m.blocks_in,
+         inline_deduped=m.blocks_deduped_inline, dedup_saving=m.dedup_saving)
+    for name, n in launches.items():
+        results.setdefault(name, {}).setdefault("launches_by_path", {})["train"] = n
+    del tr, pipe, rec, batches
+    torch.cuda.empty_cache()
+
+
+def _train_fault_tolerance(dev, results: dict, seed: int) -> None:
+    """(b) A 2-layer cut at full width: an uninterrupted run, then the same
+    run with a checkpoint every 5 steps and one failure before step 7."""
+    import shutil
+    import tempfile
+
+    import repro_torch.ckpt.checkpoint as ckpt_mod
+    from repro_torch.configs import get_config
+
+    cut = get_config("tinyllama-1.1b").replace(num_layers=FT_LAYERS)
+    plain = _train_run(dev, seed, FT_STEPS, cfg=cut)
+    plain_out = plain["out"]
+    del plain["trainer"], plain["pipe"]
+    torch.cuda.empty_cache()
+
+    fired = []
+
+    def chaos(step):
+        if step == FT_FAIL_AT and not fired:
+            fired.append(step)
+            raise RuntimeError("injected failure")
+
+    seconds = {"save": [], "restore": []}
+    save, restore = ckpt_mod.save, ckpt_mod.restore
+
+    def timed(key, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                seconds[key].append(time.perf_counter() - t0)
+        return call
+
+    tmp = tempfile.mkdtemp(prefix="train_ckpt_", dir=os.path.join(ROOT, "build"))
+    ckpt_mod.save, ckpt_mod.restore = timed("save", save), timed("restore", restore)
+    try:
+        rec = _train_run(dev, seed, FT_STEPS, cfg=cut, ckpt_dir=tmp, chaos=chaos)
+        step_dir = os.path.join(tmp, f"step_{FT_STEPS}")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+    finally:
+        ckpt_mod.save, ckpt_mod.restore = save, restore
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = rec["out"]
+    check(out["restarts"] == len(fired) == 1,
+          f"fault tolerance: {out['restarts']} restarts for {len(fired)} injected failure")
+    check(plain_out["restarts"] == 0, "fault tolerance: the uninterrupted run restarted")
+    check(out["final_step"] == FT_STEPS, f"fault tolerance: ended at step {out['final_step']}")
+    consumed, want = rec["consumed"], plain["consumed"]
+    check(consumed[:FT_FAIL_AT] == want[:FT_FAIL_AT] and consumed[FT_FAIL_AT:] == want[FT_EVERY:],
+          "fault tolerance: the batches after the restore are not the uninterrupted run's")
+    loss_gap = float(np.max(np.abs(np.array(out["losses"]) - np.array(plain_out["losses"]))))
+    check(loss_gap <= FT_LOSS_TOL,
+          f"fault tolerance: losses {loss_gap} from the uninterrupted run's")
+    emit("train", part="fault_tolerance", layers=FT_LAYERS, steps=FT_STEPS, ckpt_every=FT_EVERY,
+         failure_before_step=FT_FAIL_AT, restarts=out["restarts"], final_step=out["final_step"],
+         batches_after_restore_equal=True, max_loss_gap=loss_gap, loss_tol=FT_LOSS_TOL,
+         losses=out["losses"], checkpoint_bytes=ckpt_bytes, save_s=seconds["save"],
+         restore_s=seconds["restore"], launches=rec["launches"],
+         uninterrupted_launches=plain["launches"])
+    for name in KERNELS:
+        by_path = results.setdefault(name, {}).setdefault("launches_by_path", {})
+        by_path["train"] = (by_path.get("train", 0) + rec["launches"].get(name, 0)
+                            + plain["launches"].get(name, 0))
+    del rec
+    torch.cuda.empty_cache()
+
+
+def _prefill_check(dev, cfg, seed: int, held: bool) -> dict:
+    """``Model.prefill`` of S - 1 tokens, then one ``decode_step``, against
+    the last-token logits of ``Model.prefill`` of all S tokens, in float32
+    and bf16, from the same float32 weights.  With ``held``: float32 within
+    ``PREFILL_F32_TOL``, bf16 within the larger of ``PREFILL_BF16_TOL`` and
+    the bf16 prefill's distance from the float32 one."""
+    from repro_torch.models import build_model
+    from repro_torch.pytree import leaves
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    b, s = PREFILL_SHAPE
+    cfg32 = cfg.replace(compute_dtype="float32")
+    params = build_model(cfg32).init(torch.Generator(dev).manual_seed(seed))
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                         generator=torch.Generator(dev).manual_seed(seed + 1))
+    out = {"params": sum(t.numel() for t in leaves(params)), "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "held": held}
+    prefills = {}
+    for c in (cfg32, cfg.replace(compute_dtype="bfloat16")):
+        model = build_model(c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, _ = model.prefill(params, {"inputs": toks})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        _, cache = model.prefill(params, {"inputs": toks[:, :-1]}, slots=s)
+        got, _ = model.load(params).decode_step(cache, toks[:, -1:], s - 1)
+        check(bool(torch.isfinite(want).all() and torch.isfinite(got).all()),
+              f"{cfg.name} {c.compute_dtype}: non-finite logits")
+        prefills[c.compute_dtype] = want.float()
+        out[c.compute_dtype] = {"gap": float((got.float() - want.float()).abs().max()),
+                                "max_abs_logit": float(want.float().abs().max()),
+                                "prefill_ms": prefill_s * 1e3}
+        del model, cache, want, got
+    d = float((prefills["bfloat16"] - prefills["float32"]).abs().max())
+    out["float32"]["tol"] = PREFILL_F32_TOL
+    out["bfloat16"].update(bf16_vs_float32_prefill=d, tol=max(PREFILL_BF16_TOL, d))
+    if held:
+        for dt in ("float32", "bfloat16"):
+            check(out[dt]["gap"] <= out[dt]["tol"],
+                  f"{cfg.name} {dt}: prefill + decode_step is {out[dt]['gap']} from the longer "
+                  f"prefill (> {out[dt]['tol']})")
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del params, prefills
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(dev, results: dict, seed: int) -> None:
+    """The training path through ``repro_torch.launch.train``'s objects:
+    (a) full TinyLlama-1.1B, (b) a failure and a restore, (c) prefill +
+    decode at TinyLlama's widths, (d) the other three dense configs.
+    Launch counts are zeroed just before each trainer run and read just
+    after; ``launches_by_path["train"]`` sums (a) and (b)."""
+    from repro_torch.configs import get_config
+
+    _train_full(dev, results, seed)
+    _train_fault_tolerance(dev, results, seed)
+    tiny = get_config("tinyllama-1.1b")
+    emit("train", part="prefill", shape=list(PREFILL_SHAPE),
+         depths={n: _prefill_check(dev, tiny.replace(num_layers=n), seed, n == PREFILL_HELD_AT)
+                 for n in PREFILL_DEPTHS})
+    emit("train", part="other_dense", shape=list(PREFILL_SHAPE),
+         configs={arch: _prefill_check(dev, get_config(arch).replace(num_layers=PREFILL_HELD_AT),
+                                       seed, True)
+                  for arch in OTHER_DENSE})
 
 
 # The frontend phase: ``benchmarks/serving_latency.py`` at its default scale
@@ -2174,27 +2525,25 @@ def _fe_cluster(device, cache: int):
     return ShardedCluster(num_shards=FE_SHARDS, cache_entries=cache, device=device)
 
 
-def _fe_scenario(device, workload: dict, cache: int, counted: bool, **kw) -> dict:
-    """One scenario on a fresh 4-shard cluster on ``device``; ``counted``
-    zeroes the launch and probe-route counts just before and reads them
-    just after (the served run and its ``finish``)."""
+def _fe_scenario(device, workload: dict, cache: int, **kw) -> dict:
+    """One scenario on a fresh 4-shard cluster on ``device``, with the launch
+    and probe-route counts zeroed just before and read just after (the
+    served run and its ``finish``)."""
     import repro_torch.core.fp_index as core_index
     from repro_torch.kernels import _build
 
     engine = _fe_cluster(device, cache)
     if kw.get("gc_every"):
         engine.min_parallel_batch = 0  # shard workers on every batch, as the GC test runs
-    if counted:
-        _build.reset_launches()
-        core_index.reset_probe_routes()
+    _build.reset_launches()
+    core_index.reset_probe_routes()
     stats, cols, extra, _ = asyncio.run(_fe_serve(engine, workload, FE_CONNS, **kw))
     report = engine.finish()
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     out = {"stats": stats, "cols": cols, "extra": extra, "report": report, "engine": engine,
-           "index_tables": _index_tables(engine)}
-    if counted:
-        out.update(launches=dict(_build.LAUNCHES), probe_routes=dict(core_index.PROBE_ROUTES))
+           "index_tables": _index_tables(engine), "launches": dict(_build.LAUNCHES),
+           "probe_routes": dict(core_index.PROBE_ROUTES)}
     return out
 
 
@@ -2202,8 +2551,8 @@ def _fe_line(run: dict) -> dict:
     st = run["stats"]
     line = {k: st[k] for k in ("completed", "connections", "rps", "wall_s", "p50_ms", "p99_ms",
                                "mean_batch", "batches", "throttled", "deduped")}
-    line.update(dup_writes=run["report"].total_dup_writes, launches=run.get("launches"),
-                probe_routes=run.get("probe_routes"), index_tables=run["index_tables"])
+    line.update(dup_writes=run["report"].total_dup_writes, launches=run["launches"],
+                probe_routes=run["probe_routes"], index_tables=run["index_tables"])
     return line
 
 
@@ -2214,10 +2563,7 @@ def phase_frontend(dev, results: dict, srv, seed: int) -> None:
     counts of the fixed-layout oracle; ``gc_under_load``: a GC-free oracle,
     then ``check_consistency``); ``contended`` must throttle.  Launches,
     probe routes and the index tables' staged keys are read after each
-    served card run.  ``skewed16`` also runs on the host, after the card
-    run."""
-    import gc
-
+    served card run."""
     import repro_torch.core.fp_index as core_index
     from repro_torch.core import restore_engine, snapshot_engine
     from repro_torch.kernels import _build
@@ -2244,23 +2590,17 @@ def phase_frontend(dev, results: dict, srv, seed: int) -> None:
 
     full = _fe_workload(FE_REQUESTS, seed=11)
     side = _fe_workload(FE_SIDE_REQUESTS, seed=11)
-    run = _fe_scenario(dev, full, FE_CACHE, counted=True)
+    run = _fe_scenario(dev, full, FE_CACHE)
     replays_equal(run, FE_CACHE, "skewed16")
     keep("skewed16", run)
-    del run  # the host run starts with no engine of the card run alive
-    gc.collect()
-    host = _fe_scenario("cpu", full, FE_CACHE, counted=False)
-    replays_equal(host, FE_CACHE, "skewed16 on the host")
-    lines["skewed16_host"] = _fe_line(host)
-    emit("frontend", scenario="skewed16_host", **lines["skewed16_host"])
-    del host
+    del run
 
-    run = _fe_scenario(dev, side, FE_CONTENDED_CACHE, counted=True)
+    run = _fe_scenario(dev, side, FE_CONTENDED_CACHE)
     check(run["stats"]["throttled"] > 0, "frontend contended: admission control throttled nothing")
     replays_equal(run, FE_CONTENDED_CACHE, "contended")
     keep("contended", run)
 
-    run = _fe_scenario(dev, side, FE_CACHE, counted=True, resize_to=FE_GROWN)
+    run = _fe_scenario(dev, side, FE_CACHE, resize_to=FE_GROWN)
     check(run["engine"].num_shards == FE_GROWN and "resize" in run["extra"],
           "frontend resize_under_load did not resize")
     check(run["report"].total_writes == run["stats"]["completed"],
@@ -2268,7 +2608,7 @@ def phase_frontend(dev, results: dict, srv, seed: int) -> None:
     replays_equal(run, FE_CACHE, "resize_under_load", exact=False)
     keep("resize_under_load", run, moved_fps=run["extra"]["resize"]["moved_fps"])
 
-    run = _fe_scenario(dev, side, FE_CACHE, counted=True, gc_every=FE_GC_EVERY)
+    run = _fe_scenario(dev, side, FE_CACHE, gc_every=FE_GC_EVERY)
     steps = run["extra"]["gc"]
     check(steps and all(g is not None for g in steps), "frontend gc_under_load ran no GC step")
     replays_equal(run, FE_CACHE, "gc_under_load")
@@ -2327,6 +2667,7 @@ def main() -> int:
     phase_paged_attention(dev, results, srv, mix, args.seed)
     phase_cluster(dev, results, srv, mix, args.seed)
     phase_ingest(dev, results, args.seed)
+    phase_train(dev, results, args.seed)
     phase_frontend(dev, results, srv, args.seed)
     for name in KERNELS:
         results[name]["launches"] = sum(results[name]["launches_by_path"].values())

@@ -1,4 +1,4 @@
-"""Architecture configs (``get_config``); only TinyLlama-1.1B is ported."""
+"""Architecture configs (``get_config``); the four dense decoders are ported."""
 
 from .registry import ARCH_IDS, get_config
 

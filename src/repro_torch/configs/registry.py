@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's launchers.
 
-Every id of the reference's registry is known; only TinyLlama-1.1B, the
-dense decoder the serving path runs, is ported so far.  The others raise
-``NotImplementedError`` until the rest of the model stack is ported
-(ROADMAP.md, modules to port, "Model stack and training").
+Every id of the reference's registry is known; the four dense ``(ATTN, MLP)``
+decoders (TinyLlama-1.1B, DeepSeek-67B, Yi-34B, Phi-3-medium) are ported.
+The others raise ``NotImplementedError`` until their block kinds are ported
+(ROADMAP.md, modules to port, "The other block kinds").
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from __future__ import annotations
 from typing import List
 
 from ..models.config import ModelConfig
-from . import tinyllama_1_1b
+from . import deepseek_67b, phi3_medium_14b, tinyllama_1_1b, yi_34b
 
 ARCH_IDS: List[str] = [
     "mixtral-8x7b",
@@ -26,7 +26,12 @@ ARCH_IDS: List[str] = [
     "rwkv6-1.6b",
 ]
 
-_PORTED = {"tinyllama-1.1b": tinyllama_1_1b}
+_PORTED = {
+    "tinyllama-1.1b": tinyllama_1_1b,
+    "phi3-medium-14b": phi3_medium_14b,
+    "deepseek-67b": deepseek_67b,
+    "yi-34b": yi_34b,
+}
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
@@ -34,7 +39,7 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; available: {ARCH_IDS}")
     if arch not in _PORTED:
         raise NotImplementedError(
-            f"{arch!r} is not ported yet: it comes with the rest of the model stack "
-            f"(ROADMAP.md, modules to port, 'Model stack and training')")
+            f"{arch!r} is not ported yet: it comes with its block kinds "
+            f"(ROADMAP.md, modules to port, 'The other block kinds')")
     mod = _PORTED[arch]
     return mod.smoke() if smoke else mod.full()

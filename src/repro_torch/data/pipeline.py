@@ -22,6 +22,7 @@ indexes and LDSS solver live.  It is not part of any state tree.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -268,9 +269,12 @@ class DedupIngestPipeline:
         }
 
     def batches(self, batch_size: int, seq_len: int) -> Iterator[Dict[str, np.ndarray]]:
-        """Global batches of (inputs, targets, mask) from deduped blocks."""
-        while True:
-            yield self.next_batch(batch_size, seq_len)
+        """Global batches of (inputs, targets, mask) from deduped blocks,
+        without end.  Unlike the reference's generator, which an exception in
+        ``next_batch`` (a failed fingerprint launch) ends for good, the
+        iterator calls ``next_batch`` again on the next ``next``, so a
+        trainer can retry or restore after such a failure."""
+        return iter(functools.partial(self.next_batch, batch_size, seq_len), None)
 
     # -- checkpointable state ------------------------------------------------------
     def _estimators(self) -> List:

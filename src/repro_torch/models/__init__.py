@@ -1,5 +1,6 @@
-"""Model stack of the port: the dense decoder the serving path runs
-(TinyLlama-1.1B), held against the reference's ``repro.models``."""
+"""Model stack of the port: the dense decoder (TinyLlama-1.1B, DeepSeek-67B,
+Yi-34B, Phi-3-medium) on the training, prefill and decode paths, held
+against the reference's ``repro.models``."""
 
 from .config import ModelConfig
 from .model import Model, build_model

@@ -1,11 +1,12 @@
-"""Shared model layers: the initialiser, RMS norm, SwiGLU MLP and RoPE.
+"""Shared model layers: the initialiser, RMS norm, SwiGLU MLP, RoPE and the
+cross-entropy loss.
 
 The port's counterpart of the reference's ``models/layers.py`` for the dense
 decoder: the same initialiser scales (drawn from a ``torch.Generator``, so
 the numbers differ from ``jax.random``'s; tests carry the reference's
 weights over with ``models.convert.params_from_jax``), the ``(1 + scale)``
-RMS norm computed in float32, and standard RoPE.  M-RoPE waits for the rest
-of the model stack.
+RMS norm computed in float32, standard RoPE, and the cross-entropy with the
+reference's z-loss.  M-RoPE waits for the other block kinds.
 """
 
 from __future__ import annotations
@@ -54,10 +55,14 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 def mlp_apply(x: torch.Tensor, w_in: torch.Tensor, w_gate: Optional[torch.Tensor],
               w_out: torch.Tensor, act: str) -> torch.Tensor:
-    """SwiGLU (``w_gate`` given) or GELU (tanh form, as ``jax.nn.gelu``) MLP."""
+    """SwiGLU (``w_gate`` given) or GELU (tanh form, as ``jax.nn.gelu``) MLP.
+    The SiLU is the reference's ``g * (1 / (1 + exp(-g)))`` with each step
+    rounded to the compute dtype; ``F.silu`` rounds once, which in bf16
+    parts from the reference in about a third of the elements."""
     h = x @ w_in
     if act == "swiglu":
-        h = F.silu(x @ w_gate) * h
+        g = x @ w_gate
+        h = g * (1 / (1 + torch.exp(-g))) * h
     else:
         h = F.gelu(h, approximate="tanh")
     return h @ w_out
@@ -87,3 +92,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     """Standard rotary embedding of x (..., S, H, head_dim) at positions
     (..., S); the angles and the rotation in float32, the result in x's dtype."""
     return rotate(x, *rope_angles(positions, x.shape[-1], theta))
+
+
+def token_losses(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 1e-4) -> torch.Tensor:
+    """Each token's ``logz - logits[label] + z_loss * logz**2``, the logits
+    (..., V) cast to float32 before the log-sum-exp, as the reference's."""
+    logits = logits.float()
+    m = logits.amax(dim=-1)
+    logz = m + torch.log(torch.exp(logits - m[..., None]).sum(dim=-1))
+    picked = logits.gather(-1, labels[..., None].long())[..., 0]
+    return -(picked - logz) + z_loss * logz.square()
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+                          z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean next-token loss with z-loss: ``token_losses`` summed under the
+    mask over ``max(sum(mask), 1)``."""
+    return (token_losses(logits, labels, z_loss) * mask).sum() / mask.sum().clamp(min=1.0)

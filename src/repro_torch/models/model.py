@@ -2,9 +2,14 @@
 
 * ``init(generator)``  -> float parameters (``transformer`` layout), as the
                           reference's ``Model.init(rng)``
+* ``train_loss(params, batch)`` -> (loss, {"ce_loss", "moe_aux"}); ``params``
+                          explicit, as the reference's facade takes them
+                          (float32 leaves with ``requires_grad`` to train)
+* ``prefill(params, batch, slots=None)`` -> (last-position logits, cache)
 * ``load(params)``     -> the module, holding them in the compute dtype
-                          (cast once) as buffers
-* ``decode_step(cache, tokens, pos)`` -> (logits, cache)
+                          (cast once) as buffers, for serving
+* ``decode_step(cache, tokens, pos)`` -> (logits, cache), over the loaded
+                          weights
 * ``init_cache(batch, slots)``
 
 Only the dense decoder is ported; any other family raises
@@ -14,7 +19,7 @@ other; its caches are made on the device its weights lie on.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -53,7 +58,16 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.params["embed"].device
 
+    # -- training --------------------------------------------------------------
+    def train_loss(self, params: Dict, batch: Dict[str, torch.Tensor]):
+        return transformer.train_loss(params, batch, self.cfg)
+
     # -- serving ---------------------------------------------------------------
+    def prefill(self, params: Dict, batch: Dict[str, torch.Tensor],
+                slots: Optional[int] = None) -> Tuple[torch.Tensor, KVCache]:
+        return transformer.prefill(params, batch["inputs"], batch.get("positions"), self.cfg,
+                                   slots)
+
     def decode_step(self, cache: KVCache, tokens: torch.Tensor,
                     pos: int) -> Tuple[torch.Tensor, KVCache]:
         return transformer.decode_step(self.params, cache, tokens, pos, self.cfg)

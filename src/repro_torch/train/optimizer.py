@@ -1,0 +1,95 @@
+"""AdamW with configurable moment dtypes: the port's counterpart of the
+reference's ``train/optimizer.py``, over trees of tensors (``pytree``).
+
+The arithmetic is the reference's, in float32: the global gradient-norm clip,
+bias corrections ``1 - b**step``, the warmup + cosine (or constant) schedule,
+and decoupled weight decay on every leaf with two or more dimensions.  The
+model keeps its layers stacked on a leading axis, as the reference does for
+its scan, so the per-layer norm scales (layers, d) decay and ``final_ln`` (d,)
+does not, in both packages.  Moments are stored in ``moment_dtype``; the
+step count is a 0-d int32 tensor on the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, NamedTuple, Tuple
+
+import torch
+
+from ..pytree import leaves, tree_map, unflatten_like
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor      # () int32, on the host
+    mu: Any                 # first moment (param-tree shaped)
+    nu: Any                 # second moment
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    learning_rate: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip_norm: float = 1.0
+    moment_dtype: str = "float32"       # float32 | bfloat16
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    schedule: str = "cosine"            # cosine | constant
+
+    # -- schedule ---------------------------------------------------------------
+    def lr_at(self, step) -> torch.Tensor:
+        step = torch.as_tensor(step).to(torch.float32)
+        warm = torch.clamp(step / max(self.warmup_steps, 1), max=1.0)
+        if self.schedule == "constant":
+            return self.learning_rate * warm
+        t = torch.clamp((step - self.warmup_steps) / max(self.total_steps - self.warmup_steps, 1),
+                        0.0, 1.0)
+        cos = 0.5 * (1.0 + torch.cos(math.pi * t))
+        return self.learning_rate * warm * (0.1 + 0.9 * cos)
+
+    # -- state -------------------------------------------------------------------
+    def init(self, params) -> AdamWState:
+        dt = getattr(torch, self.moment_dtype)
+        zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+        return AdamWState(torch.zeros((), dtype=torch.int32), tree_map(zeros, params),
+                          tree_map(zeros, params))
+
+    # -- update ------------------------------------------------------------------
+    @torch.no_grad()
+    def update(self, grads, state: AdamWState, params) -> Tuple[Any, AdamWState]:
+        step = state.step + 1
+        gnorm = torch.stack([g.float().square().sum() for g in leaves(grads)]).sum().sqrt()
+        scale = torch.clamp(self.grad_clip_norm / (gnorm + 1e-9), max=1.0)
+
+        b1, b2 = self.b1, self.b2
+        bc1 = 1.0 - b1 ** step.float()
+        bc2 = 1.0 - b2 ** step.float()
+        lr = self.lr_at(step)
+        mdt = getattr(torch, self.moment_dtype)
+
+        def upd(g, m, v, p):
+            g = g.float() * scale
+            m32 = b1 * m.float() + (1 - b1) * g
+            v32 = b2 * v.float() + (1 - b2) * g.square()
+            delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + self.eps)
+            if p.ndim >= 2:  # decoupled weight decay on matrices only
+                delta = delta + self.weight_decay * p.float()
+            return (-lr * delta).to(p.dtype), m32.to(mdt), v32.to(mdt)
+
+        out = [upd(*x) for x in zip(leaves(grads), leaves(state.mu), leaves(state.nu),
+                                    leaves(params))]
+        updates, mu, nu = (unflatten_like(params, [o[i] for o in out]) for i in range(3))
+        return updates, AdamWState(step, mu, nu)
+
+
+@torch.no_grad()
+def apply_updates(params, updates):
+    """``p += u`` in place, so parameters that autograd tracks stay leaves;
+    returns ``params`` (the reference returns new ones)."""
+    for p, u in zip(leaves(params), leaves(updates)):
+        p.add_(u.to(p.dtype))
+    return params

@@ -1,0 +1,90 @@
+"""Train/serve step builders: the port's counterpart of the reference's
+``train/train_step.py``.
+
+The reference's steps are pure functions that ``jax.jit`` compiles (with the
+parameters donated).  Here they run eagerly: gradients come from
+``torch.autograd.grad`` over the parameter leaves (float32 tensors with
+``requires_grad``), and the update is applied to those leaves in place, so
+the returned ``params`` are the tensors passed in.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..models import transformer
+from ..pytree import leaves, tree_map, unflatten_like
+from .optimizer import AdamW, apply_updates
+
+
+def trainable(params):
+    """The parameter tree as leaves that autograd tracks (shares storage)."""
+    return tree_map(lambda p: p.detach().requires_grad_(True), params)
+
+
+def _value_and_grad(model, params, batch):
+    loss, metrics = model.train_loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves(params))
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, unflatten_like(params, grads)
+
+
+def make_train_step(model, opt: AdamW) -> Callable:
+    """(params, opt_state, batch) -> (params, opt_state, loss, metrics)."""
+
+    def train_step(params, opt_state, batch):
+        loss, metrics, grads = _value_and_grad(model, params, batch)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        apply_updates(params, updates)
+        return params, opt_state, loss, metrics
+
+    return train_step
+
+
+def make_grad_accum_train_step(model, opt: AdamW, microbatches: int) -> Callable:
+    """Gradient accumulation: the batch split into ``microbatches`` slices
+    along its first axis, taken one after another (the reference's scan),
+    their gradients summed in float32 and divided by the count before one
+    optimizer update."""
+
+    def train_step(params, opt_state, batch):
+        b = next(iter(batch.values())).shape[0]
+        if b % microbatches:
+            raise ValueError(f"batch of {b} rows does not split into {microbatches} microbatches")
+        size = b // microbatches
+        loss_sum = 0.0
+        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                         params)
+        for i in range(microbatches):
+            part = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            loss, _, g = _value_and_grad(model, params, part)
+            for acc, gi in zip(leaves(grads), leaves(g)):
+                acc.add_(gi)
+            loss_sum = loss_sum + loss
+        grads = tree_map(lambda g: g / microbatches, grads)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        apply_updates(params, updates)
+        return params, opt_state, loss_sum / microbatches, {}
+
+    return train_step
+
+
+def make_serve_step(model) -> Callable:
+    """(params, cache, tokens, pos) -> (logits, cache).  ``params`` may be the
+    float32 masters: they are cast to the compute dtype on each call, as the
+    reference casts, which costs nothing for weights already cast."""
+
+    @torch.no_grad()
+    def serve_step(params, cache, tokens, pos):
+        return transformer.decode_step(transformer.cast_params(params, model.cfg), cache, tokens,
+                                       pos, model.cfg)
+
+    return serve_step
+
+
+def make_prefill_step(model) -> Callable:
+    def prefill_step(params, batch):
+        return model.prefill(params, batch)
+
+    return prefill_step

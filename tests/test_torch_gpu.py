@@ -6,8 +6,12 @@ installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-The plain versions themselves are held against the reference package on the
-CPU in ``test_torch_fingerprint.py``, ``test_torch_fp_index.py``,
+The training path (one train step, the trainer's pipeline, a checkpoint) is
+held here against the same code on the host; the port against the reference
+on the CPU in ``test_torch_models.py``, ``test_torch_train.py`` and
+``test_torch_checkpoint.py``.  The plain versions themselves are held against
+the reference package on the CPU in ``test_torch_fingerprint.py``,
+``test_torch_fp_index.py``,
 ``test_torch_engine.py``, ``test_torch_cdc.py``, ``test_torch_ffh.py``,
 ``test_torch_paged_attention.py`` and ``test_torch_serving.py``; the cluster, the
 snapshot envelope and online GC in ``test_torch_cluster.py``,
@@ -822,3 +826,102 @@ def test_frontend_on_card_replays_on_host(cuda):
         assert oracle.finish() == rep
         assert (LAUNCHES["fp_probe"] + LAUNCHES["fp_insert"] > before) == (device is cuda)
     engine.check_consistency()
+
+
+def _smoke_model(device, compute_dtype="bfloat16"):
+    """TinyLlama's smoke config and its float32 weights, drawn on the host
+    and moved to ``device``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.pytree import tree_map
+
+    cfg = get_config("tinyllama-1.1b", smoke=True).replace(compute_dtype=compute_dtype)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    return model, tree_map(lambda t: t.to(device), params)
+
+
+def _digest(batch) -> str:
+    import hashlib
+
+    return hashlib.blake2b(b"".join(np.ascontiguousarray(batch[k]).tobytes()
+                                    for k in ("inputs", "targets", "mask"))).hexdigest()
+
+
+def test_train_step_on_card_matches_host(cuda):
+    """One ``make_train_step`` step at smoke size in float32 from equal
+    weights and batch, on the card and on the host: the loss within 1e-5,
+    every weight within 2.5 x lr and at least 99.9% of them within 1e-5 (the
+    train-step tolerance of ``test_torch_train.py``: at step 1 an element
+    whose gradient is rounding noise may step the other way)."""
+    from repro_torch.pytree import leaves
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import make_train_step, trainable
+
+    lr = 1e-3
+    toks = np.random.default_rng(0).integers(0, 512, (4, 65)).astype(np.int32)
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:], "mask": np.ones((4, 64), np.float32)}
+    opt = AdamW(learning_rate=lr, warmup_steps=1, schedule="constant")
+    out = {}
+    for device in ("cpu", cuda):
+        model, params = _smoke_model(device, "float32")
+        p = trainable(params)
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        p, state, loss, _ = make_train_step(model, opt)(p, opt.init(p), b)
+        assert int(state.step) == 1 and state.mu["embed"].device.type == torch.device(device).type
+        out[str(device)] = (float(loss), torch.cat([t.detach().cpu().flatten() for t in leaves(p)]))
+    (host_loss, host), (card_loss, card) = out["cpu"], out[str(cuda)]
+    assert abs(card_loss - host_loss) <= 1e-5
+    diffs = (card - host).abs()
+    assert float(diffs.max()) <= 2.5 * lr
+    assert float((diffs <= 1e-5).float().mean()) >= 0.999
+
+
+def test_trainer_pipeline_on_card_launches_fingerprint(cuda):
+    """The trainer's producer thread runs the pipeline on the card: each
+    refill hashes its blocks in one fingerprint launch, and the batches the
+    trainer consumes equal the same pipeline's on the host (a cache that
+    evicts nothing)."""
+    from repro_torch.data import DedupIngestPipeline
+    from repro_torch.launch.train import default_tenants
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    model, params = _smoke_model(cuda)
+    kw = dict(block_tokens=64, vocab=model.cfg.vocab_size, cache_entries=1 << 16)
+    card = DedupIngestPipeline(default_tenants(), device=cuda, **kw)
+    host = DedupIngestPipeline(default_tenants(), device="cpu", **kw)
+    tr = Trainer(model, AdamW(learning_rate=1e-3, warmup_steps=2), params,
+                 card.batches(4, 128), TrainerConfig(steps=4, log_every=0))
+    consumed, to_device = [], tr._device_batch
+    tr._device_batch = lambda b: (consumed.append(_digest(b)), to_device(b))[1]
+    before = LAUNCHES["fingerprint"]
+    out = tr.run()
+    assert out["restarts"] == 0 and out["final_step"] == 4 and np.all(np.isfinite(out["losses"]))
+    assert LAUNCHES["fingerprint"] - before == card.metrics.blocks_in // 64 > 0
+    assert consumed == [_digest(host.next_batch(4, 128)) for _ in range(4)]
+
+
+def test_checkpoint_saved_on_card_restores_on_host(cuda, tmp_path):
+    """Weights and an optimizer state with bf16 moments, saved from the card
+    (asynchronously, then changed in place), restore on the host bit for
+    bit, and back onto the card."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.pytree import leaves, tree_map
+    from repro_torch.train.optimizer import AdamW
+
+    _, params = _smoke_model(cuda)
+    state = AdamW(moment_dtype="bfloat16").init(params)
+    state = state._replace(mu=tree_map(lambda t: torch.randn_like(t), state.mu))
+    tree = {"params": params, "opt": state}
+    want = tree_map(lambda t: t.cpu().clone(), tree)
+    ckpt.save(str(tmp_path), 3, tree, async_save=True).join(60)
+    tree_map(lambda t: t.add_(1), params)
+    host = ckpt.restore(str(tmp_path), 3, tree, device="cpu")
+    for got, exp in zip(leaves(host), leaves(want)):
+        assert got.device.type == "cpu" and got.dtype == exp.dtype
+        assert torch.equal(got.view(torch.int16) if got.dtype == torch.bfloat16 else got,
+                           exp.view(torch.int16) if exp.dtype == torch.bfloat16 else exp)
+    back = ckpt.restore(str(tmp_path), 3, tree)
+    assert all(t.device.type == "cuda" for t in leaves(back["params"]))
+    assert back["opt"].step.device.type == "cpu"
