@@ -38,7 +38,7 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
 * ``crossover``   the batch size from which a probe through the table on the
                   card beats the host set (``FingerprintIndex.small_batch``).
 * ``replay``    the slice's main path: paper workload A (32 VM streams),
-                  2,000,000 requests by default.  Each write's 4 KB block is
+                  1,000,000 requests by default.  Each write's 4 KB block is
                   made on the card from its trace fingerprint, hashed by the
                   fingerprint kernel, and the resulting fingerprints drive
                   ``HPDedup(cache_entries=32768, device="cuda")
@@ -78,8 +78,8 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   plain version and ``core.ffh.ffh_from_counts`` on the host;
                   device time beside ``torch.bincount``'s.
 * ``serve``       the KV-page dedup server on TinyLlama-1.1B at full width
-                  (22 layers, d 2048, random float32 weights from ``--seed``,
-                  bf16 compute): 32 requests of ``launch/serve.py``'s mix (a
+                  cut to 8 of its 22 layers (d 2048, random float32 weights
+                  from ``--seed``, bf16 compute): 32 requests of ``launch/serve.py``'s mix (a
                   chat tenant's 96-token shared prompt + 16 unique tokens,
                   a batch tenant's 112 one-off tokens), 8 decode steps and
                   ``run_postprocess``, then the same requests through a server
@@ -91,7 +91,7 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   pages shared by every row, lengths 0 and 2,048 included; and
                   float32 at 8 rows; and 8 bf16 rows all at 2,048 tokens,
                   the long-row case), then over the ``serve`` phase's own page
-                  pool (layers 0 and 21, each request's table from its LBAs'
+                  pool (layers 0 and 7, each request's table from its LBAs'
                   PBAs), against the plain version (bf16 atol/rtol 0.05,
                   float32 atol 3e-5); two calls on each case must give equal
                   bits; device time beside the SDPA call's, and the pages
@@ -161,6 +161,30 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   DeepSeek-67B, Yi-34B and Phi-3-medium at full width cut to 2
                   layers, with peak memory.  Launch counts are zeroed just
                   before each trainer run of (a) and (b) and read just after.
+* ``blocks``      the other block kinds at their published widths, each
+                  line with the card's name and power limit: (a) Mixtral-8x7B
+                  (sliding window 4096, 8 experts, top-2) cut to 2 layers,
+                  float32 weights, bf16 compute, behind ``DedupKVServer``
+                  (``launch/serve.py``'s 16-request mix, 8 decode steps),
+                  decoding what a server that caches nothing decodes;
+                  (b) ``launch.train.build`` at the launcher's defaults, 10
+                  steps each, on RWKV6-1.6B (24 layers), RecurrentGemma-2B
+                  (5 of 26 layers: one (RG-LRU, RG-LRU, local) group and
+                  the two remainder RG-LRU layers) and Mixtral at 2 layers:
+                  finite losses, the host pipeline's batches, median step
+                  ms, tokens/s, model TFLOP/s, peak memory; (c) prefill +
+                  decode at 4 x 256 (RWKV6: 224 tokens and 32 steps) as in
+                  ``train`` (c), MoE at a capacity that drops nothing (the
+                  share 1.25 would drop printed): Mixtral, Qwen2-VL at 2
+                  layers, RecurrentGemma at 5, RWKV6 at 2 (printed at 24),
+                  Qwen2-VL's M-RoPE (equal streams are RoPE bit for bit,
+                  distinct ones change the logits), and Llama-4 Maverick at
+                  2 layers with bf16 weights (37 GB), held in bf16 to the
+                  tolerance of a float32/bf16 run with 16 experts; (d)
+                  Whisper-small at full size: ``encode_prefill`` of 4 x
+                  1,024 frame embeddings, 32 decode steps held to the
+                  teacher-forced decoder's logits.  Launch counts are zeroed
+                  before (a) and each run of (b) and read after.
 * ``frontend``    ``AsyncDedupFrontend`` at ``benchmarks/serving_latency.py``'s
                   default scale (16 Zipf-skewed tenants, 256 connections,
                   120,000 requests, 4 shards of 8,192 cache entries) on the
@@ -176,7 +200,7 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   writes, launches and probe routes.
 * ``kernels``     one object per kernel: launches on the main paths (replay,
                   cdc, serve, ffh, the paged pool, cluster, the cluster
-                  server, ingest, train and frontend, summed), largest
+                  server, ingest, train, blocks and frontend, summed), largest
                   disagreement with its plain version, times, and the least
                   time the card could take for the same work; for the chunk
                   kernel also ptxas's registers and spill bytes.
@@ -189,6 +213,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -1241,6 +1266,10 @@ def phase_ffh(dev, results: dict, content_fps: np.ndarray, seed: int) -> None:
 
 SERVE_REQUESTS = 32
 SERVE_DECODE_STEPS = 8
+# TinyLlama-1.1B at full width cut to this many of its 22 layers: the blocks
+# skipped and the checks do not depend on the depth, the host-bound decode
+# steps do (a cut of script time).
+SERVE_LAYERS = 8
 
 
 def _serve_once(srv, mix, keep):
@@ -1300,18 +1329,20 @@ def phase_serve(dev, results: dict, seed: int):
     from repro_torch.kernels import _build
     from repro_torch.launch.serve import request_mix
     from repro_torch.models import build_model
+    from repro_torch.pytree import leaves
     from repro_torch.serving.dedup_kv import DedupKVServer
 
-    cfg = get_config("tinyllama-1.1b")
-    check((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff,
-           cfg.vocab_size) == (22, 2048, 32, 4, 64, 5632, 32000), "TinyLlama-1.1B's widths")
+    full = get_config("tinyllama-1.1b")
+    check((full.num_layers, full.d_model, full.num_heads, full.num_kv_heads, full.head_dim,
+           full.d_ff, full.vocab_size) == (22, 2048, 32, 4, 64, 5632, 32000),
+          "TinyLlama-1.1B's widths")
+    cfg = full.replace(num_layers=SERVE_LAYERS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg)
     params = model.init(torch.Generator(dev).manual_seed(seed))
-    n_params = sum(t.numel() for t in params["layers"].values()) + sum(
-        params[k].numel() for k in ("embed", "unembed", "final_ln"))
+    n_params = sum(t.numel() for t in leaves(params))
     kw = dict(page_tokens=16, max_slots=256, seed=seed, device=dev)
     srv = DedupKVServer(model, params, cache_entries=512, **kw)
     del params
@@ -2363,53 +2394,90 @@ def _train_fault_tolerance(dev, results: dict, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
-def _prefill_check(dev, cfg, seed: int, held: bool) -> dict:
+def _prefill_check(dev, cfg, seed: int, held: bool, dtypes=("float32", "bfloat16"),
+                   bf16_tol=None, both_paths: bool = False) -> dict:
     """``Model.prefill`` of S - 1 tokens, then one ``decode_step``, against
-    the last-token logits of ``Model.prefill`` of all S tokens, in float32
-    and bf16, from the same float32 weights.  With ``held``: float32 within
+    the last-token logits of ``Model.prefill`` of all S tokens, in each of
+    ``dtypes`` from the same weights (in ``cfg.param_dtype``).  A model with
+    RWKV6 layers prefills S - 32 tokens and decodes 32 (its chunked prefill
+    takes multiples of 32).  MoE layers route at a capacity that drops no
+    token (E / k), in prefill and decode; the share the config's capacity
+    factor would drop is printed.  With ``held``: float32 within
     ``PREFILL_F32_TOL``, bf16 within the larger of ``PREFILL_BF16_TOL`` and
-    the bf16 prefill's distance from the float32 one."""
+    the bf16 prefill's distance from the float32 one (or ``bf16_tol``);
+    with ``both_paths`` also the bf16 decode's distance from the float32
+    decode, if larger: the two bf16 paths round apart, each by about its
+    own distance from float32 (``_bf16_tol``)."""
     from repro_torch.models import build_model
-    from repro_torch.pytree import leaves
+    from repro_torch.models.config import RWKV
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     b, s = PREFILL_SHAPE
-    cfg32 = cfg.replace(compute_dtype="float32")
-    params = build_model(cfg32).init(torch.Generator(dev).manual_seed(seed))
+    start = s - 32 if any(m == RWKV for m, _ in cfg.layer_kinds) else s - 1
+    decode_kw, config_cf = {}, cfg.capacity_factor
+    if cfg.num_experts:
+        no_drop = cfg.num_experts / cfg.top_k
+        cfg, decode_kw = cfg.replace(capacity_factor=no_drop), {"capacity_factor": no_drop}
+    params = build_model(cfg).init(torch.Generator(dev).manual_seed(seed))
     toks = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
                          generator=torch.Generator(dev).manual_seed(seed + 1))
-    out = {"params": sum(t.numel() for t in leaves(params)), "layers": cfg.num_layers,
-           "d_model": cfg.d_model, "held": held}
-    prefills = {}
-    for c in (cfg32, cfg.replace(compute_dtype="bfloat16")):
-        model = build_model(c)
+    out = {"params": _n_params(params), "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "param_dtype": cfg.param_dtype, "held": held, "prefix": start}
+    prefills, decodes = {}, {}
+    for dt in dtypes:
+        model = build_model(cfg.replace(compute_dtype=dt))
+        longer, last = _MoeProbe(config_cf), _MoeProbe(config_cf)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want, _ = model.prefill(params, {"inputs": toks})
+        with longer:
+            want, _ = model.prefill(params, {"inputs": toks})
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
-        _, cache = model.prefill(params, {"inputs": toks[:, :-1]}, slots=s)
-        got, _ = model.load(params).decode_step(cache, toks[:, -1:], s - 1)
+        _, cache = model.prefill(params, {"inputs": toks[:, :start]}, slots=s)
+        model.load(params)
+        for pos in range(start, s):
+            with last if pos == s - 1 else contextlib.nullcontext():
+                got, cache = model.decode_step(cache, toks[:, pos:pos + 1], pos, **decode_kw)
         check(bool(torch.isfinite(want).all() and torch.isfinite(got).all()),
-              f"{cfg.name} {c.compute_dtype}: non-finite logits")
-        prefills[c.compute_dtype] = want.float()
-        out[c.compute_dtype] = {"gap": float((got.float() - want.float()).abs().max()),
-                                "max_abs_logit": float(want.float().abs().max()),
-                                "prefill_ms": prefill_s * 1e3}
+              f"{cfg.name} {dt}: non-finite logits")
+        prefills[dt], decodes[dt] = want.float(), got.float()
+        out[dt] = {"gap": float((got.float() - want.float()).abs().max()),
+                   "row_gaps": (got.float() - want.float()).abs().amax(dim=-1).tolist(),
+                   "max_abs_logit": float(want.float().abs().max()),
+                   "prefill_ms": prefill_s * 1e3}
+        if longer.shares:
+            # a row's last token routed to other experts by the decode step
+            # than by the longer prefill: a near-tie the two paths round apart
+            flips = [(a != b).any(dim=-1).int().tolist()
+                     for a, b in zip(longer.last_experts, last.last_experts)]
+            out[dt].update(dropped_at_config_capacity=longer.shares, routing_flips=flips)
         del model, cache, want, got
-    d = float((prefills["bfloat16"] - prefills["float32"]).abs().max())
-    out["float32"]["tol"] = PREFILL_F32_TOL
-    out["bfloat16"].update(bf16_vs_float32_prefill=d, tol=max(PREFILL_BF16_TOL, d))
+    if "float32" in out:
+        out["float32"]["tol"] = PREFILL_F32_TOL
+    if "bfloat16" in out:
+        if "float32" in prefills:
+            d = float((prefills["bfloat16"] - prefills["float32"]).abs().max())
+            d_dec = float((decodes["bfloat16"] - decodes["float32"]).abs().max())
+            out["bfloat16"].update(bf16_vs_float32_prefill=d, bf16_vs_float32_decode=d_dec,
+                                   tol=_bf16_tol(d, d_dec if both_paths else 0.0))
+        else:
+            out["bfloat16"]["tol"] = bf16_tol
     if held:
-        for dt in ("float32", "bfloat16"):
+        for dt in dtypes:
             check(out[dt]["gap"] <= out[dt]["tol"],
                   f"{cfg.name} {dt}: prefill + decode_step is {out[dt]['gap']} from the longer "
                   f"prefill (> {out[dt]['tol']})")
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     del params, prefills
-    torch.cuda.empty_cache()
+    _free()
     return out
+
+
+def _bf16_tol(*distances: float) -> float:
+    """A bf16 path against another: ``PREFILL_BF16_TOL``, or the larger of
+    the paths' measured distances from their float32 runs."""
+    return max(PREFILL_BF16_TOL, *distances)
 
 
 def phase_train(dev, results: dict, seed: int) -> None:
@@ -2430,6 +2498,329 @@ def phase_train(dev, results: dict, seed: int) -> None:
          configs={arch: _prefill_check(dev, get_config(arch).replace(num_layers=PREFILL_HELD_AT),
                                        seed, True)
                   for arch in OTHER_DENSE})
+
+
+# The blocks phase: the other block kinds at their published widths, depth
+# cut where one card or the script's time forces it (PERF.md §4).
+BLOCKS_SERVE_LAYERS = 2          # Mixtral-8x7B behind the server
+BLOCKS_TRAIN = (("rwkv6-1.6b", None), ("recurrentgemma-2b", 5), ("mixtral-8x7b", 2))
+BLOCKS_TRAIN_STEPS = 10
+BLOCKS_PREFILL = (("mixtral-8x7b", 2), ("qwen2-vl-7b", 2), ("recurrentgemma-2b", 5),
+                  ("rwkv6-1.6b", 2))
+RWKV_PRINTED_AT = 24
+MAVERICK_LAYERS, MAVERICK_TOL_EXPERTS = 2, 16
+WHISPER_FRAMES, WHISPER_STEPS = 1024, 32
+
+
+def _widths(cfg) -> tuple:
+    return (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size)
+
+
+def _blocks_serve(dev, smi: str, seed: int) -> dict:
+    """(a) Mixtral-8x7B cut to 2 layers behind ``DedupKVServer`` at
+    ``launch/serve.py``'s defaults, beside a server that caches nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import request_mix
+    from repro_torch.models import build_model
+    from repro_torch.pytree import leaves
+    from repro_torch.serving.dedup_kv import DedupKVServer
+
+    full = get_config("mixtral-8x7b")
+    check(_widths(full) + (full.attn_window, full.num_experts, full.top_k)
+          == (4096, 32, 8, 128, 14336, 32000, 4096, 8, 2), "Mixtral-8x7B's widths")
+    cfg = full.replace(num_layers=BLOCKS_SERVE_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(seed))
+    n_params = sum(t.numel() for t in leaves(params))
+    # launch/serve.py's defaults: 16 requests, 96 shared tokens, 8 decode steps
+    kw = dict(page_tokens=16, max_slots=max(256, 4 * 96), seed=seed, device=dev)
+    srv = DedupKVServer(model, params, cache_entries=512, **kw)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    mix = request_mix(cfg.vocab_size, 16, 96, np.random.default_rng(seed))
+    last = len(mix) - 1
+    _build.reset_launches()
+    _, out, prefill_s, decode_s, merged = _serve_once(srv, mix, {last})
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    check(launches["fingerprint"] > 0, "blocks serve: the fingerprint kernel never launched")
+    m = srv.metrics
+    check(m.blocks_prefill_skipped > 0, "blocks serve: no block skipped")
+    srv.dedup.store.check_consistency()
+    nodedup = DedupKVServer(model, None, cache_entries=0, **kw)
+    _, out0, prefill0_s, decode0_s, _ = _serve_once(nodedup, mix, {last})
+    check(out == out0, f"blocks serve: decoded tokens {out} != {out0} without dedup")
+    tokens = int(sum(t.size for _, t in mix))
+    emit("blocks", part="serve", card=smi, model=cfg.name, params=n_params,
+         layers=cfg.num_layers, d_model=cfg.d_model, experts=cfg.num_experts,
+         window=cfg.attn_window, max_slots=kw["max_slots"], requests=len(mix), tokens=tokens,
+         blocks_total=m.blocks_total, blocks_prefill_skipped=m.blocks_prefill_skipped,
+         prefill_saving=m.prefill_saving, pages=len(srv.pages),
+         duplicates_found_by_postprocess=merged, decoded_tokens=out, decoded_equal=True,
+         init_s=init_s, prefill_s=prefill_s, prefill_tokens_per_s=tokens / prefill_s,
+         decode_ms_per_step=decode_s / SERVE_DECODE_STEPS * 1e3,
+         nodedup_prefill_tokens_per_s=tokens / prefill0_s,
+         nodedup_decode_ms_per_step=decode0_s / SERVE_DECODE_STEPS * 1e3,
+         max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches)
+    del srv, nodedup, model
+    _free()
+    return launches
+
+
+def _blocks_train(dev, smi: str, seed: int, arch: str, layers) -> dict:
+    """(b) ``launch.train.build`` at the launcher's defaults on one config
+    (depth cut to ``layers`` if given), 10 steps."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec = _train_run(dev, seed, BLOCKS_TRAIN_STEPS, cfg=cfg)
+    peak = torch.cuda.max_memory_allocated()
+    out, launches = rec["out"], rec["launches"]
+    losses = out["losses"]
+    check(len(losses) == BLOCKS_TRAIN_STEPS and all(np.isfinite(losses)),
+          f"blocks train {arch}: losses not all finite: {losses}")
+    check(out["restarts"] == 0, f"blocks train {arch}: {out['restarts']} restarts")
+    check(launches["fingerprint"] > 0, f"blocks train {arch}: the fingerprint kernel never ran")
+    check(rec["consumed"] == [d for d, _ in rec["made"][:BLOCKS_TRAIN_STEPS]],
+          f"blocks train {arch}: the trainer did not consume the pipeline's batches in order")
+    versus_host = _versus_host(rec, cfg.vocab_size)
+    b, s = rec["args"].batch, rec["args"].seq
+    median_s = float(np.median(rec["step_s"][2:]))
+    flops = 6.0 * cfg.active_params_per_token_matmul() * b * s
+    n_params = _n_params(rec["trainer"].params)
+    emit("blocks", part="train", card=smi, model=cfg.name, params=n_params,
+         layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size, batch=[b, s],
+         steps=out["final_step"], losses=losses, run_s=rec["run_s"],
+         median_step_ms=median_s * 1e3, step_ms=[x * 1e3 for x in rec["step_s"]],
+         tokens_per_s=b * s / median_s, step_model_flops=flops,
+         model_tflops_per_s=flops / median_s / 1e12, max_memory_allocated=peak,
+         versus_host=versus_host, launches=launches, phase_s=time.perf_counter() - t0)
+    del rec
+    _free()
+    return launches
+
+
+def _free() -> None:
+    """Collect the trainer's and server's reference cycles (closures that
+    hold them) and return the card memory they held."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _n_params(tree) -> int:
+    from repro_torch.pytree import leaves
+
+    return sum(t.numel() for t in leaves(tree))
+
+
+class _MoeProbe:
+    """Within the block, for each MoE layer called: the share of its
+    (token, choice) assignments that ``capacity_factor`` would drop, and the
+    experts chosen for each row's last token (sorted)."""
+
+    def __init__(self, capacity_factor: float):
+        self.cf, self.shares, self.last_experts = capacity_factor, [], []
+
+    def __enter__(self):
+        from repro_torch.models import moe, transformer
+
+        self._orig = transformer.moe_apply
+
+        def recording(p, x, *, top_k, capacity_factor, act="swiglu"):
+            self.shares.append(moe.drop_share(p, x, top_k, self.cf))
+            ids = moe.route(x[:, -1], p["router"], top_k, self.cf).expert_ids
+            self.last_experts.append(torch.sort(ids, dim=-1).values)
+            return self._orig(p, x, top_k=top_k, capacity_factor=capacity_factor, act=act)
+
+        transformer.moe_apply = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+
+        transformer.moe_apply = self._orig
+
+
+def _mrope_check(dev, cfg, seed: int) -> dict:
+    """Qwen2-VL's M-RoPE at PREFILL_SHAPE in the config's compute dtype: with
+    one position stream (all three equal) the prefill equals standard
+    RoPE's bit for bit; with distinct (temporal, height, width) streams, as
+    an image's patches give, it is finite and another function."""
+    from repro_torch.models import transformer
+
+    b, s = PREFILL_SHAPE
+    params = transformer.init_decoder_params(torch.Generator(dev).manual_seed(seed), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                         generator=torch.Generator(dev).manual_seed(seed + 1))
+    t = torch.arange(s, device=dev)
+    pos = t.expand(b, s)
+    one_stream, _ = transformer.prefill(params, toks, pos, cfg)
+    plain, _ = transformer.prefill(params, toks, pos, cfg.replace(mrope_sections=()))
+    check(torch.equal(one_stream, plain), "qwen2-vl: M-RoPE with equal streams != RoPE")
+    streams = torch.stack([t // 64, (t // 8) % 8, t % 8])[:, None].expand(3, b, s)
+    image, _ = transformer.prefill(params, toks, streams, cfg)
+    check(bool(torch.isfinite(image).all()), "qwen2-vl: non-finite logits at three streams")
+    moved = float((image.float() - one_stream.float()).abs().max())
+    check(moved > 0, "qwen2-vl: three distinct position streams changed nothing")
+    del params
+    torch.cuda.empty_cache()
+    return {"equal_streams_bit_equal_rope": True, "distinct_streams_max_change": moved,
+            "sections": list(cfg.mrope_sections)}
+
+
+def _maverick_check(dev, seed: int) -> dict:
+    """Llama-4 Maverick at 2 layers (a dense layer and a 128-expert MoE
+    layer, 18.4 B weights): its weights in bf16 (37 GB; float32 does not fit
+    beside a prefill), checked in bf16 against the tolerance a float32-vs-
+    bf16 run at the same widths with 16 experts gives."""
+    from repro_torch.configs import get_config
+
+    full = get_config("llama4-maverick-400b-a17b")
+    check(_widths(full) + (full.num_experts, full.top_k) == (5120, 40, 8, 128, 8192, 202048,
+                                                             128, 1), "Maverick's widths")
+    cut = full.replace(num_layers=MAVERICK_LAYERS)
+    tol_run = _prefill_check(dev, cut.replace(num_experts=MAVERICK_TOL_EXPERTS), seed, True,
+                             both_paths=True)
+    tol = tol_run["bfloat16"]["tol"]
+    held = _prefill_check(dev, cut.replace(param_dtype="bfloat16"), seed, True,
+                          dtypes=("bfloat16",), bf16_tol=tol)
+    return {"bf16_weights": held, f"tolerance_run_{MAVERICK_TOL_EXPERTS}_experts": tol_run}
+
+
+def _whisper_run(dev, cfg, seed: int) -> dict:
+    """``encode_prefill`` of 4 x ``WHISPER_FRAMES`` frame embeddings, then
+    ``WHISPER_STEPS`` decode steps against the teacher-forced decoder's
+    logits, float32 and bf16 from the same float32 weights: each step's gap,
+    the times, and each dtype's distance from the float32 run."""
+    from repro_torch.models import build_model, encdec
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    b = PREFILL_SHAPE[0]
+    params = build_model(cfg).init(torch.Generator(dev).manual_seed(seed))
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    frames = torch.randn(b, WHISPER_FRAMES, cfg.d_model, device=dev, generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (b, WHISPER_STEPS), device=dev, generator=gen)
+    out = {"params": _n_params(params), "encoder_layers": cfg.encoder_layers,
+           "decoder_layers": cfg.num_layers}
+    forced, decoded = {}, {}
+    for dt in ("float32", "bfloat16"):
+        c = cfg.replace(compute_dtype=dt)
+        model = build_model(c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc, cache = model.prefill(params, {"encoder_embeds": frames})
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        with torch.no_grad():
+            want = encdec.decoder_logits(params, enc, toks, c).float()
+        model.load(params)
+        steps = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(WHISPER_STEPS):
+            got, cache = model.decode_step(cache, toks[:, pos:pos + 1], pos)
+            steps.append(got.float())
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        got = torch.stack(steps, dim=1)
+        check(bool(torch.isfinite(want).all() and torch.isfinite(got).all()),
+              f"whisper {dt}: non-finite logits")
+        forced[dt], decoded[dt] = want, got
+        out[dt] = {"gap": float((got - want).abs().max()),
+                   "step_gaps": (got - want).abs().amax(dim=(0, 2)).tolist(),
+                   "encode_prefill_ms": encode_s * 1e3,
+                   "decode_ms_per_step": decode_s / WHISPER_STEPS * 1e3,
+                   "max_abs_logit": float(want.abs().max())}
+        del model, enc, cache
+    d = float((forced["bfloat16"] - forced["float32"]).abs().max())
+    d_dec = float((decoded["bfloat16"] - decoded["float32"]).abs().max())
+    out["float32"]["tol"] = PREFILL_F32_TOL
+    out["bfloat16"].update(bf16_vs_float32_forced=d, bf16_vs_float32_decode=d_dec,
+                           tol=_bf16_tol(d, d_dec))
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del params, forced, decoded
+    _free()
+    return out
+
+
+def _whisper_check(dev, smi: str, seed: int) -> None:
+    """(d) Whisper-small at full width and depth (12 + 12 layers) and cut to
+    2 + 2: ``encode_prefill`` of 4 x 1,024 frame embeddings, 32 decode
+    steps against the teacher-forced decoder.  Held at 2 + 2 layers over all
+    32 steps at (c)'s tolerances; at full depth the float32 gap grows with
+    the decode position (each step's self-attention reads K/V the earlier
+    decode steps rounded apart from the teacher-forced pass's, through 12
+    layers), so there the first step is held to ``PREFILL_F32_TOL`` and the
+    rest printed."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("whisper-small")
+    check((cfg.encoder_layers, cfg.num_layers) + _widths(cfg) == (12, 12, 768, 12, 12, 64, 3072,
+                                                                   51865), "Whisper's widths")
+    t0 = time.perf_counter()
+    full = _whisper_run(dev, cfg, seed)
+    check(full["float32"]["step_gaps"][0] <= PREFILL_F32_TOL,
+          f"whisper float32: the first decode step is {full['float32']['step_gaps'][0]} from the "
+          f"teacher-forced logits")
+    cut = _whisper_run(dev, cfg.replace(num_layers=2, encoder_layers=2), seed)
+    for dt in ("float32", "bfloat16"):
+        check(cut[dt]["gap"] <= cut[dt]["tol"],
+              f"whisper 2+2 layers {dt}: decode is {cut[dt]['gap']} from the teacher-forced "
+              f"logits (> {cut[dt]['tol']})")
+    emit("blocks", part="whisper", card=smi, model=cfg.name, batch=PREFILL_SHAPE[0],
+         frames=WHISPER_FRAMES, decode_steps=WHISPER_STEPS, full_depth=full, held_2_2=cut,
+         phase_s=time.perf_counter() - t0)
+
+
+def phase_blocks(dev, results: dict, smi: str, seed: int) -> None:
+    """The other block kinds through the port's entry points: (a) Mixtral
+    behind the KV-page server, (b) RWKV6, RecurrentGemma and Mixtral through
+    the training launcher, (c) prefill + decode on the five decoder-only
+    configs, (d) Whisper's encoder-decoder.  Launch counts are zeroed just
+    before the serve run and each trainer run and read just after;
+    ``launches_by_path["blocks"]`` sums them."""
+    from repro_torch.configs import get_config
+
+    total: dict = {}
+    t0 = time.perf_counter()
+    for launches in [_blocks_serve(dev, smi, seed)] + [
+            _blocks_train(dev, smi, seed, arch, layers) for arch, layers in BLOCKS_TRAIN]:
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    configs = {}
+    for arch, layers in BLOCKS_PREFILL:
+        configs[arch] = _prefill_check(dev, get_config(arch).replace(num_layers=layers), seed,
+                                       True, both_paths=True)
+    configs["rwkv6-1.6b"]["printed_at_full_depth"] = _prefill_check(
+        dev, get_config("rwkv6-1.6b").replace(num_layers=RWKV_PRINTED_AT), seed, False,
+        both_paths=True)
+    configs["qwen2-vl-7b"]["mrope"] = _mrope_check(
+        dev, get_config("qwen2-vl-7b").replace(num_layers=2), seed)
+    configs["llama4-maverick-400b-a17b"] = _maverick_check(dev, seed)
+    emit("blocks", part="prefill", card=smi, shape=list(PREFILL_SHAPE), configs=configs,
+         phase_s=time.perf_counter() - t0)
+    _whisper_check(dev, smi, seed)
+    for name in KERNELS:
+        results.setdefault(name, {}).setdefault("launches_by_path", {})["blocks"] = \
+            total.get(name, 0)
+    check(total.get("fingerprint", 0) > 0, "blocks: the fingerprint kernel never launched")
+    emit("blocks_summary", card=smi, launches=total, serve_and_train_s=train_s)
 
 
 # The frontend phase: ``benchmarks/serving_latency.py`` at its default scale
@@ -2643,7 +3034,7 @@ def phase_frontend(dev, results: dict, srv, seed: int) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--requests", type=int, default=2_000_000)
+    parser.add_argument("--requests", type=int, default=1_000_000)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -2668,6 +3059,7 @@ def main() -> int:
     phase_cluster(dev, results, srv, mix, args.seed)
     phase_ingest(dev, results, args.seed)
     phase_train(dev, results, args.seed)
+    phase_blocks(dev, results, smi, args.seed)
     phase_frontend(dev, results, srv, args.seed)
     for name in KERNELS:
         results[name]["launches"] = sum(results[name]["launches_by_path"].values())

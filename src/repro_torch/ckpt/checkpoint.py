@@ -14,6 +14,12 @@ memory before it returns, also with ``async_save``, so a tensor changed in
 place afterwards (an optimizer step) cannot race the writer thread.
 ``restore`` places leaves on ``device`` (the reference's ``shardings``), by
 default where the matching leaf of ``like`` lies.
+
+Earlier versions of the port kept the dense decoder's layers under one
+``layers`` dictionary (``layers__wq``, ...) where the reference's layout,
+which the port takes now, has ``scan__pos0__mixer__wq``: the same arrays,
+stacked the same way.  ``restore`` reads such a checkpoint's leaf for a
+``scan__pos0`` attention, MLP or norm leaf that the checkpoint lacks.
 """
 
 from __future__ import annotations
@@ -35,6 +41,15 @@ BF16 = "bfloat16"
 
 def _key_name(path) -> str:
     return "__".join(path) or "root"
+
+
+_DENSE_LAYER = re.compile(
+    r"scan__pos0__(?:mixer__|mlp__)?(?=(?:ln1|ln2|wq|wk|wv|wo|w_in|w_gate|w_out)$)")
+
+
+def _earlier_name(name: str) -> str:
+    """The leaf's name in the earlier ``layers`` layout (itself if none)."""
+    return _DENSE_LAYER.sub("layers__", name)
 
 
 def _to_host(leaf):
@@ -113,6 +128,8 @@ def restore(directory: str, step: int, like: Any, device=None) -> Any:
     out = []
     for path, leaf in flatten_with_path(like):
         name = _key_name(path)
+        if name not in saved and _earlier_name(name) in saved:
+            name = _earlier_name(name)
         if name not in saved:
             raise KeyError(f"checkpoint missing leaf {name}")
         if tuple(saved[name]["shape"]) != tuple(leaf.shape):

@@ -1,4 +1,4 @@
-"""Architecture configs (``get_config``); the four dense decoders are ported."""
+"""Architecture configs (``get_config``): every id of the reference's registry."""
 
 from .registry import ARCH_IDS, get_config
 

@@ -54,6 +54,8 @@ def main() -> None:
     args = ap.parse_args()
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.is_encdec:
+        raise SystemExit("enc-dec serving demo not wired; use a decoder-only arch")
     device = torch.device(args.device)
     model = build_model(cfg)
     params = model.init(torch.Generator(device).manual_seed(args.seed))

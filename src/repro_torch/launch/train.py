@@ -70,8 +70,13 @@ def build(args: argparse.Namespace, cfg: Optional[ModelConfig] = None,
           chaos: Optional[Callable[[int], None]] = None) -> Tuple[Trainer, DedupIngestPipeline]:
     """The launcher's trainer over its pipeline, both on ``args.device``;
     ``cfg`` stands in for ``--arch``/``--smoke``'s config (a cut of it),
-    ``chaos`` is the trainer's failure injection."""
+    ``chaos`` is the trainer's failure injection.  Any decoder-only model
+    trains; an encoder-decoder one raises ``ValueError`` (the reference's
+    launcher fails on it too)."""
     cfg = cfg or get_config(args.arch, smoke=args.smoke)
+    if cfg.is_encdec:
+        raise ValueError(f"{cfg.name}: an encoder-decoder model trains on encoder_embeds, "
+                         f"which the token pipeline's batches do not carry")
     device = torch.device(args.device)
     model = build_model(cfg)
     params = model.init(torch.Generator(device).manual_seed(args.seed))

@@ -1,6 +1,6 @@
-"""Model stack of the port: the dense decoder (TinyLlama-1.1B, DeepSeek-67B,
-Yi-34B, Phi-3-medium) on the training, prefill and decode paths, held
-against the reference's ``repro.models``."""
+"""Model stack of the port: every architecture of the registry (dense,
+MoE, M-RoPE, RG-LRU hybrid, RWKV6 and encoder-decoder) on the training,
+prefill and decode paths, held against the reference's ``repro.models``."""
 
 from .config import ModelConfig
 from .model import Model, build_model

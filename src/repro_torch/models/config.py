@@ -1,6 +1,5 @@
 """Model configuration covering all ten assigned architectures (verbatim from
-the reference; the port runs only the dense decoder so far, see
-``configs.registry``).
+the reference).
 
 One ``ModelConfig`` describes any member of the zoo: dense llama-family,
 MoE (mixtral / llama4), M-RoPE VLM backbone (qwen2-vl), RG-LRU hybrid

@@ -1,0 +1,173 @@
+"""Whisper-style encoder-decoder (arXiv:2212.04356) on the shared layers.
+
+The port's counterpart of the reference's ``models/encdec.py``.  The conv
+audio front end is a stub, as there: the encoder takes frame embeddings (B,
+S_enc, d), adds the sinusoidal position table and runs bidirectional
+attention layers.  The decoder is causal (RoPE, as the reference's), with a
+cross-attention layer per block whose K/V over the encoder states are
+computed once by ``encode_prefill`` and cached.  Embeddings are tied.
+Parameters take the reference's layout::
+
+    {"embed": (V, d), "enc_final_ln", "dec_final_ln": (d,),
+     "enc_scan": {"ln1", "attn", "ln2", "mlp"},                # each (L_enc, ...)
+     "dec_scan": {"ln1", "self_attn", "ln_x", "cross_attn", "ln2", "mlp"}}
+
+The decode cache is the reference's dictionary: ``self_k``/``self_v``
+(layers, B, slots, KVH, hd) and ``cross_k``/``cross_v`` (layers, B, S_enc,
+KVH, hd).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from . import config as C
+from .attention import (attention_decode, attention_train, cross_attention_decode,
+                        init_attention, project_kv, valid_slots)
+from .layers import (ParamFactory, dtype_const, init_mlp, mlp_apply, rms_norm, rope_angles,
+                     sinusoidal_positions, softmax_cross_entropy)
+from .transformer import default_positions, map_dict, stack_layers, unstack
+
+
+def _enc_layer_init(pf: ParamFactory, cfg: C.ModelConfig) -> Dict:
+    d = cfg.d_model
+    return {"ln1": pf.zeros((d,)),
+            "attn": init_attention(pf, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
+            "ln2": pf.zeros((d,)),
+            "mlp": init_mlp(pf, d, cfg.d_ff, cfg.act)}
+
+
+def _dec_layer_init(pf: ParamFactory, cfg: C.ModelConfig) -> Dict:
+    d = cfg.d_model
+    return {"ln1": pf.zeros((d,)),
+            "self_attn": init_attention(pf, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
+            "ln_x": pf.zeros((d,)),
+            "cross_attn": init_attention(pf, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
+            "ln2": pf.zeros((d,)),
+            "mlp": init_mlp(pf, d, cfg.d_ff, cfg.act)}
+
+
+def init_encdec_params(generator: torch.Generator, cfg: C.ModelConfig) -> Dict:
+    pf = ParamFactory(generator, getattr(torch, cfg.param_dtype))
+    d = cfg.d_model
+    return {"embed": pf.embedding((cfg.vocab_size, d)),
+            "enc_final_ln": pf.zeros((d,)),
+            "dec_final_ln": pf.zeros((d,)),
+            "enc_scan": stack_layers(lambda: _enc_layer_init(pf, cfg), cfg.encoder_layers),
+            "dec_scan": stack_layers(lambda: _dec_layer_init(pf, cfg), cfg.num_layers)}
+
+
+def cast_params(params: Dict, cfg: C.ModelConfig) -> Dict:
+    """Every weight but the two final norms in the compute dtype."""
+    dt = getattr(torch, cfg.compute_dtype)
+    return {k: v if k.endswith("final_ln") else map_dict(lambda t: t.to(dt), v)
+            for k, v in params.items()}
+
+
+def _layers(stack: Dict, n: int, cfg: C.ModelConfig) -> List[Dict]:
+    return unstack(stack, n, getattr(torch, cfg.compute_dtype))
+
+
+def _mlp(p: Dict, h: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
+    return mlp_apply(h, p["w_in"], p.get("w_gate"), p["w_out"], cfg.act)
+
+
+def encode(params: Dict, embeds: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
+    """Frame embeddings (B, S_enc, d) -> encoder states (B, S_enc, d) in the
+    compute dtype."""
+    b, s, d = embeds.shape
+    x = embeds.to(getattr(torch, cfg.compute_dtype))
+    x = x + sinusoidal_positions(s, d, device=x.device).to(x.dtype)[None]
+    for lp in _layers(params["enc_scan"], cfg.encoder_layers, cfg):
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        x = x + attention_train(lp["attn"], h, None, causal=False, use_rope=False)[0]
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + _mlp(lp["mlp"], h, cfg)
+    return rms_norm(x, params["enc_final_ln"], cfg.norm_eps)
+
+
+def _embed(params: Dict, tokens: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
+    """The reference's decoder input: the row cast to the compute dtype, then
+    scaled by sqrt(d) in it."""
+    x = params["embed"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
+    return x * dtype_const(cfg.d_model ** 0.5, x)
+
+
+def decoder_logits(params: Dict, enc: torch.Tensor, tokens: torch.Tensor,
+                   cfg: C.ModelConfig) -> torch.Tensor:
+    """The teacher-forced decoder over tokens (B, S) against the encoder
+    states: (B, S, V) logits in the compute dtype."""
+    x = _embed(params, tokens, cfg)
+    positions = default_positions(tokens)
+    for lp in _layers(params["dec_scan"], cfg.num_layers, cfg):
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        x = x + attention_train(lp["self_attn"], h, positions, causal=True,
+                                rope_theta=cfg.rope_theta)[0]
+        h = rms_norm(x, lp["ln_x"], cfg.norm_eps)
+        x = x + attention_train(lp["cross_attn"], h, positions,
+                                kv_override=project_kv(lp["cross_attn"], enc))[0]
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + _mlp(lp["mlp"], h, cfg)
+    x = rms_norm(x, params["dec_final_ln"], cfg.norm_eps)
+    return x @ params["embed"].to(x.dtype).T
+
+
+def train_loss(params: Dict, batch: Dict[str, torch.Tensor],
+               cfg: C.ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token loss of a batch {"encoder_embeds": (B, S_enc, d),
+    "decoder_tokens", "targets": (B, S) int, "mask": (B, S) float}:
+    ``(loss, {"ce_loss", "moe_aux"})`` (aux 0)."""
+    enc = encode(params, batch["encoder_embeds"], cfg)
+    logits = decoder_logits(params, enc, batch["decoder_tokens"], cfg)
+    loss = softmax_cross_entropy(logits, batch["targets"], batch["mask"])
+    return loss, {"ce_loss": loss, "moe_aux": torch.zeros((), device=loss.device)}
+
+
+def init_dec_cache(cfg: C.ModelConfig, batch: int, self_slots: int, enc_slots: int,
+                   device=None) -> Dict[str, torch.Tensor]:
+    dtype = getattr(torch, cfg.compute_dtype)
+    shape = (cfg.num_layers, batch)
+    kv = (cfg.num_kv_heads, cfg.head_dim)
+    return {"self_k": torch.zeros(shape + (self_slots,) + kv, dtype=dtype, device=device),
+            "self_v": torch.zeros(shape + (self_slots,) + kv, dtype=dtype, device=device),
+            "cross_k": torch.zeros(shape + (enc_slots,) + kv, dtype=dtype, device=device),
+            "cross_v": torch.zeros(shape + (enc_slots,) + kv, dtype=dtype, device=device)}
+
+
+@torch.no_grad()
+def encode_prefill(params: Dict, embeds: torch.Tensor, cfg: C.ModelConfig,
+                   self_slots: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Encode and compute every decoder layer's cross-attention K/V once:
+    (encoder states, a cache with ``self_slots`` empty self-attention
+    slots)."""
+    enc = encode(params, embeds, cfg)
+    cache = init_dec_cache(cfg, embeds.shape[0], self_slots, embeds.shape[1],
+                           device=embeds.device)
+    for i, lp in enumerate(_layers(params["dec_scan"], cfg.num_layers, cfg)):
+        cache["cross_k"][i], cache["cross_v"][i] = project_kv(lp["cross_attn"], enc)
+    return enc, cache
+
+
+def decode_step(params: Dict, cache: Dict[str, torch.Tensor], tokens: torch.Tensor, pos: int,
+                cfg: C.ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decoder token (B, 1) at ``pos`` against the self-attention cache
+    (taking its K/V in place) and the cross-attention memory; returns the
+    (B, V) logits in the compute dtype.  ``params`` come from
+    ``cast_params``."""
+    x = _embed(params, tokens, cfg)
+    positions = torch.full(tuple(tokens.shape), pos, dtype=torch.int32, device=x.device)
+    rope = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    valid = valid_slots(cache["self_k"].shape[2], pos, False, device=x.device)
+    for i, lp in enumerate(_layers(params["dec_scan"], cfg.num_layers, cfg)):
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        x = x + attention_decode(lp["self_attn"], h, cache["self_k"][i], cache["self_v"][i],
+                                 pos, rope, valid)
+        h = rms_norm(x, lp["ln_x"], cfg.norm_eps)
+        x = x + cross_attention_decode(lp["cross_attn"], h, cache["cross_k"][i],
+                                       cache["cross_v"][i])
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + _mlp(lp["mlp"], h, cfg)
+    x = rms_norm(x, params["dec_final_ln"], cfg.norm_eps)
+    return (x @ params["embed"].T)[:, 0, :], cache

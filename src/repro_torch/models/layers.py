@@ -1,12 +1,19 @@
-"""Shared model layers: the initialiser, RMS norm, SwiGLU MLP, RoPE and the
-cross-entropy loss.
+"""Shared model layers: the initialiser, RMS norm, activations, the MLP,
+RoPE and M-RoPE, sinusoidal positions and the cross-entropy loss.
 
-The port's counterpart of the reference's ``models/layers.py`` for the dense
-decoder: the same initialiser scales (drawn from a ``torch.Generator``, so
-the numbers differ from ``jax.random``'s; tests carry the reference's
-weights over with ``models.convert.params_from_jax``), the ``(1 + scale)``
-RMS norm computed in float32, standard RoPE, and the cross-entropy with the
-reference's z-loss.  M-RoPE waits for the other block kinds.
+The port's counterpart of the reference's ``models/layers.py``: the same
+initialiser scales (drawn from a ``torch.Generator``, so the numbers differ
+from ``jax.random``'s; tests carry the reference's weights over with
+``models.convert.params_from_jax``), the ``(1 + scale)`` RMS norm computed in
+float32, standard RoPE and Qwen2-VL's M-RoPE, Whisper's sinusoidal table,
+and the cross-entropy with the reference's z-loss.
+
+The activations (``sigmoid``, ``silu``, ``softplus``, ``gelu``) are written
+out step by step as JAX composes them, each step rounded to the input's
+dtype, with JAX's constants rounded to it first.  In bfloat16 the library
+functions round once and part from the reference's in many elements
+(``torch.sigmoid`` in about a third, ``F.gelu`` in about two fifths,
+``F.softplus`` in about a sixth); the steps below equal them bit for bit.
 """
 
 from __future__ import annotations
@@ -15,7 +22,6 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 class ParamFactory:
@@ -27,22 +33,31 @@ class ParamFactory:
         self.dtype = dtype
         self.device = generator.device
 
-    def _randn(self, shape: Sequence[int]) -> torch.Tensor:
-        return torch.randn(tuple(shape), generator=self.generator, device=self.device,
-                           dtype=torch.float32)
+    def _randn(self, shape: Sequence[int], stddev: float) -> torch.Tensor:
+        """Scaled in place: a large draw holds one float32 copy at a time."""
+        t = torch.randn(tuple(shape), generator=self.generator, device=self.device,
+                        dtype=torch.float32)
+        return t.mul_(stddev).to(self.dtype)
 
     def normal(self, shape: Sequence[int], stddev: Optional[float] = None) -> torch.Tensor:
         """N(0, stddev^2); the default stddev is ``1 / sqrt(shape[-1])`` (the
         reference's: the last dimension, not the fan-in)."""
         if stddev is None:
             stddev = 1.0 / np.sqrt(shape[-1] if len(shape) > 1 else shape[0])
-        return (self._randn(shape) * stddev).to(self.dtype)
+        return self._randn(shape, stddev)
 
     def embedding(self, shape: Sequence[int], stddev: float = 0.02) -> torch.Tensor:
-        return (self._randn(shape) * stddev).to(self.dtype)
+        return self._randn(shape, stddev)
 
     def zeros(self, shape: Sequence[int]) -> torch.Tensor:
         return torch.zeros(tuple(shape), dtype=self.dtype, device=self.device)
+
+    def ones(self, shape: Sequence[int]) -> torch.Tensor:
+        return torch.ones(tuple(shape), dtype=self.dtype, device=self.device)
+
+    def constant(self, value) -> torch.Tensor:
+        """``value`` (an array of any float type) in the factory's dtype."""
+        return torch.as_tensor(np.asarray(value, dtype=np.float32)).to(self.device, self.dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -53,19 +68,50 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * (1.0 + scale.float())).to(dt)
 
 
+def dtype_const(c: float, like: torch.Tensor) -> float:
+    """The Python float ``c`` rounded to ``like``'s dtype, as JAX casts a
+    constant to its operand's dtype before the operation."""
+    return float(torch.tensor(c, dtype=torch.float32).to(like.dtype))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: ``1 / (1 + exp(-x))``, each step rounded."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * sigmoid(x)``, each step rounded."""
+    return x * sigmoid(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``): ``max(x, 0) +
+    log1p(exp(-|x|))``, each step rounded."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its tanh form), each step rounded."""
+    inner = dtype_const(float(np.sqrt(2 / np.pi)), x) * (x + dtype_const(0.044715, x) * x ** 3)
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
 def mlp_apply(x: torch.Tensor, w_in: torch.Tensor, w_gate: Optional[torch.Tensor],
               w_out: torch.Tensor, act: str) -> torch.Tensor:
-    """SwiGLU (``w_gate`` given) or GELU (tanh form, as ``jax.nn.gelu``) MLP.
-    The SiLU is the reference's ``g * (1 / (1 + exp(-g)))`` with each step
-    rounded to the compute dtype; ``F.silu`` rounds once, which in bf16
-    parts from the reference in about a third of the elements."""
+    """SwiGLU (``w_gate`` given) or GELU (tanh form) MLP."""
     h = x @ w_in
     if act == "swiglu":
-        g = x @ w_gate
-        h = g * (1 / (1 + torch.exp(-g))) * h
+        h = silu(x @ w_gate) * h
     else:
-        h = F.gelu(h, approximate="tanh")
+        h = gelu(h)
     return h @ w_out
+
+
+def init_mlp(pf: ParamFactory, d: int, ff: int, act: str) -> dict:
+    p = {"w_in": pf.normal((d, ff)), "w_out": pf.normal((ff, d))}
+    if act == "swiglu":
+        p["w_gate"] = pf.normal((d, ff))
+    return p
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -73,11 +119,29 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                             / head_dim))
 
 
-def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
-    """(cos, sin) of the rotary angles at positions (..., S), each
-    (..., S, 1, head_dim / 2) in float32: computed once per decode step and
-    shared by every layer's q and k."""
-    angles = positions[..., None].float() * rope_freqs(head_dim, theta, device=positions.device)
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                mrope_sections: Sequence[int] = ()):
+    """(cos, sin) of the rotary angles at positions (B, S), each
+    (B, S, 1, head_dim / 2) in float32: computed once per decode step and
+    shared by every layer's q and k.
+
+    With ``mrope_sections`` (M-RoPE, Qwen2-VL) the frequency bands go in
+    order to the (temporal, height, width) position streams, as many bands
+    each as its section says: positions are (3, B, S), or (B, S) taken for
+    all three streams, which is standard RoPE bit for bit."""
+    freqs = rope_freqs(head_dim, theta, device=positions.device)
+    if mrope_sections:
+        if sum(mrope_sections) != head_dim // 2:
+            raise ValueError(f"mrope_sections {tuple(mrope_sections)} do not sum to "
+                             f"head_dim / 2 = {head_dim // 2}")
+        if positions.ndim == 2:
+            positions = positions.expand(3, *positions.shape)
+        band = torch.repeat_interleave(
+            torch.arange(len(mrope_sections), device=positions.device),
+            torch.tensor(list(mrope_sections), device=positions.device))
+        angles = positions[band].movedim(0, -1).float() * freqs   # (B, S, hd / 2)
+    else:
+        angles = positions[..., None].float() * freqs
     return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
 
 
@@ -88,10 +152,22 @@ def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tenso
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Standard rotary embedding of x (..., S, H, head_dim) at positions
-    (..., S); the angles and the rotation in float32, the result in x's dtype."""
-    return rotate(x, *rope_angles(positions, x.shape[-1], theta))
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: Sequence[int] = ()) -> torch.Tensor:
+    """Rotary embedding of x (B, S, H, head_dim) at positions (B, S) (or
+    (3, B, S) with ``mrope_sections``); the angles and the rotation in
+    float32, the result in x's dtype."""
+    return rotate(x, *rope_angles(positions, x.shape[-1], theta, mrope_sections))
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """Whisper's sinusoidal absolute position table (S, d) in float32,
+    computed in numpy float64 as the reference computes it."""
+    pos = np.arange(seq)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    angle = pos / np.power(10_000.0, 2 * dim / d)
+    table = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1).astype(np.float32)
+    return torch.from_numpy(table).to(device)
 
 
 def token_losses(logits: torch.Tensor, labels: torch.Tensor, z_loss: float = 1e-4) -> torch.Tensor:

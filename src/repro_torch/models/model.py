@@ -1,78 +1,104 @@
 """Model facade: one ``nn.Module`` per configuration, holding its weights.
 
-* ``init(generator)``  -> float parameters (``transformer`` layout), as the
+* ``init(generator)``  -> float parameters (the reference's layout), as the
                           reference's ``Model.init(rng)``
 * ``train_loss(params, batch)`` -> (loss, {"ce_loss", "moe_aux"}); ``params``
                           explicit, as the reference's facade takes them
                           (float32 leaves with ``requires_grad`` to train)
-* ``prefill(params, batch, slots=None)`` -> (last-position logits, cache)
+* ``prefill(params, batch, slots=None)`` -> (last-position logits, cache) of
+                          {"inputs"} or {"embeds"} with optional
+                          {"positions"}; an encoder-decoder model takes
+                          {"encoder_embeds"} and returns (encoder states,
+                          cache)
 * ``load(params)``     -> the module, holding them in the compute dtype
                           (cast once) as buffers, for serving
 * ``decode_step(cache, tokens, pos)`` -> (logits, cache), over the loaded
                           weights
-* ``init_cache(batch, slots)``
+* ``init_cache(batch, slots, enc_slots=0)``
 
-Only the dense decoder is ported; any other family raises
-``NotImplementedError``.  The module moves with ``.to(device)`` like any
-other; its caches are made on the device its weights lie on.
+Decoder-only models run in ``transformer``, encoder-decoder ones (Whisper)
+in ``encdec``.  The module moves with ``.to(device)`` like any other; its
+caches are made on the device its weights lie on.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
+from ..pytree import flatten_with_path
 from . import config as C
-from . import transformer
-from .attention import KVCache
+from . import encdec, transformer
+
+
+def impl(cfg: C.ModelConfig):
+    """The module that computes ``cfg``'s model."""
+    return encdec if cfg.is_encdec else transformer
 
 
 class Model(nn.Module):
     def __init__(self, cfg: C.ModelConfig):
         super().__init__()
-        transformer.check_supported(cfg)
         self.cfg = cfg
+        self._paths = None
 
     # -- params ----------------------------------------------------------------
     def init(self, generator: torch.Generator) -> Dict:
+        if self.cfg.is_encdec:
+            return encdec.init_encdec_params(generator, self.cfg)
         return transformer.init_decoder_params(generator, self.cfg)
 
     def load(self, params: Dict) -> "Model":
-        cast = transformer.cast_params(params, self.cfg)
-        for name in ("embed", "unembed", "final_ln"):
-            self.register_buffer(name, cast[name])
-        for name, value in cast["layers"].items():
-            self.register_buffer(name, value)
+        """Hold ``params`` cast for decoding (``cast_params``) as buffers,
+        one per leaf, named by its key path."""
+        self._paths = []
+        for path, value in flatten_with_path(impl(self.cfg).cast_params(params, self.cfg)):
+            self.register_buffer("__".join(path), value)
+            self._paths.append(path)
         return self
 
     @property
     def params(self) -> Dict:
-        if getattr(self, "embed", None) is None:
+        if self._paths is None:
             raise RuntimeError("no weights: call Model.load(params) first")
-        return {"embed": self.embed, "unembed": self.unembed, "final_ln": self.final_ln,
-                "layers": {k: getattr(self, k) for k in transformer.LAYER_KEYS}}
+        tree: Dict = {}
+        for path in self._paths:
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = getattr(self, "__".join(path))
+        return tree
 
     @property
     def device(self) -> torch.device:
-        return self.params["embed"].device
+        return getattr(self, "__".join(self._paths[0])).device
 
     # -- training --------------------------------------------------------------
     def train_loss(self, params: Dict, batch: Dict[str, torch.Tensor]):
-        return transformer.train_loss(params, batch, self.cfg)
+        return impl(self.cfg).train_loss(params, batch, self.cfg)
 
     # -- serving ---------------------------------------------------------------
-    def prefill(self, params: Dict, batch: Dict[str, torch.Tensor],
-                slots: Optional[int] = None) -> Tuple[torch.Tensor, KVCache]:
-        return transformer.prefill(params, batch["inputs"], batch.get("positions"), self.cfg,
-                                   slots)
+    def prefill(self, params: Dict, batch: Dict[str, torch.Tensor], slots: Optional[int] = None):
+        """``slots``: the decode cache's (self-attention) slots, by default
+        the prompt's length (the decoder's ``decoder_slots`` for an
+        encoder-decoder model)."""
+        if self.cfg.is_encdec:
+            return encdec.encode_prefill(params, batch["encoder_embeds"], self.cfg,
+                                         slots or self.cfg.decoder_slots)
+        return transformer.prefill(params, batch.get("embeds", batch.get("inputs")),
+                                   batch.get("positions"), self.cfg, slots)
 
-    def decode_step(self, cache: KVCache, tokens: torch.Tensor,
-                    pos: int) -> Tuple[torch.Tensor, KVCache]:
-        return transformer.decode_step(self.params, cache, tokens, pos, self.cfg)
+    def decode_step(self, cache, tokens: torch.Tensor, pos: int, **kw):
+        """``kw``: a decoder-only model's ``capacity_factor`` for its MoE
+        layers (default 4, the reference's)."""
+        return impl(self.cfg).decode_step(self.params, cache, tokens, pos, self.cfg, **kw)
 
-    def init_cache(self, batch_size: int, slots: int) -> KVCache:
+    def init_cache(self, batch_size: int, slots: int, enc_slots: int = 0):
+        if self.cfg.is_encdec:
+            return encdec.init_dec_cache(self.cfg, batch_size, slots, enc_slots,
+                                         device=self.device)
         return transformer.init_cache(self.cfg, batch_size, slots, device=self.device)
 
 

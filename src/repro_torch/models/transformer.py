@@ -1,123 +1,292 @@
-"""Decoder-only transformer for the ``(ATTN, MLP)`` block pattern.
+"""Decoder-only transformer over every block kind of the zoo.
 
-The port's counterpart of the reference's ``models/transformer.py`` for the
-dense decoder: ``init_decoder_params``, ``train_loss`` (``forward_train``,
-``logits_from_hidden``, ``chunked_ce_loss``), ``prefill``, ``init_cache`` and
-``decode_step``.  The reference stacks the layers of its ``scan_groups`` and
-scans over them; here the same stacking is a leading layer axis on every
-layer weight and on the cache, and the layers run as a loop.  Parameters are
-a plain dictionary::
+The port's counterpart of the reference's ``models/transformer.py``:
+``init_decoder_params``, ``train_loss`` (``forward_train``,
+``logits_from_hidden``, ``chunked_ce_loss``), ``prefill``, ``init_cache``
+and ``decode_step``, for any ``block_pattern`` of (mixer, mlp) kinds: full,
+sliding-window and local attention, RG-LRU and RWKV6 time-mix mixers; the
+SwiGLU/GELU MLP, the MoE and RWKV6 channel-mix.  Parameters take the
+reference's layout, a plain dictionary::
 
-    {"embed": (V, d), "unembed": (d, V), "final_ln": (d,),
-     "layers": {"ln1", "ln2": (L, d), "wq": (L, d, H, hd), "wk", "wv": (L, d, KVH, hd),
-                "wo": (L, H, hd, d), "w_in", "w_gate": (L, d, ff), "w_out": (L, ff, d)}}
+    {"embed": (V, d), "unembed": (d, V) (absent when tied), "final_ln": (d,),
+     "scan": {"pos0": layer, ..., "pos{P-1}": layer},   # each leaf (G, ...)
+     "rem0": layer, ...}                                # the remainder layers
+    layer = {"ln1", "ln2": (d,), "mixer": {...}, "mlp": {...}}
 
-For serving, ``cast_params`` casts them to the compute dtype once, at load;
-the reference casts each layer's weights on every step (``cast_tree``), which
-gives the same numbers.  ``train_loss`` and ``prefill`` cast on every call,
-as the reference does, so that gradients reach float32 master weights.
-``final_ln`` stays in the parameter dtype, as the reference leaves it.
+where the ``P`` layers of the pattern repeat ``G = num_layers // P`` times
+and the ``num_layers % P`` remainder layers follow unstacked (RecurrentGemma:
+26 = 8 x 3 + 2).  The reference scans over the groups; here the layers run
+as a loop, group by group.  The stacking decides the weight decay (a
+leaf of two or more dimensions decays: a stacked norm scale does, a
+remainder layer's does not), so it is kept.
+
+For serving, ``cast_params`` casts the weights to the compute dtype once, at
+load; the reference casts each layer's weights on every step (``cast_tree``),
+which gives the same numbers.  ``train_loss`` and ``prefill`` cast on every
+call, as the reference does, so that gradients reach float32 master weights.
 Sharding hints (``shard_act``), ``scan_mode`` and the reference's ``remat``
 policies have no counterpart here: the layers run as a loop and autograd
 keeps their activations.
+
+The decode cache of a model whose every layer is attention with one window
+is a single ``KVCache`` of (layers, B, slots, KVH, hd) (the server pages
+it); any other model's is a list with one cache per layer: a ``KVCache`` of
+(B, slots, KVH, hd), an ``RGLRUState`` or an ``RWKVState``.  A windowed
+layer keeps ``min(window, slots)`` slots as a ring.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import config as C
-from .attention import KVCache, attention_decode, attention_train, init_attention, init_kv_cache
-from .layers import ParamFactory, mlp_apply, rms_norm, rope_angles, token_losses
+from .attention import (KVCache, attention_decode, attention_train, init_attention,
+                        init_kv_cache, valid_slots)
+from .layers import (ParamFactory, dtype_const, init_mlp, mlp_apply, rms_norm, rope_angles,
+                     token_losses)
+from .moe import init_moe, moe_apply
+from .rglru import RGLRUState, init_rglru, init_rglru_state, rglru_decode, rglru_train
+from .rwkv6 import (RWKVState, init_rwkv_cm, init_rwkv_state, init_rwkv_tm, rwkv_cm_decode,
+                    rwkv_cm_train, rwkv_tm_decode, rwkv_tm_train)
 
-LAYER_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out")
+ATTENTION = (C.ATTN, C.ATTN_SWA, C.ATTN_LOCAL)
 # The loss head's sequence chunk: each chunk's (B, chunk, V) logits are
 # recomputed in the backward pass instead of kept.
 LOSS_CHUNK = 512
+# Decode routes its one token a row with this capacity factor (the
+# reference's decode_step), training and prefill with the config's.
+DECODE_CAPACITY_FACTOR = 4.0
+
+LayerCache = Union[KVCache, RGLRUState, RWKVState]
+Cache = Union[KVCache, List[LayerCache]]
 
 
-def check_supported(cfg: C.ModelConfig) -> None:
-    """The port runs the dense decoder with SwiGLU, untied embeddings and
-    standard RoPE; anything else waits for the rest of the model stack."""
-    if (cfg.is_encdec or cfg.block_pattern != ((C.ATTN, C.MLP),) or cfg.mrope_sections
-            or cfg.tie_embeddings or not cfg.embed_inputs or cfg.act != "swiglu"):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense (ATTN, MLP) decoder is ported (ROADMAP.md, modules "
-            f"to port, 'The other block kinds')")
+def window_of(cfg: C.ModelConfig, mixer: str) -> int:
+    """The attention window of a mixer kind (0: full attention)."""
+    return {C.ATTN: 0, C.ATTN_SWA: cfg.attn_window, C.ATTN_LOCAL: cfg.local_window}[mixer]
+
+
+def map_dict(fn: Callable, tree):
+    """``fn`` over the leaves of a tree of nested dictionaries."""
+    if isinstance(tree, dict):
+        return {k: map_dict(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# Init.
+# ---------------------------------------------------------------------------
+
+
+def _init_layer(pf: ParamFactory, cfg: C.ModelConfig, mixer: str, mlp: str) -> Dict:
+    d = cfg.d_model
+    p: Dict = {"ln1": pf.zeros((d,)), "ln2": pf.zeros((d,))}
+    if mixer in ATTENTION:
+        p["mixer"] = init_attention(pf, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    elif mixer == C.RGLRU:
+        p["mixer"] = init_rglru(pf, d, cfg.rnn_dim, cfg.conv_width)
+    elif mixer == C.RWKV:
+        p["mixer"] = init_rwkv_tm(pf, d, cfg.num_heads, cfg.head_dim)
+    else:
+        raise ValueError(mixer)
+    if mlp == C.MLP:
+        p["mlp"] = init_mlp(pf, d, cfg.d_ff, cfg.act)
+    elif mlp == C.MOE:
+        p["mlp"] = init_moe(pf, d, cfg.d_ff, cfg.num_experts, cfg.act)
+    elif mlp == C.RWKV_CM:
+        p["mlp"] = init_rwkv_cm(pf, d, cfg.d_ff)
+    else:
+        raise ValueError(mlp)
+    return p
+
+
+def stack_layers(make: Callable[[], Dict], n: int) -> Dict:
+    """``n`` layers from ``make`` stacked on a leading axis, filled one at a
+    time (one layer is alive beside the stack; a single layer is a view)."""
+    first = make()
+    if n == 1:
+        return map_dict(lambda t: t.unsqueeze(0), first)
+    out = map_dict(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    for g in range(n):
+        layer = first if g == 0 else make()
+        _fill(out, layer, g)
+        first = None
+    return out
+
+
+def _fill(out: Dict, layer: Dict, g: int) -> None:
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            _fill(out[k], v, g)
+        else:
+            out[k][g].copy_(v)
 
 
 def init_decoder_params(generator: torch.Generator, cfg: C.ModelConfig) -> Dict:
     """Random parameters in ``cfg.param_dtype`` on the generator's device,
     with the reference's initialiser scales, drawn layer by layer."""
-    check_supported(cfg)
     pf = ParamFactory(generator, getattr(torch, cfg.param_dtype))
     d = cfg.d_model
-    params: Dict = {"embed": pf.embedding((cfg.vocab_size, d)),
-                    "unembed": pf.normal((d, cfg.vocab_size)),
-                    "final_ln": pf.zeros((d,))}
-    layers = []
-    for _ in range(cfg.num_layers):
-        layer = {"ln1": pf.zeros((d,)), "ln2": pf.zeros((d,))}
-        layer.update(init_attention(pf, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim))
-        layer.update(w_in=pf.normal((d, cfg.d_ff)), w_out=pf.normal((cfg.d_ff, d)),
-                     w_gate=pf.normal((d, cfg.d_ff)))
-        layers.append(layer)
-    params["layers"] = {k: torch.stack([layer[k] for layer in layers]) for k in LAYER_KEYS}
+    params: Dict = {"embed": pf.embedding((cfg.vocab_size, d))}
+    if not cfg.tie_embeddings:
+        params["unembed"] = pf.normal((d, cfg.vocab_size))
+    params["final_ln"] = pf.zeros((d,))
+    if cfg.scan_groups:
+        params["scan"] = {
+            f"pos{j}": stack_layers(lambda m=mixer, f=mlp: _init_layer(pf, cfg, m, f),
+                                    cfg.scan_groups)
+            for j, (mixer, mlp) in enumerate(cfg.block_pattern)}
+    for j, (mixer, mlp) in enumerate(cfg.remainder_kinds):
+        params[f"rem{j}"] = _init_layer(pf, cfg, mixer, mlp)
     return params
 
 
 def cast_params(params: Dict, cfg: C.ModelConfig) -> Dict:
-    """Every weight but ``final_ln`` in ``cfg.compute_dtype``."""
+    """The weights for decoding: every layer weight in ``cfg.compute_dtype``,
+    ``final_ln`` in the parameter dtype (as the reference leaves it), and
+    ``unembed`` (d, V) in the compute dtype (the embedding's transpose when
+    tied).  A tied ``embed`` stays in the parameter dtype: the reference
+    scales the looked-up row by sqrt(d) before it rounds it."""
     dt = getattr(torch, cfg.compute_dtype)
-    return {"embed": params["embed"].to(dt), "unembed": params["unembed"].to(dt),
-            "final_ln": params["final_ln"],
-            "layers": {k: v.to(dt) for k, v in params["layers"].items()}}
+    out = {k: map_dict(lambda t: t.to(dt), v) for k, v in params.items()
+           if k not in ("embed", "unembed", "final_ln")}
+    out["final_ln"] = params["final_ln"]
+    if cfg.tie_embeddings:
+        out["embed"] = params["embed"]
+        out["unembed"] = params["embed"].to(dt).T
+    else:
+        out["embed"] = params["embed"].to(dt)
+        out["unembed"] = params["unembed"].to(dt)
+    return out
 
 
-def _layers(params: Dict, cfg: C.ModelConfig) -> List[Dict[str, torch.Tensor]]:
-    """Each layer's weights in the compute dtype, cast from the stacked
-    parameters on this call (the reference's per-layer ``cast_tree``).  The
-    stacks are cast whole and unbound, so the backward pass stacks each
-    weight's layer gradients once."""
+def unstack(stack: Dict, n: int, dt: torch.dtype) -> List[Dict]:
+    """The ``n`` layers of a stacked tree, each leaf cast to ``dt`` whole and
+    then unbound (so the backward pass stacks each weight's layer gradients
+    once)."""
+    per = map_dict(lambda t: t.to(dt).unbind(0), stack)
+    return [map_dict(lambda ts: ts[i], per) for i in range(n)]
+
+
+def layers_of(params: Dict, cfg: C.ModelConfig) -> List[Tuple[str, str, Dict]]:
+    """Each layer's (mixer kind, mlp kind, weights in the compute dtype), in
+    order: the pattern's groups, then the remainder.  The weights are cast
+    from the parameters on this call (the reference's per-layer
+    ``cast_tree``)."""
     dt = getattr(torch, cfg.compute_dtype)
-    per_key = {k: params["layers"][k].to(dt).unbind(0) for k in LAYER_KEYS}
-    return [{k: per_key[k][i] for k in LAYER_KEYS} for i in range(cfg.num_layers)]
+    out = []
+    if cfg.scan_groups:
+        per_pos = [unstack(params["scan"][f"pos{j}"], cfg.scan_groups, dt)
+                   for j in range(cfg.pattern_period)]
+        for g in range(cfg.scan_groups):
+            for j, (mixer, mlp) in enumerate(cfg.block_pattern):
+                out.append((mixer, mlp, per_pos[j][g]))
+    for j, (mixer, mlp) in enumerate(cfg.remainder_kinds):
+        out.append((mixer, mlp, map_dict(lambda t: t.to(dt), params[f"rem{j}"])))
+    return out
 
 
-def _positions(tokens: torch.Tensor) -> torch.Tensor:
-    b, s = tokens.shape
-    return torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+# ---------------------------------------------------------------------------
+# Forward (train and prefill).
+# ---------------------------------------------------------------------------
 
 
-def _embed(params: Dict, tokens: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
+def default_positions(inputs: torch.Tensor) -> torch.Tensor:
+    """0 to S - 1 for each row of inputs (B, S, ...)."""
+    b, s = inputs.shape[:2]
+    return torch.arange(s, dtype=torch.int32, device=inputs.device).expand(b, s)
 
 
-def forward_train(params: Dict, tokens: torch.Tensor, positions: torch.Tensor,
+def embed_inputs(params: Dict, inputs: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
+    """Tokens (B, S) int looked up in ``embed`` (times sqrt(d) when tied,
+    in the table's dtype), or embeddings (B, S, d) float taken as they are;
+    either in the compute dtype."""
+    if inputs.is_floating_point():
+        x = inputs
+    else:
+        x = params["embed"][inputs.long()]
+        if cfg.tie_embeddings:
+            x = x * dtype_const(cfg.d_model ** 0.5, x)
+    return x.to(getattr(torch, cfg.compute_dtype))
+
+
+def _mixer_train(p: Dict, h: torch.Tensor, positions: torch.Tensor, cfg: C.ModelConfig,
+                 mixer: str):
+    """A mixer over the sequence: (output, what prefill's cache keeps)."""
+    if mixer in ATTENTION:
+        out, k, v = attention_train(p, h, positions, causal=True, window=window_of(cfg, mixer),
+                                    rope_theta=cfg.rope_theta,
+                                    mrope_sections=cfg.mrope_sections)
+        return out, (k, v)
+    if mixer == C.RGLRU:
+        return rglru_train(p, h)
+    if mixer == C.RWKV:
+        return rwkv_tm_train(p, h, cfg.num_heads, cfg.head_dim)
+    raise ValueError(mixer)
+
+
+def _mlp_train(p: Dict, h: torch.Tensor, cfg: C.ModelConfig, mlp: str,
+               capacity_factor: float):
+    if mlp == C.MLP:
+        return mlp_apply(h, p["w_in"], p.get("w_gate"), p["w_out"], cfg.act), None
+    if mlp == C.MOE:
+        return moe_apply(p, h, top_k=cfg.top_k, capacity_factor=capacity_factor, act=cfg.act)
+    if mlp == C.RWKV_CM:
+        return rwkv_cm_train(p, h), None
+    raise ValueError(mlp)
+
+
+def forward_train(params: Dict, inputs: torch.Tensor, positions: torch.Tensor,
                   cfg: C.ModelConfig,
-                  cache: Optional[KVCache] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Backbone forward of tokens (B, S) -> final hidden states (B, S, d) in
-    the compute dtype, and the MoE aux loss (0 for the dense decoder).  A
-    ``cache`` takes each layer's rotated K and V in its first S slots."""
-    x = _embed(params, tokens, cfg)
-    s = tokens.shape[1]
-    for i, p in enumerate(_layers(params, cfg)):
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        out, k, v = attention_train(p, h, positions, rope_theta=cfg.rope_theta)
-        if cache is not None:
-            cache.k[i, :, :s] = k
-            cache.v[i, :, :s] = v
-        x = x + out
-        h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(h, p["w_in"], p["w_gate"], p["w_out"], cfg.act)
+                  cache: Optional[Cache] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backbone forward of tokens (B, S) or embeddings (B, S, d) -> final
+    hidden states (B, S, d) in the compute dtype, and the MoE aux loss summed
+    over the layers (float32; 0 without MoE).  A ``cache`` (``init_cache``)
+    takes each layer's state after the sequence (``_store``)."""
+    x = embed_inputs(params, inputs, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (mixer, mlp, p) in enumerate(layers_of(params, cfg)):
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        out, state = _mixer_train(p["mixer"], h, positions, cfg, mixer)
+        x = x + out
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        y, a = _mlp_train(p["mlp"], h2, cfg, mlp, cfg.capacity_factor)
+        x = x + y
+        if a is not None:
+            aux = aux + a
+        if cache is not None:
+            _store(layer_cache(cache, i), state, h2)
     return rms_norm(x, params["final_ln"], cfg.norm_eps), aux
 
 
+def _store(lc: LayerCache, state, h2: torch.Tensor) -> None:
+    """Copy a layer's state after the prompt into its cache: an attention
+    layer's last ``min(slots, S)`` K/V at slots ``t % slots`` (a dense cache
+    holds slots >= S, so that is every position at its own slot), a
+    recurrent layer's state, and RWKV's channel-mix shift (the last
+    ``ln2`` output)."""
+    if isinstance(lc, KVCache):
+        k, v = state
+        s, slots = k.shape[1], lc.k.shape[1]
+        first = max(0, s - slots)
+        idx = torch.arange(first, s, device=k.device) % slots
+        lc.k[:, idx] = k[:, first:]
+        lc.v[:, idx] = v[:, first:]
+    elif isinstance(lc, RGLRUState):
+        lc.h.copy_(state.h)
+        lc.conv.copy_(state.conv)
+    else:
+        lc.s.copy_(state.s)
+        lc.shift_tm.copy_(state.shift_tm)
+        lc.shift_cm.copy_(h2[:, -1])
+
+
 def logits_from_hidden(params: Dict, x: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ params["embed"].to(x.dtype).T
     return x @ params["unembed"].to(x.dtype)
 
 
@@ -147,60 +316,121 @@ def chunked_ce_loss(params: Dict, x: torch.Tensor, targets: torch.Tensor, mask: 
 
 def train_loss(params: Dict, batch: Dict[str, torch.Tensor],
                cfg: C.ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token loss of a batch {"inputs", "targets": (B, S) int,
-    "mask": (B, S) float, optional "positions"}: ``(total, {"ce_loss",
-    "moe_aux"})``, with total = ce_loss + 0.01 * moe_aux."""
-    tokens = batch["inputs"]
+    """Mean next-token loss of a batch {"inputs": (B, S) int or "embeds":
+    (B, S, d), "targets": (B, S) int, "mask": (B, S) float, optional
+    "positions": (B, S) or (3, B, S)}: ``(total, {"ce_loss", "moe_aux"})``,
+    with total = ce_loss + 0.01 * moe_aux."""
+    inputs = batch.get("embeds", batch.get("inputs"))
     positions = batch.get("positions")
     if positions is None:
-        positions = _positions(tokens)
-    x, aux = forward_train(params, tokens, positions, cfg)
+        positions = default_positions(inputs)
+    x, aux = forward_train(params, inputs, positions, cfg)
     loss = chunked_ce_loss(params, x, batch["targets"], batch["mask"], cfg)
     return loss + 0.01 * aux, {"ce_loss": loss, "moe_aux": aux}
 
 
 @torch.no_grad()
-def prefill(params: Dict, tokens: torch.Tensor, positions: Optional[torch.Tensor],
-            cfg: C.ModelConfig, slots: Optional[int] = None) -> Tuple[torch.Tensor, KVCache]:
-    """Forward of tokens (B, S) at positions (B, S) (``None``: 0 to S - 1)
-    that also fills a decode cache: returns the last position's (B, V)
-    logits in the compute dtype and a ``KVCache`` of (layers, B, slots, KVH,
-    hd) holding each layer's rotated K and V in its first S slots.
-    ``slots`` defaults to S, as the reference's cache; give more for
-    ``decode_step`` to continue at position S."""
-    b, s = tokens.shape
+def prefill(params: Dict, inputs: torch.Tensor, positions: Optional[torch.Tensor],
+            cfg: C.ModelConfig, slots: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+    """Forward of tokens (B, S) or embeddings (B, S, d) at positions (B, S)
+    or (3, B, S) (``None``: 0 to S - 1) that also fills a decode cache
+    (``init_cache(cfg, B, slots)``): returns the last position's (B, V)
+    logits in the compute dtype and the cache.  ``slots`` defaults to S, as
+    the reference's cache; give more for ``decode_step`` to continue at
+    position S.  A full-attention layer needs ``slots >= S``; a windowed
+    one keeps the last ``min(window, slots, S)`` positions in ring order
+    (the reference scatters every position into its ring, which writes a
+    slot more than once when S exceeds the window)."""
+    b, s = inputs.shape[:2]
     slots = s if slots is None else slots
     if positions is None:
-        positions = _positions(tokens)
-    if slots < s:
+        positions = default_positions(inputs)
+    if slots < s and any(m == C.ATTN for m, _ in cfg.layer_kinds):
         raise ValueError(f"a cache of {slots} slots cannot hold {s} tokens")
-    cache = init_cache(cfg, b, slots, device=tokens.device)
-    x, _ = forward_train(params, tokens, positions, cfg, cache=cache)
+    cache = init_cache(cfg, b, slots, device=inputs.device)
+    x, _ = forward_train(params, inputs, positions, cfg, cache=cache)
     return logits_from_hidden(params, x[:, -1:], cfg)[:, 0], cache
 
 
-def init_cache(cfg: C.ModelConfig, batch: int, slots: int, device=None) -> KVCache:
-    """Decode cache of every layer: k, v of (layers, batch, slots, KVH, hd)."""
-    return init_kv_cache(batch, slots, cfg.num_kv_heads, cfg.head_dim,
-                         getattr(torch, cfg.compute_dtype), cfg.num_layers, device=device)
+# ---------------------------------------------------------------------------
+# Caches and decode.
+# ---------------------------------------------------------------------------
 
 
-def decode_step(params: Dict, cache: KVCache, tokens: torch.Tensor, pos: int,
-                cfg: C.ModelConfig) -> Tuple[torch.Tensor, KVCache]:
-    """One decode step: tokens (B, 1) int at position ``pos`` against the
-    cache, which takes the tokens' K/V in place; returns the (B, V) logits in
-    the compute dtype and the cache.  ``params`` come from ``cast_params``."""
-    x = params["embed"][tokens]  # (B, 1, d)
-    positions = torch.full(tokens.shape, pos, dtype=torch.int32, device=x.device)
-    rope = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-    valid = torch.arange(cache.k.shape[2], device=x.device) <= pos
-    lp = params["layers"]
-    for i in range(cfg.num_layers):
-        h = rms_norm(x, lp["ln1"][i], cfg.norm_eps)
-        attn = {k: lp[k][i] for k in ("wq", "wk", "wv", "wo")}
-        x = x + attention_decode(attn, h, cache.k[i], cache.v[i], pos, rope, valid)
-        h = rms_norm(x, lp["ln2"][i], cfg.norm_eps)
-        x = x + mlp_apply(h, lp["w_in"][i], lp["w_gate"][i], lp["w_out"][i], cfg.act)
+def stacked_cache(cfg: C.ModelConfig) -> bool:
+    """Whether the decode cache is one ``KVCache`` for every layer: every
+    mixer attends, all with one window."""
+    kinds = {m for m, _ in cfg.layer_kinds}
+    return kinds <= set(ATTENTION) and len({window_of(cfg, m) for m in kinds}) == 1
+
+
+def _layer_cache_init(cfg: C.ModelConfig, mixer: str, batch: int, slots: int, dtype,
+                      device) -> LayerCache:
+    if mixer in ATTENTION:
+        w = window_of(cfg, mixer)
+        return init_kv_cache(batch, min(w, slots) if w else slots, cfg.num_kv_heads,
+                             cfg.head_dim, dtype, device=device)
+    if mixer == C.RGLRU:
+        return init_rglru_state(batch, cfg.rnn_dim, cfg.conv_width, dtype, device=device)
+    if mixer == C.RWKV:
+        return init_rwkv_state(batch, cfg.num_heads, cfg.head_dim, cfg.d_model, dtype,
+                               device=device)
+    raise ValueError(mixer)
+
+
+def init_cache(cfg: C.ModelConfig, batch: int, slots: int, device=None) -> Cache:
+    """The zeroed decode cache (see the module's docstring)."""
+    dtype = getattr(torch, cfg.compute_dtype)
+    if stacked_cache(cfg):
+        w = window_of(cfg, cfg.layer_kinds[0][0])
+        return init_kv_cache(batch, min(w, slots) if w else slots, cfg.num_kv_heads,
+                             cfg.head_dim, dtype, cfg.num_layers, device=device)
+    return [_layer_cache_init(cfg, m, batch, slots, dtype, device) for m, _ in cfg.layer_kinds]
+
+
+def layer_cache(cache: Cache, i: int) -> LayerCache:
+    """Layer i's cache (views into a stacked cache)."""
+    if isinstance(cache, KVCache):
+        return KVCache(cache.k[i], cache.v[i])
+    return cache[i]
+
+
+def decode_step(params: Dict, cache: Cache, tokens: torch.Tensor, pos: int, cfg: C.ModelConfig,
+                capacity_factor: float = DECODE_CAPACITY_FACTOR) -> Tuple[torch.Tensor, Cache]:
+    """One decode step: tokens (B, 1) int (or embeddings (B, 1, d)) at
+    position ``pos`` against the cache, which takes the step's state in
+    place; returns the (B, V) logits in the compute dtype and the cache.
+    ``params`` come from ``cast_params``.  MoE layers route with capacity
+    factor 4, as the reference's decode does, unless ``capacity_factor``
+    says otherwise."""
+    x = embed_inputs(params, tokens, cfg)
+    positions = torch.full(tuple(tokens.shape[:2]), pos, dtype=torch.int32, device=x.device)
+    rope = rope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.mrope_sections)
+    masks: Dict = {}
+    for i, (mixer, mlp, p) in enumerate(layers_of(params, cfg)):
+        lc = layer_cache(cache, i)
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        if mixer in ATTENTION:
+            key = (lc.k.shape[1], window_of(cfg, mixer) > 0)
+            if key not in masks:
+                masks[key] = valid_slots(key[0], pos, key[1], device=x.device)
+            out = attention_decode(p["mixer"], h, lc.k, lc.v, pos, rope, masks[key])
+        elif mixer == C.RGLRU:
+            out, st = rglru_decode(p["mixer"], h, lc)
+            lc.h.copy_(st.h)
+            lc.conv.copy_(st.conv)
+        else:
+            out, s_new, shift = rwkv_tm_decode(p["mixer"], h, lc.s, lc.shift_tm, cfg.num_heads,
+                                               cfg.head_dim)
+            lc.s.copy_(s_new)
+            lc.shift_tm.copy_(shift)
+        x = x + out
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        if mlp == C.RWKV_CM:
+            out, shift = rwkv_cm_decode(p["mlp"], h, lc.shift_cm)
+            lc.shift_cm.copy_(shift)
+        else:
+            out, _ = _mlp_train(p["mlp"], h, cfg, mlp, capacity_factor)
+        x = x + out
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
-    logits = x @ params["unembed"]
-    return logits[:, 0, :], cache
+    return (x @ params["unembed"])[:, 0, :], cache

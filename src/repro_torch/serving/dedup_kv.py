@@ -34,6 +34,7 @@ import torch
 from ..core import HPDedup, ShardedCluster, load_engine_state, snapshot_engine
 from ..kernels.ops import fingerprint_ints
 from ..models.attention import KVCache
+from ..models.transformer import ATTENTION, window_of
 
 
 def chain_fingerprint(prev_fp: int, tokens: np.ndarray, device=None) -> int:
@@ -92,6 +93,31 @@ def _slot_assign(cache: KVCache, page: KVCache, start: int) -> KVCache:
     return cache
 
 
+def check_servable(cfg, max_slots: int) -> None:
+    """The server pages one KV cache per layer, (layers, page, KVH, hd) a
+    page, and copies pages between requests by position.  So it serves a
+    decoder-only model whose every layer attends (full or windowed) and
+    whose window, if any, holds all ``max_slots`` positions; anything else
+    raises ``ValueError`` with the reason.  The reference fails or is wrong
+    there: a recurrent layer's state has no slot axis (its ``_slot_slice``
+    raises ``TypeError``), a window under ``max_slots`` makes a ring whose
+    slots are not positions (its ``dynamic_slice_in_dim`` clamps the start
+    and returns other positions' pages), and its launcher refuses an
+    encoder-decoder model."""
+    if cfg.is_encdec:
+        raise ValueError(f"{cfg.name}: an encoder-decoder model has no prefix KV pages to "
+                         f"serve (its decoder attends a per-request encoder memory)")
+    recurrent = sorted({m for m, _ in cfg.layer_kinds if m not in ATTENTION})
+    if recurrent:
+        raise ValueError(f"{cfg.name}: its decode cache holds recurrent state "
+                         f"({', '.join(recurrent)} layers), which has no per-position pages "
+                         f"to share")
+    windows = {window_of(cfg, m) for m, _ in cfg.layer_kinds} - {0}
+    if windows and min(windows) < max_slots:
+        raise ValueError(f"{cfg.name}: an attention window of {min(windows)} under max_slots "
+                         f"{max_slots} keeps its cache as a ring, whose slots are not positions")
+
+
 @dataclasses.dataclass
 class ServeMetrics:
     blocks_total: int = 0
@@ -115,8 +141,9 @@ class ServeMetrics:
 class DedupKVServer:
     """Single-card serving engine with HPDedup'd paged prefix KV.
 
-    ``model`` is a ``models.Model``; ``params`` (the reference's argument),
-    when given, are loaded into it once, cast to the compute dtype.  The
+    ``model`` is a ``models.Model`` that ``check_servable`` accepts;
+    ``params`` (the reference's argument), when given, are loaded into it
+    once, cast to the compute dtype.  The
     model moves to ``device`` (default ``"cuda"``, which raises without a
     card), where the engine's fingerprint indexes, the fingerprint kernel,
     the LDSS solver (``use_jax_estimator=True`` selects the port's torch
@@ -136,6 +163,7 @@ class DedupKVServer:
         *,
         device="cuda",
     ):
+        check_servable(model.cfg, max_slots)
         self.device = torch.device(device)
         if params is not None:
             model.load(params)

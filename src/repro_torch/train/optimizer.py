@@ -21,6 +21,11 @@ import torch
 from ..pytree import leaves, tree_map, unflatten_like
 
 
+# ``AdamW.update_in_place`` works through a leaf in pieces of this many
+# elements (64 Mi: 256 MB of float32 a temporary).
+IN_PLACE_PIECE = 1 << 26
+
+
 class AdamWState(NamedTuple):
     step: torch.Tensor      # () int32, on the host
     mu: Any                 # first moment (param-tree shaped)
@@ -59,31 +64,53 @@ class AdamW:
                           tree_map(zeros, params))
 
     # -- update ------------------------------------------------------------------
-    @torch.no_grad()
-    def update(self, grads, state: AdamWState, params) -> Tuple[Any, AdamWState]:
+    def _consts(self, grads, state: AdamWState):
+        """(step, clip scale, bias corrections, lr) of the next update."""
         step = state.step + 1
         gnorm = torch.stack([g.float().square().sum() for g in leaves(grads)]).sum().sqrt()
         scale = torch.clamp(self.grad_clip_norm / (gnorm + 1e-9), max=1.0)
+        return (step, scale, 1.0 - self.b1 ** step.float(), 1.0 - self.b2 ** step.float(),
+                self.lr_at(step))
 
+    def _leaf(self, g, m, v, p, consts, decay: bool):
+        """One leaf's (update in p's dtype, new moments in the moment dtype)."""
+        _, scale, bc1, bc2, lr = consts
         b1, b2 = self.b1, self.b2
-        bc1 = 1.0 - b1 ** step.float()
-        bc2 = 1.0 - b2 ** step.float()
-        lr = self.lr_at(step)
+        g = g.float() * scale
+        m32 = b1 * m.float() + (1 - b1) * g
+        v32 = b2 * v.float() + (1 - b2) * g.square()
+        delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + self.eps)
+        if decay:  # decoupled weight decay on matrices only
+            delta = delta + self.weight_decay * p.float()
         mdt = getattr(torch, self.moment_dtype)
+        return (-lr * delta).to(p.dtype), m32.to(mdt), v32.to(mdt)
 
-        def upd(g, m, v, p):
-            g = g.float() * scale
-            m32 = b1 * m.float() + (1 - b1) * g
-            v32 = b2 * v.float() + (1 - b2) * g.square()
-            delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + self.eps)
-            if p.ndim >= 2:  # decoupled weight decay on matrices only
-                delta = delta + self.weight_decay * p.float()
-            return (-lr * delta).to(p.dtype), m32.to(mdt), v32.to(mdt)
-
-        out = [upd(*x) for x in zip(leaves(grads), leaves(state.mu), leaves(state.nu),
-                                    leaves(params))]
+    @torch.no_grad()
+    def update(self, grads, state: AdamWState, params) -> Tuple[Any, AdamWState]:
+        consts = self._consts(grads, state)
+        out = [self._leaf(*x, consts, x[3].ndim >= 2)
+               for x in zip(leaves(grads), leaves(state.mu), leaves(state.nu), leaves(params))]
         updates, mu, nu = (unflatten_like(params, [o[i] for o in out]) for i in range(3))
-        return updates, AdamWState(step, mu, nu)
+        return updates, AdamWState(consts[0], mu, nu)
+
+    @torch.no_grad()
+    def update_in_place(self, grads, state: AdamWState, params) -> AdamWState:
+        """``update`` then ``apply_updates``, element for element the same,
+        with the moments and the parameters written in place, a leaf at a
+        time in pieces of ``IN_PLACE_PIECE`` elements: no second copy of the
+        moments and no update tree, so a step holds weights, gradients and
+        moments once (plus one piece's float32 temporaries).  Returns the
+        state (its moment tensors are ``state``'s)."""
+        consts = self._consts(grads, state)
+        for g, m, v, p in zip(leaves(grads), leaves(state.mu), leaves(state.nu), leaves(params)):
+            decay = p.ndim >= 2
+            pieces = [t.view(-1).split(IN_PLACE_PIECE) for t in (m, v, p)]
+            for gs, ms, vs, ps in zip(g.reshape(-1).split(IN_PLACE_PIECE), *pieces):
+                u, m_new, v_new = self._leaf(gs, ms, vs, ps, consts, decay)
+                ms.copy_(m_new)
+                vs.copy_(v_new)
+                ps.add_(u)
+        return AdamWState(consts[0], state.mu, state.nu)
 
 
 @torch.no_grad()

@@ -4,8 +4,9 @@
 The reference's steps are pure functions that ``jax.jit`` compiles (with the
 parameters donated).  Here they run eagerly: gradients come from
 ``torch.autograd.grad`` over the parameter leaves (float32 tensors with
-``requires_grad``), and the update is applied to those leaves in place, so
-the returned ``params`` are the tensors passed in.
+``requires_grad``), and ``AdamW.update_in_place`` writes the update into
+those leaves and the moments into the optimizer state's, so the returned
+``params`` and state hold the tensors passed in.
 """
 
 from __future__ import annotations
@@ -14,9 +15,9 @@ from typing import Callable
 
 import torch
 
-from ..models import transformer
+from ..models.model import impl
 from ..pytree import leaves, tree_map, unflatten_like
-from .optimizer import AdamW, apply_updates
+from .optimizer import AdamW
 
 
 def trainable(params):
@@ -35,8 +36,7 @@ def make_train_step(model, opt: AdamW) -> Callable:
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = _value_and_grad(model, params, batch)
-        updates, opt_state = opt.update(grads, opt_state, params)
-        apply_updates(params, updates)
+        opt_state = opt.update_in_place(grads, opt_state, params)
         return params, opt_state, loss, metrics
 
     return train_step
@@ -63,8 +63,7 @@ def make_grad_accum_train_step(model, opt: AdamW, microbatches: int) -> Callable
                 acc.add_(gi)
             loss_sum = loss_sum + loss
         grads = tree_map(lambda g: g / microbatches, grads)
-        updates, opt_state = opt.update(grads, opt_state, params)
-        apply_updates(params, updates)
+        opt_state = opt.update_in_place(grads, opt_state, params)
         return params, opt_state, loss_sum / microbatches, {}
 
     return train_step
@@ -77,8 +76,8 @@ def make_serve_step(model) -> Callable:
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
-        return transformer.decode_step(transformer.cast_params(params, model.cfg), cache, tokens,
-                                       pos, model.cfg)
+        mod = impl(model.cfg)
+        return mod.decode_step(mod.cast_params(params, model.cfg), cache, tokens, pos, model.cfg)
 
     return serve_step
 

@@ -153,3 +153,69 @@ def test_reference_checkpoint_restores(tmp_path):
     assert torch.equal(out["opt"].mu["w"].view(torch.int16), torch.from_numpy(want_mu))
     assert torch.equal(out["opt"].nu["w"], torch.from_numpy(mu ** 2))
     assert ckpt.restore_extra(str(tmp_path), 4) == {"losses": [1.5], "step": 4}
+
+
+def _block_tree(arch):
+    """A smoke model's parameters and its AdamW state after one update (so
+    the moments are not zero)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import AdamW
+
+    cfg = get_config(arch, smoke=True)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    opt = AdamW(learning_rate=1e-2, warmup_steps=1)
+    gen = torch.Generator().manual_seed(1)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen), params)
+    _, state = opt.update(grads, opt.init(params), params)
+    return cfg, {"params": params, "opt": state}
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "recurrentgemma-2b"])
+def test_block_model_trees_roundtrip(tmp_path, arch):
+    """A MoE tree (Mixtral: experts stacked under ``scan/pos0/mlp``) and one
+    with remainder layers (RecurrentGemma: ``scan/pos{0,1,2}`` and ``rem0``)
+    with their AdamW state round-trip bit for bit, under the reference's leaf
+    names (its ``save`` of its own tree of the same config)."""
+    import jax
+    import repro.configs as RC
+    import repro.models as RM
+    import repro.train.optimizer as RO
+
+    cfg, tree = _block_tree(arch)
+    ckpt.save(str(tmp_path / "port"), 1, tree)
+    out = ckpt.restore(str(tmp_path / "port"), 1,
+                       tree_map(lambda t: torch.empty_like(t, device="meta"), tree))
+    assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(leaves(tree), leaves(out)))
+    rp = RM.build_model(RC.get_config(arch, smoke=True)).init(jax.random.PRNGKey(0))
+    ref_ckpt.save(str(tmp_path / "ref"), 1, {"params": rp, "opt": RO.AdamW().init(rp)})
+    names = [sorted(os.listdir(tmp_path / which / "step_1")) for which in ("port", "ref")]
+    assert names[0] == names[1]
+    if arch == "recurrentgemma-2b":
+        assert "params__rem0__mixer__lam.npy" in names[0]
+
+
+def test_earlier_dense_layout_restores(tmp_path):
+    """A dense checkpoint in the port's earlier layout (every layer weight
+    stacked under ``layers``) restores into today's ``scan/pos0`` layout,
+    bit for bit; a leaf that neither layout holds is still refused by
+    name."""
+    from repro_torch.train.optimizer import AdamWState
+
+    _, tree = _block_tree("tinyllama-1.1b")
+
+    def earlier(p):
+        layer = p["scan"]["pos0"]
+        return {"embed": p["embed"], "unembed": p["unembed"], "final_ln": p["final_ln"],
+                "layers": {"ln1": layer["ln1"], "ln2": layer["ln2"], **layer["mixer"],
+                           **layer["mlp"]}}
+
+    opt = tree["opt"]
+    old = {"params": earlier(tree["params"]),
+           "opt": AdamWState(opt.step, earlier(opt.mu), earlier(opt.nu))}
+    ckpt.save(str(tmp_path), 5, old)
+    assert "params__layers__wq.npy" in os.listdir(tmp_path / "step_5")
+    out = ckpt.restore(str(tmp_path), 5, tree)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(tree), leaves(out)))
+    with pytest.raises(KeyError, match="missing leaf params__scan__pos1__ln1"):
+        ckpt.restore(str(tmp_path), 5, {"params": {"scan": {"pos1": {"ln1": torch.zeros(2)}}}})

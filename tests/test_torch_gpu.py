@@ -925,3 +925,171 @@ def test_checkpoint_saved_on_card_restores_on_host(cuda, tmp_path):
     back = ckpt.restore(str(tmp_path), 3, tree)
     assert all(t.device.type == "cuda" for t in leaves(back["params"]))
     assert back["opt"].step.device.type == "cpu"
+
+
+# -- the other block kinds (MoE, windowed attention, M-RoPE, RG-LRU, RWKV6,
+#    encoder-decoder): the card against the same code on the host ------------------
+
+BLOCK_ARCHS = ["mixtral-8x7b", "llama4-maverick-400b-a17b", "qwen2-vl-7b", "recurrentgemma-2b",
+               "rwkv6-1.6b"]
+
+
+def _block_params(arch, **extra):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch, smoke=True).replace(compute_dtype="float32", **extra)
+    return cfg, build_model(cfg).init(torch.Generator().manual_seed(0))
+
+
+def _to(tree, device):
+    from repro_torch.pytree import tree_map
+
+    return tree_map(lambda t: t.to(device), tree)
+
+
+@pytest.mark.parametrize("arch", BLOCK_ARCHS)
+def test_block_model_on_card_matches_host(cuda, arch):
+    """Float32 ``train_loss`` and its gradients (at 64 tokens, past the smoke
+    windows), ``prefill`` and a ``decode_step`` at position S, card against
+    host: loss within 1e-5, gradients and logits within 1e-4."""
+    from repro_torch.models import build_model
+    from repro_torch.pytree import leaves
+
+    cfg, params = _block_params(arch)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 65))
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:], "mask": np.ones((2, 64), np.float32)}
+    out = {}
+    for device in ("cpu", cuda):
+        p = _to(params, device)
+        for t in leaves(p):
+            t.requires_grad_(True)
+        model = build_model(cfg)
+        loss, _ = model.train_loss(p, {k: torch.from_numpy(v).to(device)
+                                       for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, leaves(p))
+        x = torch.from_numpy(toks[:, :32]).to(device)
+        logits, cache = model.prefill(p, {"inputs": x}, slots=33)
+        step, _ = model.load(p).decode_step(cache, x[:, :1], 32)
+        out[str(device)] = (float(loss), [g.cpu() for g in grads], logits.cpu(), step.cpu())
+    (l0, g0, p0, s0), (l1, g1, p1, s1) = out["cpu"], out[str(cuda)]
+    assert abs(l0 - l1) <= 1e-5
+    for a, b in zip(g0, g1):
+        assert float((a - b).abs().max()) <= 1e-4
+    assert float((p0 - p1).abs().max()) <= 1e-4 and float((s0 - s1).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("e,k", [(4, 2), (8, 1), (8, 2)])
+def test_moe_dispatch_on_card_matches_host(cuda, e, k):
+    """Routing (experts, sorted order, kept assignments) equal, outputs
+    within 1e-5, at a capacity that drops (0.5) and one that does not."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import ParamFactory
+
+    p = moe.init_moe(ParamFactory(torch.Generator().manual_seed(e), torch.float32), 16, 32, e,
+                     "swiglu")
+    x = torch.randn(96, 16, generator=torch.Generator().manual_seed(1))
+    for cf in (0.5, float(e) / k):
+        host = moe.route(x, p["router"], k, cf)
+        card = moe.route(x.to(cuda), p["router"].to(cuda), k, cf)
+        for a, b in zip(host[1:6], card[1:6]):
+            assert torch.equal(a, b.cpu()) if a.dtype != torch.float32 else \
+                float((a - b.cpu()).abs().max()) <= 1e-6
+        assert torch.equal(host.keep, card.keep.cpu())
+        want, aux = moe.moe_apply(p, x.view(2, 48, 16), top_k=k, capacity_factor=cf)
+        got, aux_c = moe.moe_apply(_to(p, cuda), x.view(2, 48, 16).to(cuda), top_k=k,
+                                   capacity_factor=cf)
+        assert float((got.cpu() - want).abs().max()) <= 1e-5
+        assert abs(float(aux_c) - float(aux)) <= 1e-6
+
+
+def test_recurrent_blocks_on_card_match_host(cuda):
+    """RG-LRU and RWKV6 train paths, their final states, and 4 decode steps
+    from them, card against host within 1e-5."""
+    from repro_torch.models import rglru, rwkv6
+    from repro_torch.models.layers import ParamFactory
+
+    pf = ParamFactory(torch.Generator().manual_seed(0), torch.float32)
+    rg, tm = rglru.init_rglru(pf, 16, 24, 4), rwkv6.init_rwkv_tm(pf, 16, 2, 8)
+    x = torch.randn(2, 64, 16, generator=torch.Generator().manual_seed(1))
+    steps = torch.randn(4, 2, 1, 16, generator=torch.Generator().manual_seed(2))
+    out = {}
+    for device in ("cpu", cuda):
+        prg, ptm, xd = _to(rg, device), _to(tm, device), x.to(device)
+        y, st = rglru.rglru_train(prg, xd)
+        z, wst = rwkv6.rwkv_tm_train(ptm, xd, 2, 8)
+        seq = [y, z, st.h, wst.s]
+        s, shift = wst.s, wst.shift_tm
+        for t in steps.to(device):
+            a, st = rglru.rglru_decode(prg, t, st)
+            b, s, shift = rwkv6.rwkv_tm_decode(ptm, t, s, shift, 2, 8)
+            seq += [a, b]
+        out[str(device)] = [v.cpu() for v in seq]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert float((a - b).abs().max()) <= 1e-5
+
+
+def test_encoder_decoder_on_card_matches_host(cuda):
+    """Whisper-small's smoke model: ``train_loss``, ``encode_prefill`` and 4
+    decode steps, card against host within 1e-4."""
+    from repro_torch.models import build_model
+
+    cfg, params = _block_params("whisper-small")
+    rng = np.random.default_rng(3)
+    emb = rng.standard_normal((2, 48, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab_size, (2, 9))
+    out = {}
+    for device in ("cpu", cuda):
+        p, model = _to(params, device), build_model(cfg)
+        e = torch.from_numpy(emb).to(device)
+        t = torch.from_numpy(toks).to(device)
+        batch = {"encoder_embeds": e, "decoder_tokens": t[:, :-1], "targets": t[:, 1:],
+                 "mask": torch.ones(2, 8, device=device)}
+        loss, _ = model.train_loss(p, batch)
+        enc, cache = model.prefill(p, {"encoder_embeds": e}, slots=8)
+        model.load(p)
+        seq = [loss.reshape(1), enc]
+        for pos in range(4):
+            logits, cache = model.decode_step(cache, t[:, pos:pos + 1], pos)
+            seq.append(logits)
+        out[str(device)] = [v.detach().cpu() for v in seq]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert float((a - b).abs().max()) <= 1e-4
+
+
+def test_mixtral_server_on_card_matches_host(cuda):
+    """The KV-page server on Mixtral's smoke model with its window at
+    ``max_slots`` (128), float32: metrics, pages and decoded tokens equal on
+    the card and the host; the fingerprint kernel launched."""
+    from repro_torch.models import build_model
+    from repro_torch.serving.dedup_kv import DedupKVServer
+
+    cfg, params = _block_params("mixtral-8x7b", attn_window=128)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, 512, 48)
+    mix = [np.concatenate([prompt, rng.integers(0, 512, 8)]) for _ in range(4)]
+    out = {}
+    before = LAUNCHES["fingerprint"]
+    for device in ("cpu", cuda):
+        srv = DedupKVServer(build_model(cfg), _to(params, device), page_tokens=16,
+                            max_slots=128, cache_entries=128, device=device)
+        last = [srv.prefill_request(0, toks) for toks in mix][-1]
+        out[str(device)] = (dataclasses.asdict(srv.metrics), sorted(srv.pages),
+                            srv.decode(last[0], last[1], steps=4)[0])
+    assert out["cpu"] == out[str(cuda)]
+    assert out["cpu"][0]["blocks_prefill_skipped"] > 0
+    assert LAUNCHES["fingerprint"] - before >= len(mix)
+
+
+def test_launcher_trains_rwkv6_on_card(cuda):
+    """``launch/train.py``'s ``build`` on RWKV6's smoke model on the card: 3
+    steps, finite losses, the pipeline's fingerprint kernel launched."""
+    from repro_torch.launch import train as launch
+
+    args = launch.parse_args(["--arch", "rwkv6-1.6b", "--smoke", "--steps", "3", "--batch", "2",
+                              "--seq", "64", "--device", "cuda"])
+    before = LAUNCHES["fingerprint"]
+    trainer, _ = launch.build(args)
+    out = trainer.run()
+    assert out["final_step"] == 3 and out["restarts"] == 0 and np.all(np.isfinite(out["losses"]))
+    assert LAUNCHES["fingerprint"] > before

@@ -60,11 +60,10 @@ def _models(compute_dtype="bfloat16", seed=0, scales=True):
 
 def test_configs_match_reference():
     assert ARCH_IDS == RC.ARCH_IDS
-    for smoke in (False, True):
-        assert dataclasses.asdict(get_config("tinyllama-1.1b", smoke)) == \
-            dataclasses.asdict(RC.get_config("tinyllama-1.1b", smoke))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("mixtral-8x7b")
+    for arch in ARCH_IDS:
+        for smoke in (False, True):
+            assert dataclasses.asdict(get_config(arch, smoke)) == \
+                dataclasses.asdict(RC.get_config(arch, smoke))
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

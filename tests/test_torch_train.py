@@ -169,6 +169,31 @@ def test_adamw_update_matches_reference(schedule, moment_dtype, clipped):
                 assert _rel(m.float().numpy(), r.numpy()) <= REL, (step, path)
 
 
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_update_in_place_equals_update(moment_dtype, monkeypatch):
+    """The train steps' ``update_in_place`` (moments and weights written in
+    place, a leaf at a time in pieces, here of 7 elements) equals ``update``
+    then ``apply_updates`` bit for bit, at steps 1 and 2 with the clip
+    acting."""
+    import repro_torch.train.optimizer as port_opt
+
+    monkeypatch.setattr(port_opt, "IN_PLACE_PIECE", 7)
+    opt = AdamW(learning_rate=1e-2, warmup_steps=2, moment_dtype=moment_dtype)
+    _, tree, port, _ = _ref_models()
+    gen = torch.Generator().manual_seed(3)
+    a = params_from_jax(tree, port.cfg)
+    b = tree_map(torch.clone, a)
+    sa, sb = opt.init(a), opt.init(b)
+    for _ in range(2):
+        grads = tree_map(lambda p: torch.randn(p.shape, generator=gen) * 3, a)
+        upd, sa = opt.update(grads, sa, a)
+        apply_updates(a, upd)
+        sb = opt.update_in_place(grads, sb, b)
+        assert int(sa.step) == int(sb.step)
+        for x, y in zip(leaves((a, sa.mu, sa.nu)), leaves((b, sb.mu, sb.nu))):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+
+
 @pytest.mark.parametrize("schedule", ["cosine", "constant"])
 def test_lr_at_matches_reference(schedule):
     kw = dict(learning_rate=3e-3, warmup_steps=10, total_steps=150, schedule=schedule)
@@ -193,7 +218,9 @@ def test_weight_decay_mask_is_pinned_per_leaf():
     rupd, _ = RO.AdamW(**kw).update(jax.tree.map(jnp.asarray, zeros), RO.AdamW(**kw).init(rp), rp)
     decays = {"/".join(path): bool(u.any()) for path, u in flatten_with_path(mupd)}
     assert decays == {"embed": True, "unembed": True, "final_ln": False,
-                      **{f"layers/{k}": True for k in transformer.LAYER_KEYS}}
+                      **{f"scan/pos0/{k}": True for k in ("ln1", "ln2")},
+                      **{f"scan/pos0/mixer/{k}": True for k in ("wq", "wk", "wv", "wo")},
+                      **{f"scan/pos0/mlp/{k}": True for k in ("w_in", "w_gate", "w_out")}}
     want = params_from_jax(jax.tree.map(np.asarray, rupd), port.cfg)
     for (path, u), r in zip(flatten_with_path(mupd), leaves(want)):
         assert (_rel(u.numpy(), r.numpy()) <= REL) if r.any() else not u.any(), path
