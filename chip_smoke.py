@@ -185,6 +185,36 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   1,024 frame embeddings, 32 decode steps held to the
                   teacher-forced decoder's logits.  Launch counts are zeroed
                   before (a) and each run of (b) and read after.
+* ``long``        the reference's long-sequence attention schedules and remat
+                  at ``configs/shapes.py``'s lengths, each line with the
+                  card's name and power limit: (a) ``flash_attend`` (causal
+                  and not; 2 x 4,096 tokens, 32 query heads over 4 KV heads
+                  of 64) and ``banded_attend`` (8,192 tokens, windows 4,096
+                  and 2,048) against ``attend_plain`` on the same unit-normal
+                  q, k, v, forward and the gradients of ``sum(out * w)``:
+                  float32 within 3e-5 (gradients 1e-4), bf16 within one
+                  bf16 step (2^-7 of the plain value) plus those, element
+                  by element; flash and the plain version in float32 each
+                  against the plain version in float64; ms forward and
+                  forward + backward, the peak MB of a forward + backward
+                  beside the plain version's.  (b) TinyLlama-1.1B at full
+                  width and depth through the launcher's objects at
+                  train_4k's 4,096 tokens: batch 2 without remat (6 steps),
+                  batch 8 with "full" (5 steps): finite losses, the host
+                  pipeline's batches, median step ms, tokens/s, model
+                  TFLOP/s, peak memory; on the first batch, "none"'s and
+                  "full"'s loss equal to the first step's, and every
+                  gradient leaf of "full" (whose backward recomputes each
+                  block) equal to "none"'s, within 1e-5 relative.  (c) Its prefill of prefill_32k's 32,768
+                  tokens (batch 1, full depth, bf16 compute) and 8 decode
+                  steps; at 2 layers in float32, a prefill 512 tokens shorter
+                  and 512 decode steps against the whole prefill (1e-3).
+                  (d) Mixtral-8x7B at 2 layers (window 4,096) and
+                  RecurrentGemma-2B at 5 (local window 2,048) prefill 8,192
+                  tokens, every attention layer through ``banded_attend``;
+                  one Mixtral attention layer against the plain version in
+                  float32 (1e-4).  Launch counts are zeroed before each run
+                  of (b) and read after.
 * ``frontend``    ``AsyncDedupFrontend`` at ``benchmarks/serving_latency.py``'s
                   default scale (16 Zipf-skewed tenants, 256 connections,
                   120,000 requests, 4 shards of 8,192 cache entries) on the
@@ -200,7 +230,7 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   writes, launches and probe routes.
 * ``kernels``     one object per kernel: launches on the main paths (replay,
                   cdc, serve, ffh, the paged pool, cluster, the cluster
-                  server, ingest, train, blocks and frontend, summed), largest
+                  server, ingest, train, blocks, long and frontend, summed), largest
                   disagreement with its plain version, times, and the least
                   time the card could take for the same work; for the chunk
                   kernel also ptxas's registers and spill bytes.
@@ -215,6 +245,7 @@ import argparse
 import asyncio
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -2157,20 +2188,24 @@ PREFILL_F32_TOL = 1e-3
 PREFILL_BF16_TOL = 5e-2  # or the bf16 prefill's distance from the float32 one, if larger
 
 
-def _train_run(dev, seed: int, steps: int, cfg=None, ckpt_dir: str = "", chaos=None) -> dict:
-    """``launch.train.build`` at the launcher's defaults on the card, run:
-    the outcome, the digest of each batch the trainer consumed (in order),
-    each batch the pipeline made (digest, metrics after it), each step's
-    seconds (synchronised), the launches of the run and the trainer and
-    pipeline for what follows."""
+def _train_run(dev, seed: int, steps: int, cfg=None, ckpt_dir: str = "", chaos=None,
+               batch: int = 0, seq: int = 0, remat: str = "none") -> dict:
+    """``launch.train.build`` at the launcher's defaults on the card (or at
+    ``batch`` x ``seq`` tokens and the model's ``remat`` policy, if given),
+    run: the outcome, the digest of each batch the trainer consumed (in
+    order), each batch the pipeline made (digest, metrics after it), each
+    step's seconds (synchronised), the launches of the run and the trainer
+    and pipeline for what follows."""
     from repro_torch.kernels import _build
     from repro_torch.launch import train as launch
 
     argv = ["--steps", str(steps), "--seed", str(seed), "--device", str(dev)]
     if ckpt_dir:
         argv += ["--ckpt-dir", ckpt_dir, "--ckpt-every", str(FT_EVERY)]
+    if batch:
+        argv += ["--batch", str(batch), "--seq", str(seq)]
     args = launch.parse_args(argv)
-    tr, pipe = launch.build(args, cfg=cfg, chaos=chaos)
+    tr, pipe = launch.build(args, cfg=cfg, chaos=chaos, remat=remat)
     rec = {"consumed": [], "made": [], "step_s": [], "args": args}
     source, to_device, step = tr.batch_iter, tr._device_batch, tr._step
 
@@ -2227,16 +2262,35 @@ def _versus_host(rec: dict, vocab: int) -> dict:
     return out
 
 
+def _attention_flops(cfg, b: int, s: int) -> float:
+    """Forward FLOPs of the attention's QK^T and PV over a sequence of ``s``
+    in every attention layer, as the reference's schedules compute them: a
+    banded layer S x (window + c) per head (its band of window // c + 1
+    chunks of c), any other S x S (the reference's flash schedule computes
+    every chunk; the port's skips the rows before a causal chunk, about half
+    of it, which this count ignores)."""
+    from repro_torch.models.attention import KV_CHUNK, _banded
+    from repro_torch.models.transformer import ATTENTION, window_of
+
+    total = 0
+    for mixer, _ in cfg.layer_kinds:
+        if mixer not in ATTENTION:
+            continue
+        window = window_of(cfg, mixer)
+        keys = window + min(window, KV_CHUNK, s) if _banded(s, window) else s
+        total += 4 * b * s * keys * cfg.num_heads * cfg.head_dim
+    return float(total)
+
+
 def _step_flops(cfg, b: int, s: int) -> float:
-    """Model FLOPs of one train step: 6 per weight of a matrix product and
-    token (forward, and twice that backward) and the attention's QK^T and PV
-    over the whole S x S as computed, 3x their forward; the loss chunks'
-    recompute is not counted."""
+    """Model FLOPs of one train step of a dense config: 6 per weight of a
+    matrix product and token (forward, and twice that backward) and the
+    attention's QK^T and PV (``_attention_flops``), 3x their forward; the
+    loss chunks' recompute and remat's are not counted."""
     d, hd = cfg.d_model, cfg.head_dim
     per_layer = d * hd * (2 * cfg.num_heads + 2 * cfg.num_kv_heads) + 3 * d * cfg.d_ff
     matmul = cfg.num_layers * per_layer + d * cfg.vocab_size
-    attention = cfg.num_layers * 4 * b * s * s * cfg.num_heads * hd
-    return 6.0 * matmul * b * s + 3.0 * attention
+    return 6.0 * matmul * b * s + 3.0 * _attention_flops(cfg, b, s)
 
 
 def _producer_wait(calls: list, dev, vocab: int, block_tokens: int, seed: int) -> dict:
@@ -2823,6 +2877,362 @@ def phase_blocks(dev, results: dict, smi: str, seed: int) -> None:
     emit("blocks_summary", card=smi, launches=total, serve_and_train_s=train_s)
 
 
+# The long phase: the reference's long-sequence attention schedules
+# (``models.attention.flash_attend`` and ``banded_attend``) and its remat
+# policies at ``configs/shapes.py``'s lengths, at published widths.  (a) Each
+# schedule against the plain version (``attend_plain``, the whole Sq x Sk)
+# on the card; (b) TinyLlama-1.1B training at train_4k's 4,096 tokens; (c)
+# its prefill at prefill_32k's 32,768 tokens, then decode; (d) the banded
+# schedule inside Mixtral-8x7B and RecurrentGemma-2B prefills.
+LONG_FLASH = (2, 4096, 32, 4, 64)        # batch, S, heads, KV heads, head dim
+LONG_BANDED = (1, 8192, 32, 4, 64)
+LONG_WINDOWS = (4096, 2048)
+LONG_TOL, LONG_GRAD_TOL = 3e-5, 1e-4     # tests/test_attention_equivalence.py's
+# bf16, per element: one bf16 step (2^-7 of the value) plus the float32 limit
+LONG_BF16_RTOL = 2.0 ** -7
+LONG_TRAIN_SEQ = 4096                    # train_4k
+LONG_TRAIN = ((2, "none", 6), (8, "full", 5))  # batch, remat, steps
+LONG_LOSS_RTOL = 1e-5
+LONG_PREFILL_SEQ = 32768                 # prefill_32k
+LONG_DECODE_STEPS = 8
+# Held at 2 layers: a prefill 512 tokens shorter (the flash schedule takes
+# multiples of 512) and 512 decode steps against the whole prefill.
+LONG_HELD_LAYERS, LONG_HELD_DECODE = 2, 512
+LONG_BANDED_SEQ = 8192
+LONG_BANDED_MODELS = (("mixtral-8x7b", 2), ("recurrentgemma-2b", 5))
+LONG_LAYER_TOL = 1e-4
+
+
+def _gb(n: int) -> float:
+    return n / 1e9
+
+
+def _schedule_case(dev, fn, plain, shape, dtype, seed: int, float64: bool = False) -> dict:
+    """One schedule against the plain version on the same unit-normal q, k,
+    v: the largest gaps of the output and of dq, dk, dv (of ``sum(out *
+    w)``), each one's ms forward and forward + backward (CUDA events), the
+    peak MB a forward + backward adds to its inputs, and under ``over`` what
+    passed its limit (checked once the line is printed).  With ``float64``
+    (float32 inputs), also each one's largest gaps from the plain version
+    in float64: which of the two a gap between them comes from."""
+    b, s, h, kvh, d = shape
+    gen = torch.Generator(dev).manual_seed(seed)
+    q = torch.randn(b, s, h, d, device=dev, generator=gen).to(dtype)
+    k = torch.randn(b, s, kvh, d, device=dev, generator=gen).to(dtype)
+    v = torch.randn(b, s, kvh, d, device=dev, generator=gen).to(dtype)
+    w = torch.randn(b, s, h, d, device=dev, generator=gen)
+    got, row = {}, {}
+    for name, f in (("schedule", fn), ("plain", plain)):
+        def fwd_bwd():
+            ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            (f(*ins).float() * w).sum().backward()
+            return ins
+
+        _free()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = f(*ins)
+        (out.float() * w).sum().backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        got[name] = [out.detach().float()] + [t.grad.float() for t in ins]
+        del out, ins
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: f(q, k, v), reps=3, warm=1)
+        row[name] = {"ms": fwd, "fwd_bwd_ms": cuda_ms(fwd_bwd, reps=3, warm=1),
+                     "fwd_bwd_peak_mb": peak / 2**20}
+    gaps = [float((a - b_).abs().max()) for a, b_ in zip(got["schedule"], got["plain"])]
+    atols = [LONG_TOL] + [LONG_GRAD_TOL] * 3
+    rtol = LONG_BF16_RTOL if dtype == torch.bfloat16 else 0.0
+    # each element's gap over its limit atol + rtol * |plain|: at most 1
+    ratios = [float(((a - b_).abs() / (atol + rtol * b_.abs())).max())
+              for a, b_, atol in zip(got["schedule"], got["plain"], atols)]
+    row.update(dtype=str(dtype).split(".")[-1], out_gap=gaps[0], dq_gap=gaps[1], dk_gap=gaps[2],
+               dv_gap=gaps[3], atols=atols, rtol=rtol, gap_over_limit=ratios)
+    row["over"] = [f"long: {fn.__name__} {what} is {gap} from the plain version ({ratio} of "
+                   f"its per-element limit)"
+                   for what, gap, ratio in zip(("out", "dq", "dk", "dv"), gaps, ratios) if ratio > 1]
+    if float64 and dtype == torch.float32:
+        _free()
+        ins = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+        out = plain(*ins)
+        (out * w.double()).sum().backward()
+        ref = [out.detach()] + [t.grad for t in ins]
+        del out, ins
+        row["from_float64"] = {name: [float((a.double() - r).abs().max())
+                                      for a, r in zip(got[name], ref)] for name in got}
+        del ref
+    del got
+    _free()
+    return row
+
+
+def _long_schedules(dev, smi: str, seed: int) -> None:
+    """(a) ``flash_attend`` (causal and not) at 2 x 4,096 tokens and
+    ``banded_attend`` at 8,192 tokens under windows of 4,096 and 2,048,
+    TinyLlama's heads (32 query, 4 KV, head dim 64), against the plain
+    version in float32 and bf16; flash and the plain version in float32
+    also against the plain version in float64."""
+    from repro_torch.models import attention
+
+    t0 = time.perf_counter()
+    rows = {}
+    for i, dtype in enumerate((torch.float32, torch.bfloat16)):
+        for causal in (True, False):
+            fn = functools.partial(attention.flash_attend, causal=causal, window=0)
+            fn.__name__ = "flash_attend"
+            rows[f"flash_{'causal' if causal else 'full'}_{i}"] = _schedule_case(
+                dev, fn, functools.partial(attention.attend_plain, causal=causal, window=0),
+                LONG_FLASH, dtype, seed + i, float64=True)
+        for window in LONG_WINDOWS:
+            fn = functools.partial(attention.banded_attend, window=window)
+            fn.__name__ = "banded_attend"
+            rows[f"banded_{window}_{i}"] = _schedule_case(
+                dev, fn, functools.partial(attention.attend_plain, causal=True, window=window),
+                LONG_BANDED, dtype, seed + i)
+    emit("long", part="schedules", card=smi, flash_shape=list(LONG_FLASH),
+         banded_shape=list(LONG_BANDED), cases=rows, phase_s=time.perf_counter() - t0)
+    over = [msg for row in rows.values() for msg in row["over"]]
+    check(not over, "; ".join(over))
+
+
+def _long_train(dev, smi: str, seed: int) -> dict:
+    """(b) TinyLlama-1.1B at full width and depth through the launcher's
+    objects at 4,096 tokens: batch 2 without remat, batch 8 with "full";
+    then, on the first run's first batch, the loss and every gradient under
+    "none" and "full" (whose backward pass recomputes each block) against
+    each other and the loss against the trainer's step 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch
+    from repro_torch.models import build_model
+    from repro_torch.pytree import leaves
+    from repro_torch.train.train_step import trainable
+
+    tiny = get_config("tinyllama-1.1b")
+    total: dict = {}
+    first = None
+    for batch, remat, steps in LONG_TRAIN:
+        _free()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec = _train_run(dev, seed, steps, batch=batch, seq=LONG_TRAIN_SEQ, remat=remat)
+        peak = torch.cuda.max_memory_allocated()
+        out, launches = rec["out"], rec["launches"]
+        losses = out["losses"]
+        check(len(losses) == steps and all(np.isfinite(losses)),
+              f"long train {remat}: losses not all finite: {losses}")
+        check(out["restarts"] == 0, f"long train {remat}: {out['restarts']} restarts")
+        check(launches["fingerprint"] > 0, f"long train {remat}: the fingerprint kernel never ran")
+        check(rec["consumed"] == [d for d, _ in rec["made"][:steps]],
+              f"long train {remat}: the trainer did not consume the pipeline's batches in order")
+        versus_host = _versus_host(rec, tiny.vocab_size)
+        b, s = rec["args"].batch, rec["args"].seq
+        median_s = float(np.median(rec["step_s"][1:]))
+        flops = _step_flops(tiny, b, s)
+        emit("long", part="train", card=smi, model=tiny.name, layers=tiny.num_layers,
+             batch=[b, s], remat=remat, steps=out["final_step"], losses=losses,
+             run_s=rec["run_s"], median_step_ms=median_s * 1e3,
+             step_ms=[x * 1e3 for x in rec["step_s"]], tokens_per_s=b * s / median_s,
+             step_model_flops=flops, model_tflops_per_s=flops / median_s / 1e12,
+             max_memory_allocated=peak, peak_gb=_gb(peak), versus_host=versus_host,
+             launches=launches, phase_s=time.perf_counter() - t0)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        if first is None:
+            first = (rec["args"], losses[0])
+        del rec
+        _free()
+    args, want = first
+    batch = launch.make_pipeline(args, tiny.vocab_size, "cpu").next_batch(args.batch, args.seq)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    params = trainable(build_model(tiny).init(torch.Generator(dev).manual_seed(args.seed)))
+    losses, grads, peaks = {}, {}, {}
+    for remat in ("none", "full"):
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = build_model(tiny, remat=remat).train_loss(params, batch)
+        grads[remat] = torch.autograd.grad(loss, leaves(params))
+        torch.cuda.synchronize()
+        losses[remat] = float(loss.detach())
+        peaks[remat] = _gb(torch.cuda.max_memory_allocated())
+        del loss
+    for remat, got in losses.items():
+        check(abs(got - want) <= LONG_LOSS_RTOL * abs(want),
+              f"long train: remat {remat}'s first loss {got} != the trainer's step 1 {want}")
+    # remat's recompute in the backward pass against the kept activations:
+    # each leaf's gradient, its largest gap over its largest entry
+    grad_gaps = [float((f - n).abs().max() / n.abs().max().clamp(min=1e-30))
+                 for n, f in zip(grads["none"], grads["full"])]
+    worst = int(np.argmax(grad_gaps))
+    check(grad_gaps[worst] <= LONG_LOSS_RTOL,
+          f"long train: remat full's gradient of leaf {worst} is {grad_gaps[worst]} (relative) "
+          f"from none's")
+    emit("long", part="train_remat_check", card=smi, batch=[args.batch, args.seq],
+         trainer_first_loss=want, first_loss=losses,
+         loss_rel_gap={r: abs(g - want) / abs(want) for r, g in losses.items()},
+         grad_leaves=len(grad_gaps), grad_max_rel_gap=grad_gaps[worst], rtol=LONG_LOSS_RTOL,
+         fwd_bwd_peak_gb=peaks)
+    del params, batch, grads
+    _free()
+    return total
+
+
+def _long_prefill(dev, smi: str, seed: int) -> None:
+    """(c) TinyLlama-1.1B at full depth prefills 32,768 tokens (bf16 compute)
+    and decodes 8; at 2 layers in float32, a prefill 512 tokens shorter and
+    512 decode steps are held against the whole prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    tiny = get_config("tinyllama-1.1b")
+    s, n = LONG_PREFILL_SEQ, LONG_DECODE_STEPS
+    toks = torch.randint(0, tiny.vocab_size, (1, s + n), device=dev,
+                         generator=torch.Generator(dev).manual_seed(seed + 1))
+    t0 = time.perf_counter()
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(tiny)
+    params = model.init(torch.Generator(dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits, cache = model.prefill(params, {"inputs": toks[:, :s]}, slots=s + n)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    prefill_peak = torch.cuda.max_memory_allocated()
+    model.load(params)
+    del params
+    steps = []
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(n):
+        got, cache = model.decode_step(cache, toks[:, s + i:s + i + 1], s + i)
+        steps.append(got)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    check(bool(torch.isfinite(logits).all()) and all(bool(torch.isfinite(g).all()) for g in steps),
+          "long prefill: non-finite logits")
+    full = {"layers": tiny.num_layers, "compute_dtype": tiny.compute_dtype, "prefill_s": prefill_s,
+            "prefill_tokens_per_s": s / prefill_s, "prefill_peak_gb": _gb(prefill_peak),
+            "decode_ms_per_step": decode_s / n * 1e3, "decode_steps": n,
+            "peak_gb": _gb(torch.cuda.max_memory_allocated())}
+    del model, cache, logits, steps
+    _free()
+
+    cut = tiny.replace(num_layers=LONG_HELD_LAYERS, compute_dtype="float32")
+    model = build_model(cut)
+    params = model.init(torch.Generator(dev).manual_seed(seed))
+    start = s - LONG_HELD_DECODE
+    want, _ = model.prefill(params, {"inputs": toks[:, :s]})
+    _, cache = model.prefill(params, {"inputs": toks[:, :start]}, slots=s)
+    model.load(params)
+    for pos in range(start, s):
+        got, cache = model.decode_step(cache, toks[:, pos:pos + 1], pos)
+    gap = float((got - want).abs().max())
+    check(gap <= PREFILL_F32_TOL,
+          f"long prefill: {LONG_HELD_LAYERS} layers, prefill + {LONG_HELD_DECODE} decode steps "
+          f"is {gap} from the longer prefill (> {PREFILL_F32_TOL})")
+    emit("long", part="prefill", card=smi, model=tiny.name, tokens=s, full_depth=full,
+         held={"layers": LONG_HELD_LAYERS, "prefix": start, "decode_steps": LONG_HELD_DECODE,
+               "float32_gap": gap, "tol": PREFILL_F32_TOL,
+               "max_abs_logit": float(want.abs().max())},
+         phase_s=time.perf_counter() - t0)
+    del model, params, cache, want, got
+    _free()
+
+
+def _long_banded(dev, smi: str, seed: int) -> None:
+    """(d) Mixtral-8x7B at 2 layers (window 4,096) and RecurrentGemma-2B at 5
+    (local window 2,048) prefill 8,192 tokens through the banded schedule;
+    one Mixtral attention layer against the plain version in float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, build_model
+    from repro_torch.models.transformer import ATTENTION, window_of
+
+    s = LONG_BANDED_SEQ
+    banded = attention.banded_attend
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(kw["window"])
+        return banded(*a, **kw)
+
+    rows = {}
+    for arch, layers in LONG_BANDED_MODELS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).replace(num_layers=layers)
+        windows = [window_of(cfg, m) for m, _ in cfg.layer_kinds if m in ATTENTION]
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        params = build_model(cfg).init(torch.Generator(dev).manual_seed(seed))
+        toks = torch.randint(0, cfg.vocab_size, (1, s), device=dev,
+                             generator=torch.Generator(dev).manual_seed(seed + 1))
+        del calls[:]
+        attention.banded_attend = counted
+        try:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, cache = build_model(cfg).prefill(params, {"inputs": toks})
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t1
+        finally:
+            attention.banded_attend = banded
+        check(bool(torch.isfinite(logits).all()), f"long banded {arch}: non-finite logits")
+        check(calls == windows and all(0 < w < s for w in windows),
+              f"long banded {arch}: banded schedule calls {calls}, attention windows {windows}")
+        rows[arch] = {"layers": layers, "windows": windows, "banded_calls": len(calls),
+                      "prefill_s": prefill_s, "prefill_tokens_per_s": s / prefill_s,
+                      "attention_fwd_flops": _attention_flops(cfg, 1, s),
+                      "peak_gb": _gb(torch.cuda.max_memory_allocated())}
+        if arch == "mixtral-8x7b":
+            p = {k: t[0].clone() for k, t in params["scan"]["pos0"]["mixer"].items()}
+        del params, cache, logits
+        _free()
+        if arch == "mixtral-8x7b":
+            rows[arch]["layer_vs_plain"] = _banded_layer_check(dev, cfg, p, seed)
+            del p
+            _free()
+        rows[arch]["phase_s"] = time.perf_counter() - t0
+    emit("long", part="banded", card=smi, tokens=s, models=rows)
+
+
+def _banded_layer_check(dev, cfg, p: dict, seed: int) -> dict:
+    """One Mixtral attention layer (float32 weights and input, 8,192 tokens)
+    through ``attention_train`` (the banded schedule) against the same
+    projections through ``attend_plain``."""
+    from repro_torch.models import attention
+
+    s, d = LONG_BANDED_SEQ, cfg.d_model
+    x = torch.randn(1, s, d, device=dev, generator=torch.Generator(dev).manual_seed(seed + 2))
+    pos = torch.arange(s, device=dev, dtype=torch.int32)[None]
+    with torch.no_grad():
+        got = attention.attention_train(p, x, pos, window=cfg.attn_window,
+                                        rope_theta=cfg.rope_theta)[0]
+        q, k, v = attention.project_qkv(p, x, pos, rope_theta=cfg.rope_theta)
+        want = attention.attend_plain(q, k, v, causal=True, window=cfg.attn_window)
+        want = want.reshape(1, s, -1) @ p["wo"].reshape(-1, d)
+    gap = float((got - want).abs().max())
+    check(gap <= LONG_LAYER_TOL, f"long banded: a Mixtral layer is {gap} from the plain version")
+    return {"float32_gap": gap, "tol": LONG_LAYER_TOL, "max_abs_out": float(want.abs().max())}
+
+
+def phase_long(dev, results: dict, smi: str, seed: int) -> None:
+    """The long-sequence schedules and remat: (a) against the plain version,
+    (b) TinyLlama training at 4,096 tokens, (c) its 32,768-token prefill,
+    (d) banded prefills.  Launch counts are zeroed just before each trainer
+    run of (b) and read just after; ``launches_by_path["long"]`` sums them."""
+    t0 = time.perf_counter()
+    _long_schedules(dev, smi, seed)
+    total = _long_train(dev, smi, seed)
+    _long_prefill(dev, smi, seed)
+    _long_banded(dev, smi, seed)
+    for name in KERNELS:
+        results.setdefault(name, {}).setdefault("launches_by_path", {})["long"] = \
+            total.get(name, 0)
+    check(total.get("fingerprint", 0) > 0, "long: the fingerprint kernel never launched")
+    emit("long_summary", card=smi, launches=total, phase_s=time.perf_counter() - t0)
+
+
 # The frontend phase: ``benchmarks/serving_latency.py`` at its default scale
 # (16 tenants with Zipf volume skew, 16 connections each, 120,000 requests, 4
 # shards of 8,192 cache entries, batches of up to 1,024 writes or 2 ms, 16,384
@@ -3060,6 +3470,7 @@ def main() -> int:
     phase_ingest(dev, results, args.seed)
     phase_train(dev, results, args.seed)
     phase_blocks(dev, results, smi, args.seed)
+    phase_long(dev, results, smi, args.seed)
     phase_frontend(dev, results, srv, args.seed)
     for name in KERNELS:
         results[name]["launches"] = sum(results[name]["launches_by_path"].values())

@@ -67,18 +67,20 @@ def make_pipeline(args: argparse.Namespace, vocab: int, device) -> DedupIngestPi
 
 
 def build(args: argparse.Namespace, cfg: Optional[ModelConfig] = None,
-          chaos: Optional[Callable[[int], None]] = None) -> Tuple[Trainer, DedupIngestPipeline]:
+          chaos: Optional[Callable[[int], None]] = None,
+          remat: str = "none") -> Tuple[Trainer, DedupIngestPipeline]:
     """The launcher's trainer over its pipeline, both on ``args.device``;
     ``cfg`` stands in for ``--arch``/``--smoke``'s config (a cut of it),
-    ``chaos`` is the trainer's failure injection.  Any decoder-only model
-    trains; an encoder-decoder one raises ``ValueError`` (the reference's
-    launcher fails on it too)."""
+    ``chaos`` is the trainer's failure injection, ``remat`` the model's
+    policy (the launcher itself, as the reference's, trains without).  Any
+    decoder-only model trains; an encoder-decoder one raises ``ValueError``
+    (the reference's launcher fails on it too)."""
     cfg = cfg or get_config(args.arch, smoke=args.smoke)
     if cfg.is_encdec:
         raise ValueError(f"{cfg.name}: an encoder-decoder model trains on encoder_embeds, "
                          f"which the token pipeline's batches do not carry")
     device = torch.device(args.device)
-    model = build_model(cfg)
+    model = build_model(cfg, remat=remat)
     params = model.init(torch.Generator(device).manual_seed(args.seed))
     pipe = make_pipeline(args, cfg.vocab_size, device)
     trainer = Trainer(

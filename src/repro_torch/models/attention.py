@@ -3,9 +3,19 @@ cross attention) and decoding against a dense or ring-buffer KV cache.
 
 The port's counterpart of the reference's ``models/attention.py``.  Weight
 layouts are the reference's: ``wq`` (d, H, hd), ``wk``/``wv`` (d, KVH, hd),
-``wo`` (H, hd, d).  The attention itself stays plain matrix products, as the
-reference computes it (einsums) outside any Pallas kernel;
+``wo`` (H, hd, d).  The attention itself is plain PyTorch tensor arithmetic,
+as the reference computes it (``jnp``) outside any Pallas kernel;
 ``kernels.paged_attention`` is the paged kernel.
+
+Over a whole sequence, ``attention_train`` takes the reference's schedules:
+``flash_attend`` (an online softmax over 512-key chunks) and, for a window
+shorter than the sequence, ``banded_attend`` (each query chunk against the
+key chunks of its window), both in float32 and both recomputing their
+chunks in the backward pass, so that nothing of Sq x Sk is kept.  The query
+heads of a KV head are grouped against it, never repeated.
+``attend_plain`` is the same function over the whole Sq x Sk, masked (the
+code ``attention_train`` ran before, sharing no helper with the schedules):
+the plain version they are held against.
 
 A sliding-window or local layer keeps only ``min(window, slots)`` cache
 slots and uses them as a ring: position ``pos`` goes to slot ``pos %
@@ -19,13 +29,14 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .layers import ParamFactory, apply_rope, rotate
 
 NEG_INF = -1e30
-# The reference's flash schedule walks the keys in chunks of this many and
-# asserts that a longer sequence is a multiple of it; the port refuses what
-# the reference refuses.
+# The flash schedule walks the keys in chunks of this many and refuses a
+# longer sequence that is not a multiple of it, as the reference asserts;
+# the banded schedule's chunk is at most this many tokens.
 KV_CHUNK = 512
 
 
@@ -38,12 +49,324 @@ def init_attention(pf: ParamFactory, d: int, heads: int, kv_heads: int, head_dim
     }
 
 
+def _band_chunk(s: int, window: int) -> Optional[int]:
+    """The banded schedule's chunk ``c = min(window, 512, S)`` for ``s``
+    tokens under ``window``, or ``None`` where it does not divide both (the
+    reference asserts that it does)."""
+    if window <= 0:
+        return None
+    c = min(window, KV_CHUNK, s)
+    return c if s % c == 0 and window % c == 0 else None
+
+
 def _banded(s: int, window: int) -> bool:
-    """Whether the reference takes its banded schedule (``_banded_attend``)
-    for a sequence of ``s`` tokens: it computes the same function as the
-    masked full form, which the port runs instead, and checks no length."""
-    return (window > 0 and s > window and s % min(window, KV_CHUNK, s) == 0
-            and window % min(window, KV_CHUNK) == 0)
+    """Whether a sequence of ``s`` tokens under ``window`` takes the banded
+    schedule: the reference's condition in ``attention_train``."""
+    return s > window and _band_chunk(s, window) is not None
+
+
+# ---------------------------------------------------------------------------
+# Schedules over a whole sequence.  q (B, Sq, H, D), k and v (B, Sk, KVH, D)
+# -> (B, Sq, H, D) in q's dtype.  Inside, the G = H / KVH query heads of a KV
+# head are rows of one matrix: (B, KVH, Sq, G, D), head h = kvh * G + g, so
+# that a run of query positions is a run of rows.
+# ---------------------------------------------------------------------------
+
+
+def _rows(x: torch.Tensor, kv_heads: int) -> torch.Tensor:
+    """(B, S, H, D) -> float32 (B, KVH, S, G, D), contiguous."""
+    b, s, h, d = x.shape
+    return x.float().view(b, s, kv_heads, h // kv_heads, d).transpose(1, 2).contiguous()
+
+
+def _unrows(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(B, KVH, S, G, D) -> (B, S, KVH * G, D) in ``dtype``."""
+    b, kvh, s, g, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, kvh * g, d).to(dtype)
+
+
+def _heads(x: torch.Tensor) -> torch.Tensor:
+    """K or V (B, S, KVH, D) -> float32 (B, KVH, S, D), contiguous."""
+    return x.float().transpose(1, 2).contiguous()
+
+
+def _masked(qi: torch.Tensor, kj: torch.Tensor, causal: bool,
+            window: int) -> Optional[torch.Tensor]:
+    """(Sq, 1, Sk) mask of the (query, key) pairs at positions qi, kj that
+    are not attended (``None``: every pair is): keys after the query when
+    ``causal``, keys ``window`` or more positions behind it."""
+    bad = None
+    if causal:
+        bad = kj[None, :] > qi[:, None]
+    if window > 0:
+        old = kj[None, :] <= qi[:, None] - window
+        bad = old if bad is None else bad | old
+    return None if bad is None else bad[:, None, :]
+
+
+def _logits(qf: torch.Tensor, kc: torch.Tensor, bad: Optional[torch.Tensor]) -> torch.Tensor:
+    """float32 logits (B, KVH, Sq, G, C) of scaled queries (B, KVH, Sq, G, D)
+    against keys (B, KVH, C, D), masked entries at ``NEG_INF``."""
+    b, kvh, sq, g, d = qf.shape
+    logits = (qf.reshape(b, kvh, sq * g, d) @ kc.transpose(-1, -2)).view(b, kvh, sq, g, -1)
+    if bad is not None:
+        logits.masked_fill_(bad, NEG_INF)
+    return logits
+
+
+def _pv(p: torch.Tensor, vc: torch.Tensor) -> torch.Tensor:
+    """Rows (B, KVH, Sq, G, C) times (B, KVH, C, D) -> (B, KVH, Sq, G, D)."""
+    b, kvh, sq, g, c = p.shape
+    return (p.reshape(b, kvh, sq * g, c) @ vc).view(b, kvh, sq, g, -1)
+
+
+# ``_tp`` sums over at most this many rows (query position x head) in one
+# product, then adds the products up.  One product over every row of a
+# chunk (Sq x G: 32,768 at 4,096 tokens and 8 heads a KV head) rounds its
+# float32 sum in a long chain: on an H100 it put dV 1.3e-4 from float64
+# (values to 11), where the whole-S plain version, which sums Sq rows a
+# head and then the heads, is 3e-5 from it; in blocks, 1.3e-5.
+TP_ROWS = 512
+
+
+def _tp(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """a^T x over every row: a (B, KVH, Sq, G, C) and x (B, KVH, Sq, G, D) ->
+    (B, KVH, C, D) (a chunk's dK or dV, summed over the query heads), the
+    rows taken ``TP_ROWS`` at a time."""
+    b, kvh, sq, g, c = a.shape
+    d = x.shape[-1]
+    per = max(1, TP_ROWS // g)        # query positions a product
+    n = sq // per * per
+    out = (a[:, :, :n].reshape(b, kvh, -1, per * g, c).transpose(-1, -2)
+           @ x[:, :, :n].reshape(b, kvh, -1, per * g, d)).sum(dim=2)
+    if n < sq:
+        out += a[:, :, n:].reshape(b, kvh, -1, c).transpose(-1, -2) @ x[:, :, n:].reshape(b, kvh, -1, d)
+    return out
+
+
+def _check_flash(sk: int) -> int:
+    ck = min(KV_CHUNK, sk)
+    if sk % ck:
+        raise ValueError(f"sequence length {sk} is not a multiple of {KV_CHUNK} "
+                         f"(the reference's flash attention asserts it)")
+    return ck
+
+
+def _flash_chunks(sq: int, sk: int, ck: int, causal: bool):
+    """(first row, first key) of each key chunk.  Causal, the rows before a
+    chunk's first key see none of it and attended a key in an earlier chunk
+    (their own position's, which is inside any window), so the reference's
+    update of them there is exactly the identity (``m`` unchanged,
+    ``exp(NEG_INF - m) = 0``): the chunk starts at the first row that sees
+    one of its keys."""
+    for j in range(0, sk, ck):
+        r0 = min(j, sq) if causal else 0
+        if r0 < sq:
+            yield r0, j
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``_flash_attend``: an online softmax over key chunks
+    of ``min(512, Sk)``.  Forward keeps the float32 output and the
+    log-sum-exp (B, KVH, Sq, G); backward walks the same chunks and
+    recomputes each chunk's probabilities from it (the reference's
+    ``jax.checkpoint`` of the scan body), with ``delta = rowsum(dO * O)``
+    taken from the float32 output, as the reference's gradient of its
+    float32 scan takes it, not from the output rounded to q's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        b, sq, h, d = q.shape
+        sk, kvh = k.shape[1], k.shape[2]
+        ck = _check_flash(sk)
+        qf = _rows(q.float() * d ** -0.5, kvh)
+        kf, vf = _heads(k), _heads(v)
+        qi = torch.arange(sq, device=q.device)
+        m = torch.full(qf.shape[:-1], -float("inf"), dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qf)
+        for r0, j in _flash_chunks(sq, sk, ck, causal):
+            kj = torch.arange(j, j + ck, device=q.device)
+            logits = _logits(qf[:, :, r0:], kf[:, :, j:j + ck],
+                             _masked(qi[r0:], kj, causal, window))
+            m_old = m[:, :, r0:]
+            m_new = torch.maximum(m_old, logits.amax(dim=-1))
+            p = logits.sub_(m_new[..., None]).exp_()
+            corr = torch.exp(m_old - m_new)
+            l[:, :, r0:] = l[:, :, r0:] * corr + p.sum(dim=-1)
+            acc[:, :, r0:] = acc[:, :, r0:] * corr[..., None] + _pv(p, vf[:, :, j:j + ck])
+            m[:, :, r0:] = m_new
+        o = acc.div_(l.clamp(min=1e-30)[..., None])
+        ctx.save_for_backward(q, k, v, o, m + torch.log(l))
+        ctx.args = (causal, window)
+        return _unrows(o, q.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window = ctx.args
+        b, sq, h, d = q.shape
+        sk, kvh = k.shape[1], k.shape[2]
+        ck, scale = min(KV_CHUNK, sk), d ** -0.5
+        qf = _rows(q.float() * scale, kvh)
+        kf, vf = _heads(k), _heads(v)
+        do = _rows(dout, kvh)
+        delta = (do * o).sum(dim=-1, keepdim=True)
+        qi = torch.arange(sq, device=q.device)
+        dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+        for r0, j in _flash_chunks(sq, sk, ck, causal):
+            kc, vc, doc = kf[:, :, j:j + ck], vf[:, :, j:j + ck], do[:, :, r0:]
+            kj = torch.arange(j, j + ck, device=q.device)
+            p = _logits(qf[:, :, r0:], kc, _masked(qi[r0:], kj, causal, window))
+            p = p.sub_(lse[:, :, r0:, :, None]).exp_()
+            dv[:, :, j:j + ck] = _tp(p, doc)
+            ds = _pv(doc, vc.transpose(-1, -2)).sub_(delta[:, :, r0:]).mul_(p)
+            dq[:, :, r0:] += _pv(ds, kc)
+            dk[:, :, j:j + ck] = _tp(ds, qf[:, :, r0:])
+        return (_unrows(dq * scale, q.dtype), dk.transpose(1, 2).to(k.dtype),
+                dv.transpose(1, 2).to(v.dtype), None, None)
+
+
+def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                 window: int) -> torch.Tensor:
+    """Attention of q (B, Sq, H, D) at positions 0..Sq-1 over k, v (B, Sk,
+    KVH, D) at 0..Sk-1, the reference's ``_flash_attend``: q scaled in
+    float32, 512-key chunks (all of Sk if shorter) with the running max,
+    sum and accumulator in float32, masked entries at ``NEG_INF`` (a row
+    whose first chunks are all masked is wiped by the ``exp(m - m_new)``
+    correction, as there), the output ``acc / max(l, 1e-30)`` in q's dtype.
+    Causal, a chunk skips the rows that see none of its keys
+    (``_flash_chunks``).  Nothing of Sq x Sk is kept for the backward pass.
+    Raises ``ValueError`` where the reference asserts: Sk over 512 and not a
+    multiple of it."""
+    return _Flash.apply(q, k, v, causal, window)
+
+
+def _band(x: torch.Tensor, i: int, c: int, p: int) -> torch.Tensor:
+    """Keys or values (B, KVH, S, D) of query chunk i's band: chunks i - p to
+    i, oldest first, those before position 0 zeros -> (B, KVH, (p+1) c, D)."""
+    lo = (i - p) * c
+    band = x[:, :, max(lo, 0):(i + 1) * c]
+    return F.pad(band, (0, 0, -lo, 0)) if lo < 0 else band
+
+
+def _band_scatter(acc: torch.Tensor, grad: torch.Tensor, i: int, c: int, p: int) -> None:
+    """Add a band's gradient (B, KVH, (p+1) c, D) into acc (B, KVH, S, D),
+    dropping the zero chunks before position 0."""
+    lo = (i - p) * c
+    acc[:, :, max(lo, 0):(i + 1) * c] += grad[:, :, max(-lo, 0):]
+
+
+def _check_banded(s: int, window: int) -> Tuple[int, int]:
+    c = _band_chunk(s, window)
+    if c is None:
+        raise ValueError(f"the banded schedule needs S ({s}) and the window ({window}) to be "
+                         f"multiples of its chunk min(window, {KV_CHUNK}, S) (the reference "
+                         f"asserts it)")
+    return c, window // c
+
+
+def _band_probs(qc: torch.Tensor, kb: torch.Tensor, i: int, c: int, p: int,
+                window: int) -> torch.Tensor:
+    """Query chunk i's softmax (B, KVH, c, G, (p+1) c) over its band: the
+    reference's ``valid`` mask (causal, inside the window, not before
+    position 0), ``exp(x - max) / sum`` as ``jax.nn.softmax``."""
+    kj = torch.arange((p + 1) * c, device=qc.device)
+    qi = torch.arange(c, device=qc.device)
+    bad = ((kj[None, :] > qi[:, None] + p * c)
+           | (kj[None, :] <= qi[:, None] + p * c - window)
+           | (kj[None, :] + (i - p) * c < 0))
+    logits = _logits(qc, kb, bad[:, None, :])
+    probs = logits.sub_(logits.amax(dim=-1, keepdim=True)).exp_()
+    return probs.div_(probs.sum(dim=-1, keepdim=True))
+
+
+class _Banded(torch.autograd.Function):
+    """The reference's ``_banded_attend``: query chunk i (of ``c = min(window,
+    512, S)`` tokens) against key chunks i - window/c to i, a softmax over
+    the band; backward recomputes each query chunk's softmax."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int):
+        b, s, h, d = q.shape
+        c, p = _check_banded(s, window)
+        qf = _rows(q.float() * d ** -0.5, k.shape[2])
+        kf, vf = _heads(k), _heads(v)
+        out = torch.empty_like(qf)
+        for i in range(s // c):
+            probs = _band_probs(qf[:, :, i * c:(i + 1) * c], _band(kf, i, c, p), i, c, p, window)
+            out[:, :, i * c:(i + 1) * c] = _pv(probs, _band(vf, i, c, p))
+        ctx.save_for_backward(q, k, v)
+        ctx.window = window
+        return _unrows(out, q.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        window = ctx.window
+        b, s, h, d = q.shape
+        c, p = _check_banded(s, window)
+        scale = d ** -0.5
+        qf = _rows(q.float() * scale, k.shape[2])
+        kf, vf = _heads(k), _heads(v)
+        do = _rows(dout, k.shape[2])
+        dq, dk, dv = torch.empty_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+        for i in range(s // c):
+            rows = slice(i * c, (i + 1) * c)
+            qc, doc = qf[:, :, rows], do[:, :, rows]
+            kb, vb = _band(kf, i, c, p), _band(vf, i, c, p)
+            probs = _band_probs(qc, kb, i, c, p, window)
+            _band_scatter(dv, _tp(probs, doc), i, c, p)
+            dp = _pv(doc, vb.transpose(-1, -2))
+            ds = dp.sub_((dp * probs).sum(dim=-1, keepdim=True)).mul_(probs)
+            dq[:, :, rows] = _pv(ds, kb) * scale
+            _band_scatter(dk, _tp(ds, qc), i, c, p)
+        return (_unrows(dq, q.dtype), dk.transpose(1, 2).to(k.dtype),
+                dv.transpose(1, 2).to(v.dtype), None)
+
+
+def banded_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int) -> torch.Tensor:
+    """Causal attention of q (B, S, H, D) over k, v (B, S, KVH, D) keeping
+    the keys less than ``window`` positions behind each query, the
+    reference's ``_banded_attend``: O(S x window) work in float32, chunks
+    of ``c = min(window, 512, S)``, each query chunk against ``window // c
+    + 1`` key chunks (those before position 0 zeros, masked), a softmax
+    over the band, the output in q's dtype.  Raises ``ValueError`` unless
+    ``c`` divides S and the window, as the reference asserts."""
+    return _Banded.apply(q, k, v, window)
+
+
+def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                 window: int) -> torch.Tensor:
+    """The same function as ``flash_attend`` and ``banded_attend`` over the
+    whole Sq x Sk at once, masked: float32 logits and probabilities (B, KVH,
+    G, Sq, Sk; float64 for float64 inputs), which autograd keeps.  It is the
+    whole-sequence code
+    ``attention_train`` ran before the schedules, kept apart from their
+    helpers (its own masks, layout and casts) so that the plain version the
+    schedules are held against shares none of their code; no path of the
+    port calls it."""
+    b, s, heads, hd = q.shape
+    sk, kv_heads = k.shape[1], k.shape[2]
+    groups = heads // kv_heads
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf = (q.to(acc) * hd ** -0.5).view(b, s, kv_heads, groups, hd).permute(0, 2, 3, 1, 4)
+    kf = k.to(acc).permute(0, 2, 3, 1).unsqueeze(2)            # (B, KVH, 1, hd, Sk)
+    vf = v.to(acc).transpose(1, 2).unsqueeze(2)                # (B, KVH, 1, Sk, hd)
+    logits = qf @ kf                                           # (B, KVH, G, S, Sk)
+    if causal or window:
+        qi = torch.arange(s, device=q.device)[:, None]
+        kj = torch.arange(sk, device=q.device)[None, :]
+        ok = torch.ones(s, sk, dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= kj <= qi
+        if window:
+            ok &= kj > qi - window
+        logits = torch.where(ok, logits, NEG_INF)
+    probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    out = (probs @ vf) / probs.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, heads, hd).to(q.dtype)
 
 
 def project_kv(p: dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -54,6 +377,26 @@ def project_kv(p: dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     k = (x @ p["wk"].reshape(d, kv_heads * hd)).view(b, s, kv_heads, hd)
     v = (x @ p["wv"].reshape(d, kv_heads * hd)).view(b, s, kv_heads, hd)
     return k, v
+
+
+def _project_q(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Unrotated Q (B, S, H, hd) of x (B, S, d)."""
+    b, s, d = x.shape
+    heads, hd = p["wq"].shape[1], p["wq"].shape[2]
+    return (x @ p["wq"].reshape(d, heads * hd)).view(b, s, heads, hd)
+
+
+def project_qkv(p: dict, x: torch.Tensor, positions: Optional[torch.Tensor], *,
+                rope_theta: float = 10_000.0, mrope_sections: Sequence[int] = (),
+                use_rope: bool = True) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Q (B, S, H, hd), K and V (B, S, KVH, hd) of x (B, S, d), Q and K
+    rotated at ``positions`` unless ``use_rope`` is false."""
+    q = _project_q(p, x)
+    k, v = project_kv(p, x)
+    if use_rope:
+        q = apply_rope(q, positions, rope_theta, mrope_sections)
+        k = apply_rope(k, positions, rope_theta, mrope_sections)
+    return q, k, v
 
 
 def attention_train(p: dict, x: torch.Tensor, positions: Optional[torch.Tensor], *,
@@ -67,56 +410,27 @@ def attention_train(p: dict, x: torch.Tensor, positions: Optional[torch.Tensor],
     ``window > 0`` keeps, for each query, the keys less than ``window``
     positions behind it (sliding-window and local attention).
     ``kv_override`` (k, v), each (B, Sk, KVH, hd), is cross-attention: the
-    queries attend every key, with no rotation and no mask.
-
-    The reference computes it in ``_flash_attend``, an online softmax over
-    512-key chunks in float32 (or, for a window shorter than S, a banded
-    chunk schedule, the same function): q scaled in float32, logits and the
-    accumulator in float32, the output cast to q's dtype.  Here the same
-    float32 arithmetic runs as plain products over the whole Sq x Sk, masked
-    (equal to the flash schedule's single chunk for Sk <= 512, within
-    float32 rounding beyond), the query heads of a KV head grouped against
-    it as in ``attention_decode``.  So its memory grows with Sq x Sk: the
-    float32 logits and probabilities are (B, H, Sq, Sk) each, and autograd
-    keeps them for the backward pass, which is small at the launcher's 256
-    tokens (a chunked schedule for long sequences is ROADMAP.md's).  Lengths
-    the reference's flash schedule rejects (over 512 and not a multiple of
-    it) raise ``ValueError``.  Returns the output (B, S, d) and the K and V
-    attended (B, Sk, KVH, hd; rotated, for self-attention), which prefill
-    stores in its cache."""
+    queries attend every key, with no rotation and no mask.  The schedule is
+    the reference's: cross-attention goes to ``flash_attend`` unmasked, a
+    window shorter than the sequence (with the chunk dividing both) to
+    ``banded_attend``, the rest to ``flash_attend``; so lengths the
+    reference rejects (over 512 and not a multiple of it, outside the
+    banded schedule) raise ``ValueError``.
+    Returns the output (B, S, d) and the K and V attended (B, Sk, KVH, hd;
+    rotated, for self-attention), which prefill stores in its cache."""
     b, s, d = x.shape
-    heads, hd = p["wq"].shape[1], p["wq"].shape[2]
-    q = (x @ p["wq"].reshape(d, heads * hd)).view(b, s, heads, hd)
-    if kv_override is None:
-        k, v = project_kv(p, x)
-        if use_rope:
-            q = apply_rope(q, positions, rope_theta, mrope_sections)
-            k = apply_rope(k, positions, rope_theta, mrope_sections)
-    else:
+    if kv_override is not None:
+        q = _project_q(p, x)
         k, v = kv_override
-        causal, window = False, 0
-    sk, kv_heads = k.shape[1], k.shape[2]
-    if not _banded(s, window) and sk > KV_CHUNK and sk % KV_CHUNK:
-        raise ValueError(f"sequence length {sk} is not a multiple of {KV_CHUNK} "
-                         f"(the reference's flash attention asserts it)")
-    groups = heads // kv_heads
-    qf = (q.float() * hd ** -0.5).view(b, s, kv_heads, groups, hd).permute(0, 2, 3, 1, 4)
-    kf = k.float().permute(0, 2, 3, 1).unsqueeze(2)            # (B, KVH, 1, hd, Sk)
-    vf = v.float().transpose(1, 2).unsqueeze(2)                # (B, KVH, 1, Sk, hd)
-    logits = qf @ kf                                           # (B, KVH, G, S, Sk)
-    if causal or window:
-        qi = torch.arange(s, device=x.device)[:, None]
-        kj = torch.arange(sk, device=x.device)[None, :]
-        ok = torch.ones(s, sk, dtype=torch.bool, device=x.device)
-        if causal:
-            ok &= kj <= qi
-        if window:
-            ok &= kj > qi - window
-        logits = torch.where(ok, logits, NEG_INF)
-    probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    out = (probs @ vf) / probs.sum(dim=-1, keepdim=True).clamp(min=1e-30)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, heads * hd).to(q.dtype)
-    return out @ p["wo"].reshape(heads * hd, d), k, v
+        out = flash_attend(q, k, v, causal=False, window=0)
+    else:
+        q, k, v = project_qkv(p, x, positions, rope_theta=rope_theta,
+                              mrope_sections=mrope_sections, use_rope=use_rope)
+        if _banded(s, window):
+            out = banded_attend(q, k, v, window=window)
+        else:
+            out = flash_attend(q, k, v, causal=causal, window=window)
+    return out.reshape(b, s, -1) @ p["wo"].reshape(-1, d), k, v
 
 
 class KVCache(NamedTuple):
@@ -178,12 +492,9 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor, cache_v: t
     ``rope`` is ``layers.rope_angles`` at ``pos`` and ``valid`` is
     ``valid_slots`` for this cache, both made once per step by the caller.
     """
-    b, _, d = x.shape
-    heads, hd = p["wq"].shape[1], p["wq"].shape[2]
-    kv_heads = cache_k.shape[2]
-    q = rotate((x @ p["wq"].reshape(d, heads * hd)).view(b, 1, heads, hd), *rope)
-    k_new = rotate((x @ p["wk"].reshape(d, kv_heads * hd)).view(b, 1, kv_heads, hd), *rope)
-    v_new = (x @ p["wv"].reshape(d, kv_heads * hd)).view(b, 1, kv_heads, hd)
+    q = rotate(_project_q(p, x), *rope)
+    k_new, v_new = project_kv(p, x)
+    k_new = rotate(k_new, *rope)
     slot = pos % cache_k.shape[1]
     cache_k[:, slot] = k_new[:, 0]
     cache_v[:, slot] = v_new[:, 0]
@@ -194,7 +505,4 @@ def cross_attention_decode(p: dict, x: torch.Tensor, mem_k: torch.Tensor,
                            mem_v: torch.Tensor) -> torch.Tensor:
     """One token x (B, 1, d) against a cross-attention memory (B, Sk, KVH,
     hd), read only: no rotation, every key attended."""
-    b, _, d = x.shape
-    heads, hd = p["wq"].shape[1], p["wq"].shape[2]
-    q = (x @ p["wq"].reshape(d, heads * hd)).view(b, 1, heads, hd)
-    return _attend_one(p, q, mem_k, mem_v, None)
+    return _attend_one(p, _project_q(p, x), mem_k, mem_v, None)

@@ -12,6 +12,10 @@ Parameters take the reference's layout::
      "enc_scan": {"ln1", "attn", "ln2", "mlp"},                # each (L_enc, ...)
      "dec_scan": {"ln1", "self_attn", "ln_x", "cross_attn", "ln2", "mlp"}}
 
+``encode`` and ``train_loss`` take the reference's ``remat``: ``"full"`` and
+``"dots"`` alike recompute each encoder and decoder layer from its input in
+the backward pass, as the reference's encoder-decoder does.
+
 The decode cache is the reference's dictionary: ``self_k``/``self_v``
 (layers, B, slots, KVH, hd) and ``cross_k``/``cross_v`` (layers, B, S_enc,
 KVH, hd).
@@ -19,6 +23,7 @@ KVH, hd).
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Tuple
 
 import torch
@@ -28,7 +33,8 @@ from .attention import (attention_decode, attention_train, cross_attention_decod
                         init_attention, project_kv, valid_slots)
 from .layers import (ParamFactory, dtype_const, init_mlp, mlp_apply, rms_norm, rope_angles,
                      sinusoidal_positions, softmax_cross_entropy)
-from .transformer import default_positions, map_dict, stack_layers, unstack
+from .transformer import (check_remat, default_positions, map_dict, remat_call, stack_layers,
+                          unstack)
 
 
 def _enc_layer_init(pf: ParamFactory, cfg: C.ModelConfig) -> Dict:
@@ -74,17 +80,29 @@ def _mlp(p: Dict, h: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
     return mlp_apply(h, p["w_in"], p.get("w_gate"), p["w_out"], cfg.act)
 
 
-def encode(params: Dict, embeds: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
+def _layer_remat(remat: str) -> str:
+    """The encoder-decoder's policy for a layer: "dots" recomputes it whole."""
+    check_remat(remat)
+    return "none" if remat == "none" else "full"
+
+
+def _enc_layer(lp: Dict, cfg: C.ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + attention_train(lp["attn"], h, None, causal=False, use_rope=False)[0]
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + _mlp(lp["mlp"], h, cfg)
+
+
+def encode(params: Dict, embeds: torch.Tensor, cfg: C.ModelConfig,
+           remat: str = "none") -> torch.Tensor:
     """Frame embeddings (B, S_enc, d) -> encoder states (B, S_enc, d) in the
     compute dtype."""
+    policy = _layer_remat(remat)
     b, s, d = embeds.shape
     x = embeds.to(getattr(torch, cfg.compute_dtype))
     x = x + sinusoidal_positions(s, d, device=x.device).to(x.dtype)[None]
     for lp in _layers(params["enc_scan"], cfg.encoder_layers, cfg):
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        x = x + attention_train(lp["attn"], h, None, causal=False, use_rope=False)[0]
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _mlp(lp["mlp"], h, cfg)
+        x = remat_call(functools.partial(_enc_layer, lp, cfg), policy, x)
     return rms_norm(x, params["enc_final_ln"], cfg.norm_eps)
 
 
@@ -95,32 +113,38 @@ def _embed(params: Dict, tokens: torch.Tensor, cfg: C.ModelConfig) -> torch.Tens
     return x * dtype_const(cfg.d_model ** 0.5, x)
 
 
+def _dec_layer(lp: Dict, positions: torch.Tensor, cfg: C.ModelConfig, x: torch.Tensor,
+               enc: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + attention_train(lp["self_attn"], h, positions, causal=True,
+                            rope_theta=cfg.rope_theta)[0]
+    h = rms_norm(x, lp["ln_x"], cfg.norm_eps)
+    x = x + attention_train(lp["cross_attn"], h, positions,
+                            kv_override=project_kv(lp["cross_attn"], enc))[0]
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + _mlp(lp["mlp"], h, cfg)
+
+
 def decoder_logits(params: Dict, enc: torch.Tensor, tokens: torch.Tensor,
-                   cfg: C.ModelConfig) -> torch.Tensor:
+                   cfg: C.ModelConfig, remat: str = "none") -> torch.Tensor:
     """The teacher-forced decoder over tokens (B, S) against the encoder
     states: (B, S, V) logits in the compute dtype."""
+    policy = _layer_remat(remat)
     x = _embed(params, tokens, cfg)
     positions = default_positions(tokens)
     for lp in _layers(params["dec_scan"], cfg.num_layers, cfg):
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        x = x + attention_train(lp["self_attn"], h, positions, causal=True,
-                                rope_theta=cfg.rope_theta)[0]
-        h = rms_norm(x, lp["ln_x"], cfg.norm_eps)
-        x = x + attention_train(lp["cross_attn"], h, positions,
-                                kv_override=project_kv(lp["cross_attn"], enc))[0]
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _mlp(lp["mlp"], h, cfg)
+        x = remat_call(functools.partial(_dec_layer, lp, positions, cfg), policy, x, enc)
     x = rms_norm(x, params["dec_final_ln"], cfg.norm_eps)
     return x @ params["embed"].to(x.dtype).T
 
 
-def train_loss(params: Dict, batch: Dict[str, torch.Tensor],
-               cfg: C.ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def train_loss(params: Dict, batch: Dict[str, torch.Tensor], cfg: C.ModelConfig,
+               remat: str = "none") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token loss of a batch {"encoder_embeds": (B, S_enc, d),
     "decoder_tokens", "targets": (B, S) int, "mask": (B, S) float}:
     ``(loss, {"ce_loss", "moe_aux"})`` (aux 0)."""
-    enc = encode(params, batch["encoder_embeds"], cfg)
-    logits = decoder_logits(params, enc, batch["decoder_tokens"], cfg)
+    enc = encode(params, batch["encoder_embeds"], cfg, remat)
+    logits = decoder_logits(params, enc, batch["decoder_tokens"], cfg, remat)
     loss = softmax_cross_entropy(logits, batch["targets"], batch["mask"])
     return loss, {"ce_loss": loss, "moe_aux": torch.zeros((), device=loss.device)}
 

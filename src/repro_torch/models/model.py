@@ -4,7 +4,9 @@
                           reference's ``Model.init(rng)``
 * ``train_loss(params, batch)`` -> (loss, {"ce_loss", "moe_aux"}); ``params``
                           explicit, as the reference's facade takes them
-                          (float32 leaves with ``requires_grad`` to train)
+                          (float32 leaves with ``requires_grad`` to train),
+                          under the model's ``remat`` policy ("none",
+                          "full" or "dots", as the reference's)
 * ``prefill(params, batch, slots=None)`` -> (last-position logits, cache) of
                           {"inputs"} or {"embeds"} with optional
                           {"positions"}; an encoder-decoder model takes
@@ -39,9 +41,11 @@ def impl(cfg: C.ModelConfig):
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: C.ModelConfig):
+    def __init__(self, cfg: C.ModelConfig, remat: str = "none"):
         super().__init__()
+        transformer.check_remat(remat)
         self.cfg = cfg
+        self.remat = remat
         self._paths = None
 
     # -- params ----------------------------------------------------------------
@@ -77,7 +81,7 @@ class Model(nn.Module):
 
     # -- training --------------------------------------------------------------
     def train_loss(self, params: Dict, batch: Dict[str, torch.Tensor]):
-        return impl(self.cfg).train_loss(params, batch, self.cfg)
+        return impl(self.cfg).train_loss(params, batch, self.cfg, self.remat)
 
     # -- serving ---------------------------------------------------------------
     def prefill(self, params: Dict, batch: Dict[str, torch.Tensor], slots: Optional[int] = None):
@@ -102,5 +106,5 @@ class Model(nn.Module):
         return transformer.init_cache(self.cfg, batch_size, slots, device=self.device)
 
 
-def build_model(cfg: C.ModelConfig) -> Model:
-    return Model(cfg)
+def build_model(cfg: C.ModelConfig, remat: str = "none") -> Model:
+    return Model(cfg, remat=remat)

@@ -24,9 +24,14 @@ For serving, ``cast_params`` casts the weights to the compute dtype once, at
 load; the reference casts each layer's weights on every step (``cast_tree``),
 which gives the same numbers.  ``train_loss`` and ``prefill`` cast on every
 call, as the reference does, so that gradients reach float32 master weights.
-Sharding hints (``shard_act``), ``scan_mode`` and the reference's ``remat``
-policies have no counterpart here: the layers run as a loop and autograd
-keeps their activations.
+Sharding hints (``shard_act``) and ``scan_mode`` have no counterpart here.
+The reference's ``remat`` policies do (``forward_train``, ``train_loss``):
+``"none"`` keeps every activation for the backward pass; ``"full"``
+recomputes each ``block_pattern`` group (the reference's checkpoint unit;
+the remainder layers are never recomputed) from its input in the backward
+pass; ``"dots"`` keeps only the weight products' outputs of each group and
+recomputes the rest, attention included.  Remat changes memory, not
+numbers.
 
 The decode cache of a model whose every layer is attention with one window
 is a single ``KVCache`` of (layers, B, slots, KVH, hd) (the server pages
@@ -37,10 +42,12 @@ layer keeps ``min(window, slots)`` slots as a ring.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import config as C
 from .attention import (KVCache, attention_decode, attention_train, init_attention,
@@ -59,6 +66,12 @@ LOSS_CHUNK = 512
 # Decode routes its one token a row with this capacity factor (the
 # reference's decode_step), training and prefill with the config's.
 DECODE_CAPACITY_FACTOR = 4.0
+
+# The reference's remat policies.
+REMAT = ("none", "full", "dots")
+# What "dots" keeps (``checkpoint_dots_with_no_batch_dims``): the outputs of
+# products without a batch dimension, which x @ W folds to.
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 LayerCache = Union[KVCache, RGLRUState, RWKVState]
 Cache = Union[KVCache, List[LayerCache]]
@@ -239,16 +252,36 @@ def _mlp_train(p: Dict, h: torch.Tensor, cfg: C.ModelConfig, mlp: str,
     raise ValueError(mlp)
 
 
-def forward_train(params: Dict, inputs: torch.Tensor, positions: torch.Tensor,
-                  cfg: C.ModelConfig,
-                  cache: Optional[Cache] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Backbone forward of tokens (B, S) or embeddings (B, S, d) -> final
-    hidden states (B, S, d) in the compute dtype, and the MoE aux loss summed
-    over the layers (float32; 0 without MoE).  A ``cache`` (``init_cache``)
-    takes each layer's state after the sequence (``_store``)."""
-    x = embed_inputs(params, inputs, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, (mixer, mlp, p) in enumerate(layers_of(params, cfg)):
+def check_remat(remat: str) -> None:
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r} is not one of {REMAT}")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_call(fn: Callable, remat: str, *args):
+    """``fn(*args)`` under a remat policy: as it is (``"none"``), recomputed
+    whole in the backward pass (``"full"``), or recomputed but for the
+    outputs of its weight products (``"dots"``)."""
+    if remat == "none":
+        return fn(*args)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    check_remat(remat)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                   _dots_policy))
+
+
+def _run_layers(layers: List[Tuple[str, str, Dict]], positions: torch.Tensor,
+                cfg: C.ModelConfig, caches: List[Optional[LayerCache]], x: torch.Tensor,
+                aux: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layers (``layers_of``'s entries) over x, the MoE aux loss added to
+    ``aux``; each layer with a cache stores its state in it."""
+    for (mixer, mlp, p), lc in zip(layers, caches):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         out, state = _mixer_train(p["mixer"], h, positions, cfg, mixer)
         x = x + out
@@ -257,8 +290,31 @@ def forward_train(params: Dict, inputs: torch.Tensor, positions: torch.Tensor,
         x = x + y
         if a is not None:
             aux = aux + a
-        if cache is not None:
-            _store(layer_cache(cache, i), state, h2)
+        if lc is not None:
+            _store(lc, state, h2)
+    return x, aux
+
+
+def forward_train(params: Dict, inputs: torch.Tensor, positions: torch.Tensor,
+                  cfg: C.ModelConfig, cache: Optional[Cache] = None,
+                  remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backbone forward of tokens (B, S) or embeddings (B, S, d) -> final
+    hidden states (B, S, d) in the compute dtype, and the MoE aux loss summed
+    over the layers (float32; 0 without MoE).  A ``cache`` (``init_cache``)
+    takes each layer's state after the sequence (``_store``).  ``remat``
+    applies to each ``block_pattern`` group (module docstring)."""
+    check_remat(remat)
+    x = embed_inputs(params, inputs, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = layers_of(params, cfg)
+    caches = [None if cache is None else layer_cache(cache, i) for i in range(len(layers))]
+    period = cfg.pattern_period
+    grouped = cfg.scan_groups * period
+    for g in range(0, grouped, period):
+        unit = slice(g, g + period)
+        x, aux = remat_call(functools.partial(_run_layers, layers[unit], positions, cfg,
+                                              caches[unit]), remat, x, aux)
+    x, aux = _run_layers(layers[grouped:], positions, cfg, caches[grouped:], x, aux)
     return rms_norm(x, params["final_ln"], cfg.norm_eps), aux
 
 
@@ -314,17 +370,18 @@ def chunked_ce_loss(params: Dict, x: torch.Tensor, targets: torch.Tensor, mask: 
     return total / mask.sum().clamp(min=1.0)
 
 
-def train_loss(params: Dict, batch: Dict[str, torch.Tensor],
-               cfg: C.ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def train_loss(params: Dict, batch: Dict[str, torch.Tensor], cfg: C.ModelConfig,
+               remat: str = "none") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token loss of a batch {"inputs": (B, S) int or "embeds":
     (B, S, d), "targets": (B, S) int, "mask": (B, S) float, optional
     "positions": (B, S) or (3, B, S)}: ``(total, {"ce_loss", "moe_aux"})``,
-    with total = ce_loss + 0.01 * moe_aux."""
+    with total = ce_loss + 0.01 * moe_aux; ``remat`` as in
+    ``forward_train``."""
     inputs = batch.get("embeds", batch.get("inputs"))
     positions = batch.get("positions")
     if positions is None:
         positions = default_positions(inputs)
-    x, aux = forward_train(params, inputs, positions, cfg)
+    x, aux = forward_train(params, inputs, positions, cfg, remat=remat)
     loss = chunked_ce_loss(params, x, batch["targets"], batch["mask"], cfg)
     return loss + 0.01 * aux, {"ce_loss": loss, "moe_aux": aux}
 

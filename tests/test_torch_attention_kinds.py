@@ -1,9 +1,9 @@
 """The port's attention kinds (``repro_torch.models.attention``) and
 position encodings against the reference, on the CPU in float32.
 
-* Sliding-window / local attention over a whole sequence: at S > window the
-  reference takes its banded chunk schedule (``_banded_attend``), the port
-  the masked full form; outputs within 1e-5 (and at S <= window, where both
+* Sliding-window / local attention over a whole sequence: at S > window
+  both packages take the banded chunk schedule (``_banded_attend``,
+  ``banded_attend``); outputs within 1e-5 (and at S <= window, where both
   mask the flash form).  Lengths: what the reference's banded path takes
   past 512 is taken; what its flash path rejects raises ``ValueError``.
 * Ring decode: 3 x window steps of ``attention_decode`` against a

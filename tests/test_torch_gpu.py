@@ -1093,3 +1093,43 @@ def test_launcher_trains_rwkv6_on_card(cuda):
     out = trainer.run()
     assert out["final_step"] == 3 and out["restarts"] == 0 and np.all(np.isfinite(out["losses"]))
     assert LAUNCHES["fingerprint"] > before
+
+
+SCHEDULES = [("flash", 2048, dict(causal=True, window=0)),
+             ("flash", 2048, dict(causal=False, window=0)),
+             ("flash", 2048, dict(causal=True, window=512)),
+             ("banded", 2048, dict(window=512)),
+             ("banded", 4096, dict(window=1024))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
+@pytest.mark.parametrize("kind,s,kw", SCHEDULES,
+                         ids=[f"{k}-{s}-{kw['window']}-{kw.get('causal', True)}"
+                              for k, s, kw in SCHEDULES])
+def test_attention_schedule_on_card_matches_plain(cuda, kind, s, kw, dtype):
+    """``flash_attend`` and ``banded_attend`` against ``attend_plain`` (the
+    whole Sq x Sk) on the card, 8 query heads over 2 KV heads of 64: the
+    output and the gradients of ``sum(out * w)``; float32 within 3e-5
+    (gradients 1e-4), bf16 within one bf16 step (2^-7 of the plain value)
+    plus those, element by element."""
+    from repro_torch.models import attention
+
+    gen = torch.Generator(cuda).manual_seed(s + kw["window"])
+    q = torch.randn(2, s, 8, 64, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(2, s, 2, 64, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(2, s, 2, 64, device=cuda, generator=gen).to(dtype)
+    w = torch.randn(2, s, 8, 64, device=cuda, generator=gen)
+    fn = attention.flash_attend if kind == "flash" else attention.banded_attend
+    got = {}
+    for name, f in (("schedule", lambda *a: fn(*a, **kw)),
+                    ("plain", lambda *a: attention.attend_plain(
+                        *a, causal=kw.get("causal", True), window=kw["window"]))):
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = f(*ins)
+        assert out.dtype == dtype and out.shape == q.shape
+        (out.float() * w).sum().backward()
+        got[name] = [out.detach().float()] + [t.grad.float() for t in ins]
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    for what, a, b in zip(("out", "dq", "dk", "dv"), got["schedule"], got["plain"]):
+        atol = 3e-5 if what == "out" else 1e-4
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol, msg=lambda m, w=what: f"{w}: {m}")
