@@ -200,7 +200,7 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   beside the plain version's.  (b) TinyLlama-1.1B at full
                   width and depth through the launcher's objects at
                   train_4k's 4,096 tokens: batch 2 without remat (6 steps),
-                  batch 8 with "full" (5 steps): finite losses, the host
+                  batch 2 with "full" (5 steps): finite losses, the host
                   pipeline's batches, median step ms, tokens/s, model
                   TFLOP/s, peak memory; on the first batch, "none"'s and
                   "full"'s loss equal to the first step's, and every
@@ -215,6 +215,31 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   one Mixtral attention layer against the plain version in
                   float32 (1e-4).  Launch counts are zeroed before each run
                   of (b) and read after.
+* ``sharding``    the port's sharding on the card, under a one-process NCCL
+                  group (in-memory store, no port) and its 1 x 1 ("data",
+                  "model") mesh, each line with the card's name and power
+                  limit: (a) TinyLlama-1.1B at full width and depth,
+                  ``launch/train.py``'s batch (8 x 256) and optimizer, 2
+                  steps of the sharded ``train_step`` (every leaf a DTensor
+                  placed by ``param_pspecs``/``batch_pspecs``) beside the
+                  plain one from the same weights and batches: losses within
+                  1e-5 relative, every weight within 1e-6; (b) one
+                  Mixtral-8x7B MoE layer at published width (bf16 weights,
+                  4 x 512 tokens) through the mesh branch on a "model" group
+                  of one against ``moe_local`` at capacity E / k: outputs
+                  and aux within 1e-5 relative, kept masks equal; (c)
+                  ``compressed_psum_mean`` of (a)'s first gradients, each
+                  leaf within 5% of its largest value, and
+                  ``ErrorFeedback.apply``, with seconds and the int8 bytes
+                  handed to the collectives; (d) the ``train`` phase's last
+                  checkpoint (its 2-layer restore run) restored onto the
+                  mesh by ``param_pspecs``, bit for bit the trained weights;
+                  (e) ``analytic_terms`` for TinyLlama beside the ``long``
+                  phase's measured step, and the meta-device dry run's 80
+                  records (count, cells over the card's memory, seconds).
+                  Launch counts are zeroed just before the phase and read
+                  just after: the fingerprint kernel (the launcher's
+                  pipeline, hashing (a)'s batches) must have run.
 * ``frontend``    ``AsyncDedupFrontend`` at ``benchmarks/serving_latency.py``'s
                   default scale (16 Zipf-skewed tenants, 256 connections,
                   120,000 requests, 4 shards of 8,192 cache entries) on the
@@ -230,7 +255,8 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   writes, launches and probe routes.
 * ``kernels``     one object per kernel: launches on the main paths (replay,
                   cdc, serve, ffh, the paged pool, cluster, the cluster
-                  server, ingest, train, blocks, long and frontend, summed), largest
+                  server, ingest, train, blocks, long, sharding and
+                  frontend, summed), largest
                   disagreement with its plain version, times, and the least
                   time the card could take for the same work; for the chunk
                   kernel also ptxas's registers and spill bytes.
@@ -2420,6 +2446,13 @@ def _train_fault_tolerance(dev, results: dict, seed: int) -> None:
         rec = _train_run(dev, seed, FT_STEPS, cfg=cut, ckpt_dir=tmp, chaos=chaos)
         step_dir = os.path.join(tmp, f"step_{FT_STEPS}")
         ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+        # the last checkpoint and the weights it holds, for the sharding phase
+        kept = os.path.join(ROOT, "build", "sharding_ckpt")
+        shutil.rmtree(kept, ignore_errors=True)
+        os.makedirs(kept)
+        os.replace(step_dir, os.path.join(kept, f"step_{FT_STEPS}"))
+        results["_train_ckpt"] = (kept, FT_STEPS, cut, {
+            k: v for k, v in _host_leaves(rec["trainer"].params).items()})
     finally:
         ckpt_mod.save, ckpt_mod.restore = save, restore
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2446,6 +2479,14 @@ def _train_fault_tolerance(dev, results: dict, seed: int) -> None:
                             + plain["launches"].get(name, 0))
     del rec
     torch.cuda.empty_cache()
+
+
+def _host_leaves(tree) -> dict:
+    """Each leaf of a tensor tree, by its key path, copied to the host."""
+    from repro_torch.pytree import flatten_with_path
+
+    return {"__".join(path): t.detach().to("cpu", copy=True)
+            for path, t in flatten_with_path(tree)}
 
 
 def _prefill_check(dev, cfg, seed: int, held: bool, dtypes=("float32", "bfloat16"),
@@ -2891,7 +2932,7 @@ LONG_TOL, LONG_GRAD_TOL = 3e-5, 1e-4     # tests/test_attention_equivalence.py's
 # bf16, per element: one bf16 step (2^-7 of the value) plus the float32 limit
 LONG_BF16_RTOL = 2.0 ** -7
 LONG_TRAIN_SEQ = 4096                    # train_4k
-LONG_TRAIN = ((2, "none", 6), (8, "full", 5))  # batch, remat, steps
+LONG_TRAIN = ((2, "none", 6), (2, "full", 5))  # batch, remat, steps
 LONG_LOSS_RTOL = 1e-5
 LONG_PREFILL_SEQ = 32768                 # prefill_32k
 LONG_DECODE_STEPS = 8
@@ -2997,9 +3038,9 @@ def _long_schedules(dev, smi: str, seed: int) -> None:
     check(not over, "; ".join(over))
 
 
-def _long_train(dev, smi: str, seed: int) -> dict:
+def _long_train(dev, smi: str, seed: int, results: dict) -> dict:
     """(b) TinyLlama-1.1B at full width and depth through the launcher's
-    objects at 4,096 tokens: batch 2 without remat, batch 8 with "full";
+    objects at 4,096 tokens: batch 2 without remat, batch 2 with "full";
     then, on the first run's first batch, the loss and every gradient under
     "none" and "full" (whose backward pass recomputes each block) against
     each other and the loss against the trainer's step 1."""
@@ -3042,6 +3083,8 @@ def _long_train(dev, smi: str, seed: int) -> dict:
             total[name] = total.get(name, 0) + n
         if first is None:
             first = (rec["args"], losses[0])
+            results["_long_step"] = {"batch": [b, s], "remat": remat,
+                                     "median_step_ms": median_s * 1e3, "card": smi}
         del rec
         _free()
     args, want = first
@@ -3223,7 +3266,7 @@ def phase_long(dev, results: dict, smi: str, seed: int) -> None:
     run of (b) and read just after; ``launches_by_path["long"]`` sums them."""
     t0 = time.perf_counter()
     _long_schedules(dev, smi, seed)
-    total = _long_train(dev, smi, seed)
+    total = _long_train(dev, smi, seed, results)
     _long_prefill(dev, smi, seed)
     _long_banded(dev, smi, seed)
     for name in KERNELS:
@@ -3231,6 +3274,271 @@ def phase_long(dev, results: dict, smi: str, seed: int) -> None:
             total.get(name, 0)
     check(total.get("fingerprint", 0) > 0, "long: the fingerprint kernel never launched")
     emit("long_summary", card=smi, launches=total, phase_s=time.perf_counter() - t0)
+
+
+# The sharding phase: the partition rules, the sharded train step, the MoE's
+# mesh branch, the int8 compressed mean, elastic restore and the dry run, on
+# the card under a one-process NCCL group (a 1 x 1 mesh).
+SHARD_STEPS = 2
+SHARD_LOSS_RTOL, SHARD_WEIGHT_TOL = 1e-5, 1e-6
+SHARD_MOE_TOKENS = (4, 512)       # Mixtral-8x7B's layer at published width
+SHARD_MOE_RTOL = 1e-5
+SHARD_MEAN_TOL = 0.05             # of each leaf's largest gradient
+
+
+def _rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30))
+
+
+def _sharded_step(dev, mesh, smi: str, seed: int) -> tuple:
+    """(a) TinyLlama-1.1B at full width and depth, the launcher's batch
+    (8 x 256) and optimizer: the plain ``train_step`` and the sharded one
+    (every leaf a DTensor placed by ``param_pspecs``/``batch_pspecs``) from
+    the same weights and batches; returns the plain run's first gradients."""
+    from repro_torch.act_sharding import is_dtensor, mesh_shape
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch
+    from repro_torch.models import build_model
+    from repro_torch.pytree import leaves, tree_map
+    from repro_torch.sharding import batch_pspecs, distribute_tree, param_pspecs
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import (_value_and_grad, make_sharded_train_step,
+                                              make_train_step, trainable)
+
+    t0 = time.perf_counter()
+    cfg = get_config("tinyllama-1.1b")
+    args = launch.parse_args(["--seed", str(seed), "--device", str(dev)])
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(seed))
+    pipe = launch.make_pipeline(args, cfg.vocab_size, dev)
+    batches = [{k: torch.as_tensor(v).to(dev) for k, v in pipe.next_batch(args.batch,
+                                                                           args.seq).items()}
+               for _ in range(SHARD_STEPS)]
+    opt = AdamW(learning_rate=args.lr, warmup_steps=max(args.steps // 20, 5),
+                total_steps=args.steps)
+    sds, axes = model.abstract_params()
+    specs = param_pspecs(sds, axes, mesh, mode="train", fsdp=True)
+    bspecs = batch_pspecs(cfg, "train", args.batch, mesh)
+    sharded = trainable(distribute_tree(tree_map(torch.clone, params), specs, mesh))
+    plain = trainable(params)
+    grads = _value_and_grad(model, plain, batches[0])[2]
+    dstate, state = opt.init(sharded), opt.init(plain)
+    sstep, step = make_sharded_train_step(model, opt, mesh), make_train_step(model, opt)
+    losses, dlosses, step_s, dstep_s = [], [], [], []
+    for batch in batches:
+        t1 = time.perf_counter()
+        plain, state, loss, _ = step(plain, state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        sharded, dstate, dloss, _ = sstep(sharded, dstate, distribute_tree(batch, bspecs, mesh))
+        torch.cuda.synchronize()
+        dstep_s.append(time.perf_counter() - t1)
+        losses.append(float(loss))
+        dlosses.append(float(dloss))
+    check(all(is_dtensor(t) for t in leaves(sharded)),
+          "sharding: a parameter of the sharded step is not a DTensor")
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(dlosses, losses))
+    check(loss_gap <= SHARD_LOSS_RTOL,
+          f"sharding: sharded losses {dlosses} against plain {losses}")
+    weight_gap, equal = 0.0, 0
+    with torch.no_grad():
+        for a, b in zip(leaves(sharded), leaves(plain)):
+            local = a.to_local()
+            weight_gap = max(weight_gap, float((local - b).abs().max()))
+            equal += int(torch.equal(local, b))
+    check(weight_gap <= SHARD_WEIGHT_TOL, f"sharding: weights {weight_gap} from the plain step's")
+    emit("sharding", part="train_step", card=smi, model=cfg.name, layers=cfg.num_layers,
+         mesh=mesh_shape(mesh), batch=[args.batch, args.seq], steps=SHARD_STEPS,
+         losses=losses, sharded_losses=dlosses, loss_rel_gap=loss_gap,
+         max_weight_gap=weight_gap, leaves_equal=equal, leaves=len(leaves(plain)),
+         plain_step_ms=[x * 1e3 for x in step_s], sharded_step_ms=[x * 1e3 for x in dstep_s],
+         part_s=time.perf_counter() - t0)
+    del sharded, dstate, state, batches, pipe, params
+    return plain, grads
+
+
+def _sharded_moe(dev, mesh, smi: str, seed: int) -> None:
+    """(b) One Mixtral-8x7B MoE layer at published width, bf16 weights, at
+    capacity E / k: the mesh branch on a "model" group of one against
+    ``moe_local``; outputs, aux and kept masks."""
+    from repro_torch.act_sharding import activation_rules
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.layers import ParamFactory
+
+    t0 = time.perf_counter()
+    cfg = get_config("mixtral-8x7b")
+    p = moe.init_moe(ParamFactory(torch.Generator(dev).manual_seed(seed), torch.bfloat16),
+                     cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.act)
+    g = torch.Generator(dev).manual_seed(seed + 1)
+    x = torch.randn(*SHARD_MOE_TOKENS, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+    cf = cfg.num_experts / cfg.top_k
+    kept = []
+    route = moe.route
+
+    def recorded(*a, **kw):
+        r = route(*a, **kw)
+        kept.append(r.keep)
+        return r
+
+    moe.route = recorded
+    try:
+        want, want_aux = moe.moe_local(x.reshape(-1, cfg.d_model), p["router"], p["w_in"],
+                                       p["w_gate"], p["w_out"], top_k=cfg.top_k,
+                                       capacity_factor=cf, act=cfg.act)
+        with activation_rules(mesh):
+            got, aux = moe.moe_apply(p, x, top_k=cfg.top_k, capacity_factor=cf, act=cfg.act)
+        torch.cuda.synchronize()
+    finally:
+        moe.route = route
+    out_gap = _rel_gap(got.reshape(want.shape), want)
+    aux_gap = abs(float(aux) - float(want_aux)) / abs(float(want_aux))
+    check(len(kept) == 2 and torch.equal(kept[0], kept[1]), "sharding: MoE kept masks differ")
+    check(out_gap <= SHARD_MOE_RTOL and aux_gap <= SHARD_MOE_RTOL,
+          f"sharding: MoE mesh branch {out_gap} / aux {aux_gap} from moe_local")
+    emit("sharding", part="moe", card=smi, model=cfg.name, experts=cfg.num_experts,
+         d_model=cfg.d_model, d_ff=cfg.d_ff, weights="bfloat16", tokens=list(SHARD_MOE_TOKENS),
+         capacity_factor=cf, out_rel_gap=out_gap, aux_rel_gap=aux_gap,
+         kept=int(kept[0].sum()), assignments=int(kept[0].numel()),
+         part_s=time.perf_counter() - t0)
+    del p, x, got, want
+
+
+def _compressed_mean(dev, grads, smi: str) -> None:
+    """(c) ``compressed_psum_mean`` and ``ErrorFeedback.apply`` over (a)'s
+    gradient tree on the group of one: each leaf's mean within 5% of its
+    largest gradient of the exact mean (the gradient itself)."""
+    from repro_torch.pytree import leaves
+    from repro_torch.train.compression import (ErrorFeedback, compressed_psum_mean,
+                                               int8_payload_bytes)
+
+    flat = leaves(grads)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    means = [compressed_psum_mean(g) for g in flat]
+    torch.cuda.synchronize()
+    mean_s = time.perf_counter() - t0
+    worst = max(float((m - g.float()).abs().max() / g.float().abs().max().clamp(min=1e-30))
+                for m, g in zip(means, flat))
+    check(worst <= SHARD_MEAN_TOL, f"sharding: compressed mean {worst} of a leaf's range off")
+    del means
+    t0 = time.perf_counter()
+    deq, err = ErrorFeedback.apply(grads, ErrorFeedback.init(grads))
+    torch.cuda.synchronize()
+    ef_s = time.perf_counter() - t0
+    residual = max(float((e + d - g.float()).abs().max()) for d, e, g in
+                   zip(leaves(deq), leaves(err), flat))
+    check(residual <= 1e-6 * max(float(g.abs().max()) for g in flat),
+          f"sharding: error feedback's residual does not close: {residual}")
+    numel = sum(g.numel() for g in flat)
+    emit("sharding", part="compressed_mean", card=smi, leaves=len(flat), values=numel,
+         ranks=1, max_err_of_leaf_range=worst, tol=SHARD_MEAN_TOL, seconds=mean_s,
+         int8_bytes=sum(int8_payload_bytes(g.numel(), 1) for g in flat),
+         float32_bytes=4 * numel, wire_bytes=0, error_feedback_s=ef_s)
+    del deq, err
+
+
+def _elastic_restore(dev, mesh, results: dict, smi: str) -> None:
+    """(d) The ``train`` phase's last checkpoint (a 2-layer cut) restored
+    onto the 1 x 1 mesh by ``param_pspecs``: bit for bit the trained
+    weights."""
+    import shutil
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.models import build_model
+    from repro_torch.pytree import flatten_with_path
+    from repro_torch.sharding import param_pspecs
+
+    t0 = time.perf_counter()
+    kept, step, cut, weights = results.pop("_train_ckpt")
+    sds, axes = build_model(cut).abstract_params()
+    specs = param_pspecs(sds, axes, mesh, mode="train", fsdp=True)
+    tree = ckpt.restore(kept, step, {"params": sds}, mesh=mesh, specs={"params": specs})
+    unequal = [name for path, t in flatten_with_path(tree["params"])
+               for name in ["__".join(path)] if not torch.equal(t.to_local().cpu(), weights[name])]
+    check(not unequal and len(weights) == len(flatten_with_path(tree["params"])),
+          f"sharding: restored leaves differ from the trained weights: {unequal}")
+    emit("sharding", part="elastic_restore", card=smi, layers=cut.num_layers, step=step,
+         leaves=len(weights), bytes=sum(t.numel() * t.element_size() for t in weights.values()),
+         placements=str(next(iter(flatten_with_path(tree["params"])))[1].placements),
+         equal=True, part_s=time.perf_counter() - t0)
+    del tree, weights
+    shutil.rmtree(kept, ignore_errors=True)
+
+
+def _host_terms(results: dict, smi: str) -> None:
+    """(e) ``analytic_terms`` for TinyLlama on a 1 x 1 mesh beside the
+    ``long`` phase's measured step, and the dry run's 40 x 2 records."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.analytic import analytic_terms
+
+    t0 = time.perf_counter()
+    cfg = get_config("tinyllama-1.1b")
+    long = results.pop("_long_step")
+    b, s = long["batch"]
+    mesh = {"data": 1, "model": 1}
+    at_long = analytic_terms(cfg, "train", s, b, mesh, remat=long["remat"])
+    shape = SHAPES["train_4k"]
+    at_shape = analytic_terms(cfg, "train", shape.seq_len, shape.global_batch, mesh,
+                              remat=long["remat"])
+    cells = dryrun.run_all(verbose=False)
+    ok = [c for c in cells if c["status"] == "ok"]
+    check(len(cells) == 80 and len(ok) == 66, f"sharding: dry run {len(cells)} cells, {len(ok)} ok")
+    over = [f"{c['mesh']} {c['arch']} {c['shape']}" for c in ok if not c["fits_hbm"]]
+    emit("sharding", part="host_terms", card=smi, long_step=long,
+         analytic_at_long_step={"flops": at_long.flops, "hbm_bytes": at_long.hbm_bytes,
+                                "wire_bytes": at_long.wire_bytes},
+         measured_flops_per_s=at_long.flops / (long["median_step_ms"] / 1e3),
+         analytic_train_4k={"batch": shape.global_batch, "flops": at_shape.flops,
+                            "hbm_bytes": at_shape.hbm_bytes, "wire_bytes": at_shape.wire_bytes},
+         dry_run_records=len(cells), dry_run_ok=len(ok), dry_run_device=ok[0]["device"],
+         dry_run_device_bytes=ok[0]["device_memory_bytes"], cells_over_memory=over,
+         part_s=time.perf_counter() - t0)
+
+
+def phase_sharding(dev, results: dict, smi: str, seed: int) -> None:
+    """The port's sharding on one card: a one-process NCCL group (no port,
+    an in-memory store) and its 1 x 1 ("data", "model") mesh; (a) the
+    sharded train step, (b) the MoE's mesh branch, (c) the compressed mean,
+    (d) elastic restore, (e) the host arithmetic.  Launch counts are zeroed
+    just before the phase and read just after (``launches_by_path``)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import init_single_process, make_host_mesh
+
+    _free()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    init_single_process(str(dev))
+    try:
+        want = {"cuda": "nccl", "cpu": "gloo"}[dev.type]
+        check(dist.get_backend() == want, f"sharding: backend {dist.get_backend()}, not {want}")
+        mesh = make_host_mesh(device=str(dev))
+        _plain, grads = _sharded_step(dev, mesh, smi, seed)
+        del _plain
+        _free()
+        _compressed_mean(dev, grads, smi)
+        del grads
+        _free()
+        _sharded_moe(dev, mesh, smi, seed)
+        _free()
+        _elastic_restore(dev, mesh, results, smi)
+        _host_terms(results, smi)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    for name in KERNELS:
+        results.setdefault(name, {}).setdefault("launches_by_path", {})["sharding"] = \
+            launches.get(name, 0)
+    # the path's kernel: the launcher's pipeline hashes (a)'s batches
+    check(launches.get("fingerprint", 0) > 0, "sharding: the fingerprint kernel never launched")
+    _free()
+    emit("sharding_summary", card=smi, launches=launches, phase_s=time.perf_counter() - t0)
 
 
 # The frontend phase: ``benchmarks/serving_latency.py`` at its default scale
@@ -3471,6 +3779,7 @@ def main() -> int:
     phase_train(dev, results, args.seed)
     phase_blocks(dev, results, smi, args.seed)
     phase_long(dev, results, smi, args.seed)
+    phase_sharding(dev, results, smi, args.seed)
     phase_frontend(dev, results, srv, args.seed)
     for name in KERNELS:
         results[name]["launches"] = sum(results[name]["launches_by_path"].values())

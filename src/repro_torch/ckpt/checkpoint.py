@@ -12,8 +12,13 @@ numpy has no bfloat16: a bf16 leaf is stored as its ``uint16`` bits, with
 ``"bfloat16"`` as its manifest dtype.  ``save`` copies every leaf to host
 memory before it returns, also with ``async_save``, so a tensor changed in
 place afterwards (an optimizer step) cannot race the writer thread.
-``restore`` places leaves on ``device`` (the reference's ``shardings``), by
-default where the matching leaf of ``like`` lies.
+``restore`` places leaves on ``device``, by default where the matching leaf
+of ``like`` lies.
+
+Elastic restore (the reference's ``shardings``): ``save`` writes a DTensor
+leaf as its full tensor (every rank gathers it, rank 0 writes), and
+``restore(..., mesh=, specs=)`` places each leaf as a DTensor by its spec
+on the current mesh, whatever the mesh was at save time.
 
 Earlier versions of the port kept the dense decoder's layers under one
 ``layers`` dictionary (``layers__wq``, ...) where the reference's layout,
@@ -34,7 +39,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..pytree import flatten_with_path, unflatten_like
+from ..act_sharding import is_dtensor, placements
+from ..pytree import flatten_with_path, leaves, tree_map, unflatten_like
 
 BF16 = "bfloat16"
 
@@ -53,7 +59,9 @@ def _earlier_name(name: str) -> str:
 
 
 def _to_host(leaf):
-    """(numpy copy of the leaf, manifest dtype)."""
+    """(numpy copy of the leaf, manifest dtype); a DTensor's full tensor."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
@@ -79,8 +87,18 @@ def save(
 ) -> Optional[threading.Thread]:
     """Save a tree of tensors (or numpy arrays); with ``async_save`` the files
     are written by a thread, which is returned (the host copies are made
-    before that)."""
+    before that).  A tree with DTensor leaves is saved by every rank of
+    their group together: each gathers the full tensors, rank 0 writes, and
+    a synchronous save returns on every rank once the files are in place."""
     host_leaves = [(_key_name(path), *_to_host(leaf)) for path, leaf in flatten_with_path(tree)]
+    sharded = any(is_dtensor(leaf) for leaf in leaves(tree))
+    if sharded:
+        import torch.distributed as dist
+
+        if dist.get_rank() != 0:
+            if not async_save:
+                dist.barrier()
+            return None
 
     def _write():
         tmp = os.path.join(directory, f"step_{step}.tmp")
@@ -102,6 +120,8 @@ def save(
         t.start()
         return t
     _write()
+    if sharded:
+        dist.barrier()
     return None
 
 
@@ -116,10 +136,20 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(directory: str, step: int, like: Any, device=None) -> Any:
+def restore(directory: str, step: int, like: Any, device=None, mesh=None,
+            specs: Any = None) -> Any:
     """Restore into the structure of ``like`` (a tree of tensors, possibly on
     the ``meta`` device).  Each leaf goes to ``device`` if given, else where
-    ``like``'s leaf lies (a ``meta`` or non-tensor leaf: the host)."""
+    ``like``'s leaf lies (a ``meta`` or non-tensor leaf: the host).  With a
+    ``DeviceMesh`` and ``specs`` (a spec tree of ``like``'s structure,
+    ``sharding.param_pspecs``), each leaf is placed on the mesh's device as
+    a DTensor by its spec instead (elastic restore)."""
+    if (mesh is None) != (specs is None):
+        raise ValueError("restore takes mesh and specs together")
+    spec_leaves = None
+    if mesh is not None:
+        spec_leaves = []   # in flatten_with_path's order, as tree_map visits
+        tree_map(lambda _, spec: spec_leaves.append(tuple(spec)), like, specs)
     base = os.path.join(directory, f"step_{step}")
     with open(os.path.join(base, "manifest.json")) as f:
         manifest = json.load(f)
@@ -136,6 +166,12 @@ def restore(directory: str, step: int, like: Any, device=None) -> Any:
             raise ValueError(f"leaf {name}: saved shape {saved[name]['shape']}, "
                              f"want {list(leaf.shape)}")
         t = _from_host(np.load(os.path.join(base, name + ".npy")), saved[name]["dtype"])
+        if spec_leaves is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            spec = spec_leaves[len(out)]
+            out.append(distribute_tensor(t.to(mesh.device_type), mesh, placements(spec, mesh)))
+            continue
         target = device
         if target is None:
             on = getattr(leaf, "device", None)

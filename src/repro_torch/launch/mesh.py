@@ -1,0 +1,61 @@
+"""Meshes: the production mesh shapes, and a mesh over the processes present.
+
+The port's counterpart of the reference's ``launch/mesh.py``.  The
+production meshes are shapes only (ordered ``{axis: size}``), which is all
+the partition rules and the dry run read: no process group is made.
+``make_host_mesh`` builds a ``DeviceMesh`` over the processes of the current
+``torch.distributed`` group (one card: 1 x 1), and ``init_single_process``
+starts that group for one process without opening a port.
+"""
+
+from __future__ import annotations
+
+import datetime
+from typing import Dict
+
+import torch
+
+# Seconds a process group waits for its ranks before it fails.
+GROUP_TIMEOUT_S = 120.0
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Dict[str, int]:
+    """16 x 16 single pod (256 chips) or 2 x 16 x 16 two-pod (512 chips).
+
+    Axes: "pod" (cross-pod, data parallel only), "data" (in-pod DP/FSDP),
+    "model" (TP/EP)."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
+def make_host_mesh(model_axis: int = 1, device: str = "cuda"):
+    """A ("data", "model") ``DeviceMesh`` over the processes of the current
+    group: ``world // model_axis`` x ``model_axis``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call init_single_process() or "
+                           "torch.distributed.init_process_group first")
+    n = dist.get_world_size()
+    if n % model_axis:
+        raise ValueError(f"{n} processes do not split into a model axis of {model_axis}")
+    return init_device_mesh(torch.device(device).type, (n // model_axis, model_axis),
+                            mesh_dim_names=("data", "model"))
+
+
+def init_single_process(device: str = "cuda") -> None:
+    """The process group of this one process: NCCL for ``cuda``, gloo for
+    ``cpu``, rank 0 of 1, over an in-memory ``HashStore`` (no port is
+    opened).  Raises if the backend cannot start; never takes the other."""
+    import torch.distributed as dist
+
+    kind = torch.device(device).type
+    if kind == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("init_single_process(device='cuda') needs a card")
+    backend = {"cuda": "nccl", "cpu": "gloo"}[kind]
+    if kind == "cuda":
+        torch.cuda.set_device(torch.device(device).index or 0)
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))

@@ -26,11 +26,13 @@ the cache per layer and step.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..act_sharding import active_spec, local_call
 from .layers import ParamFactory, apply_rope, rotate
 
 NEG_INF = -1e30
@@ -42,10 +44,10 @@ KV_CHUNK = 512
 
 def init_attention(pf: ParamFactory, d: int, heads: int, kv_heads: int, head_dim: int) -> dict:
     return {
-        "wq": pf.normal((d, heads, head_dim)),
-        "wk": pf.normal((d, kv_heads, head_dim)),
-        "wv": pf.normal((d, kv_heads, head_dim)),
-        "wo": pf.normal((heads, head_dim, d)),
+        "wq": pf.normal((d, heads, head_dim), ("embed", "heads", "head_dim")),
+        "wk": pf.normal((d, kv_heads, head_dim), ("embed", "kv_heads", "head_dim")),
+        "wv": pf.normal((d, kv_heads, head_dim), ("embed", "kv_heads", "head_dim")),
+        "wo": pf.normal((heads, head_dim, d), ("heads", "head_dim", "embed")),
     }
 
 
@@ -422,15 +424,30 @@ def attention_train(p: dict, x: torch.Tensor, positions: Optional[torch.Tensor],
     if kv_override is not None:
         q = _project_q(p, x)
         k, v = kv_override
-        out = flash_attend(q, k, v, causal=False, window=0)
+        out = _schedule(flash_attend, q, k, v, causal=False, window=0)
     else:
         q, k, v = project_qkv(p, x, positions, rope_theta=rope_theta,
                               mrope_sections=mrope_sections, use_rope=use_rope)
         if _banded(s, window):
-            out = banded_attend(q, k, v, window=window)
+            out = _schedule(banded_attend, q, k, v, window=window)
         else:
-            out = flash_attend(q, k, v, causal=causal, window=window)
+            out = _schedule(flash_attend, q, k, v, causal=causal, window=window)
     return out.reshape(b, s, -1) @ p["wo"].reshape(-1, d), k, v
+
+
+def _schedule(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw) -> torch.Tensor:
+    """``attend(q, k, v, **kw)``; under a mesh, on each rank's batch rows and
+    heads (``act_sharding.local_call``): the schedules write their chunks
+    in place, which DTensor cannot follow, and every (row, KV head) of them
+    is independent.  Query heads split over "model" only together with
+    their KV heads (the reference's sites: q ("batch", "attn_seq", "heads",
+    None), its output the same)."""
+    spec = active_spec(k, ("batch", "attn_seq", "kv_heads", None))
+    heads = "heads" if spec is not None and spec[2] is not None else None
+    return local_call(functools.partial(attend, **kw),
+                      (q, ("batch", "attn_seq", heads, None)),
+                      (k, ("batch", "attn_seq", heads and "kv_heads", None)),
+                      (v, ("batch", "attn_seq", heads and "kv_heads", None)))
 
 
 class KVCache(NamedTuple):

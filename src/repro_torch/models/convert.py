@@ -19,7 +19,7 @@ import torch
 
 from ..train.optimizer import AdamWState
 from . import config as C
-from .transformer import map_dict
+from .layers import map_dict
 
 
 def _expected_keys(cfg: C.ModelConfig) -> set:

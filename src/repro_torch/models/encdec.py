@@ -28,41 +28,46 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from ..act_sharding import shard_act
 from . import config as C
 from .attention import (attention_decode, attention_train, cross_attention_decode,
                         init_attention, project_kv, valid_slots)
-from .layers import (ParamFactory, dtype_const, init_mlp, mlp_apply, rms_norm, rope_angles,
-                     sinusoidal_positions, softmax_cross_entropy)
-from .transformer import (check_remat, default_positions, map_dict, remat_call, stack_layers,
-                          unstack)
+from .layers import (ParamFactory, dtype_const, init_mlp, map_dict, mlp_apply, rms_norm,
+                     rms_norm_in, rope_angles, sequence_whole, sinusoidal_positions,
+                     softmax_cross_entropy)
+from .transformer import check_remat, default_positions, lookup, remat_call, unstack
 
 
 def _enc_layer_init(pf: ParamFactory, cfg: C.ModelConfig) -> Dict:
     d = cfg.d_model
-    return {"ln1": pf.zeros((d,)),
+    return {"ln1": pf.zeros((d,), ("embed",)),
             "attn": init_attention(pf, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
-            "ln2": pf.zeros((d,)),
+            "ln2": pf.zeros((d,), ("embed",)),
             "mlp": init_mlp(pf, d, cfg.d_ff, cfg.act)}
 
 
 def _dec_layer_init(pf: ParamFactory, cfg: C.ModelConfig) -> Dict:
     d = cfg.d_model
-    return {"ln1": pf.zeros((d,)),
+    return {"ln1": pf.zeros((d,), ("embed",)),
             "self_attn": init_attention(pf, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
-            "ln_x": pf.zeros((d,)),
+            "ln_x": pf.zeros((d,), ("embed",)),
             "cross_attn": init_attention(pf, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
-            "ln2": pf.zeros((d,)),
+            "ln2": pf.zeros((d,), ("embed",)),
             "mlp": init_mlp(pf, d, cfg.d_ff, cfg.act)}
 
 
-def init_encdec_params(generator: torch.Generator, cfg: C.ModelConfig) -> Dict:
-    pf = ParamFactory(generator, getattr(torch, cfg.param_dtype))
+def encdec_tree(pf, cfg: C.ModelConfig) -> Dict:
+    """The parameter tree that ``pf`` makes (``transformer.decoder_tree``)."""
     d = cfg.d_model
-    return {"embed": pf.embedding((cfg.vocab_size, d)),
-            "enc_final_ln": pf.zeros((d,)),
-            "dec_final_ln": pf.zeros((d,)),
-            "enc_scan": stack_layers(lambda: _enc_layer_init(pf, cfg), cfg.encoder_layers),
-            "dec_scan": stack_layers(lambda: _dec_layer_init(pf, cfg), cfg.num_layers)}
+    return {"embed": pf.embedding((cfg.vocab_size, d), ("vocab", "embed")),
+            "enc_final_ln": pf.zeros((d,), ("embed",)),
+            "dec_final_ln": pf.zeros((d,), ("embed",)),
+            "enc_scan": pf.stack(lambda: _enc_layer_init(pf, cfg), cfg.encoder_layers),
+            "dec_scan": pf.stack(lambda: _dec_layer_init(pf, cfg), cfg.num_layers)}
+
+
+def init_encdec_params(generator: torch.Generator, cfg: C.ModelConfig) -> Dict:
+    return encdec_tree(ParamFactory(generator, getattr(torch, cfg.param_dtype)), cfg)
 
 
 def cast_params(params: Dict, cfg: C.ModelConfig) -> Dict:
@@ -87,10 +92,11 @@ def _layer_remat(remat: str) -> str:
 
 
 def _enc_layer(lp: Dict, cfg: C.ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    x = x + attention_train(lp["attn"], h, None, causal=False, use_rope=False)[0]
-    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _mlp(lp["mlp"], h, cfg)
+    x = shard_act(x, ("batch", "seq", "embed_act"))
+    h = rms_norm_in(x, lp["ln1"], cfg.norm_eps)
+    x = x + sequence_whole(attention_train(lp["attn"], h, None, causal=False, use_rope=False)[0])
+    h = rms_norm_in(x, lp["ln2"], cfg.norm_eps)
+    return x + sequence_whole(_mlp(lp["mlp"], h, cfg))
 
 
 def encode(params: Dict, embeds: torch.Tensor, cfg: C.ModelConfig,
@@ -109,20 +115,21 @@ def encode(params: Dict, embeds: torch.Tensor, cfg: C.ModelConfig,
 def _embed(params: Dict, tokens: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
     """The reference's decoder input: the row cast to the compute dtype, then
     scaled by sqrt(d) in it."""
-    x = params["embed"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
+    x = lookup(params["embed"], tokens).to(getattr(torch, cfg.compute_dtype))
     return x * dtype_const(cfg.d_model ** 0.5, x)
 
 
 def _dec_layer(lp: Dict, positions: torch.Tensor, cfg: C.ModelConfig, x: torch.Tensor,
                enc: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    x = x + attention_train(lp["self_attn"], h, positions, causal=True,
-                            rope_theta=cfg.rope_theta)[0]
-    h = rms_norm(x, lp["ln_x"], cfg.norm_eps)
-    x = x + attention_train(lp["cross_attn"], h, positions,
-                            kv_override=project_kv(lp["cross_attn"], enc))[0]
-    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _mlp(lp["mlp"], h, cfg)
+    x = shard_act(x, ("batch", "seq", "embed_act"))
+    h = rms_norm_in(x, lp["ln1"], cfg.norm_eps)
+    x = x + sequence_whole(attention_train(lp["self_attn"], h, positions, causal=True,
+                                           rope_theta=cfg.rope_theta)[0])
+    h = rms_norm_in(x, lp["ln_x"], cfg.norm_eps)
+    x = x + sequence_whole(attention_train(lp["cross_attn"], h, positions,
+                                           kv_override=project_kv(lp["cross_attn"], enc))[0])
+    h = rms_norm_in(x, lp["ln2"], cfg.norm_eps)
+    return x + sequence_whole(_mlp(lp["mlp"], h, cfg))
 
 
 def decoder_logits(params: Dict, enc: torch.Tensor, tokens: torch.Tensor,

@@ -18,46 +18,115 @@ functions round once and part from the reference's in many elements
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..act_sharding import shard_act
+
 
 class ParamFactory:
     """Deterministic initialiser: every tensor is drawn in float32 from one
-    ``torch.Generator`` (on the generator's device) and cast to ``dtype``."""
+    ``torch.Generator`` (on the generator's device) and cast to ``dtype``.
 
-    def __init__(self, generator: torch.Generator, dtype: torch.dtype):
+    Each method takes the tensor's logical axes (``"embed"``, ``"heads"``,
+    ``"vocab"``, ...), as the reference's does; ``AxesFactory`` returns them
+    in place of the tensor, so that one ``init_*`` function gives either
+    tree with the same structure.  With ``generator=None`` the tensors lie
+    on ``device`` (``"meta"``: shapes and dtypes, nothing allocated, the
+    counterpart of the reference's ``abstract=True``)."""
+
+    def __init__(self, generator: Optional[torch.Generator], dtype: torch.dtype,
+                 device=None):
         self.generator = generator
         self.dtype = dtype
-        self.device = generator.device
+        self.device = generator.device if generator is not None else torch.device(device or "meta")
 
     def _randn(self, shape: Sequence[int], stddev: float) -> torch.Tensor:
         """Scaled in place: a large draw holds one float32 copy at a time."""
+        if self.device.type == "meta":
+            return torch.empty(tuple(shape), dtype=self.dtype, device="meta")
         t = torch.randn(tuple(shape), generator=self.generator, device=self.device,
                         dtype=torch.float32)
         return t.mul_(stddev).to(self.dtype)
 
-    def normal(self, shape: Sequence[int], stddev: Optional[float] = None) -> torch.Tensor:
+    def normal(self, shape: Sequence[int], axes: Sequence[str],
+               stddev: Optional[float] = None) -> torch.Tensor:
         """N(0, stddev^2); the default stddev is ``1 / sqrt(shape[-1])`` (the
         reference's: the last dimension, not the fan-in)."""
         if stddev is None:
             stddev = 1.0 / np.sqrt(shape[-1] if len(shape) > 1 else shape[0])
         return self._randn(shape, stddev)
 
-    def embedding(self, shape: Sequence[int], stddev: float = 0.02) -> torch.Tensor:
+    def embedding(self, shape: Sequence[int], axes: Sequence[str],
+                  stddev: float = 0.02) -> torch.Tensor:
         return self._randn(shape, stddev)
 
-    def zeros(self, shape: Sequence[int]) -> torch.Tensor:
+    def zeros(self, shape: Sequence[int], axes: Sequence[str]) -> torch.Tensor:
         return torch.zeros(tuple(shape), dtype=self.dtype, device=self.device)
 
-    def ones(self, shape: Sequence[int]) -> torch.Tensor:
+    def ones(self, shape: Sequence[int], axes: Sequence[str]) -> torch.Tensor:
         return torch.ones(tuple(shape), dtype=self.dtype, device=self.device)
 
-    def constant(self, value) -> torch.Tensor:
+    def constant(self, value, axes: Sequence[str]) -> torch.Tensor:
         """``value`` (an array of any float type) in the factory's dtype."""
+        if self.device.type == "meta":
+            return torch.empty(np.shape(value), dtype=self.dtype, device="meta")
         return torch.as_tensor(np.asarray(value, dtype=np.float32)).to(self.device, self.dtype)
+
+    def stack(self, make: Callable[[], dict], n: int) -> dict:
+        """``n`` layers from ``make`` stacked on a leading axis, filled one at
+        a time (one layer is alive beside the stack; a single layer is a
+        view)."""
+        first = make()
+        if n == 1:
+            return map_dict(lambda t: t.unsqueeze(0), first)
+        if self.device.type == "meta":  # shapes only: one layer stands for all
+            return map_dict(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+        out = map_dict(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+        for g in range(n):
+            layer = first if g == 0 else make()
+            _fill(out, layer, g)
+            first = None
+        return out
+
+
+class AxesFactory:
+    """``ParamFactory``'s methods returning each tensor's logical axes, so
+    that an ``init_*`` function gives the axes tree of its parameters (the
+    reference's ``unzip_params(...)[1]``); ``stack`` prefixes ``"layers"``."""
+
+    def normal(self, shape, axes, stddev=None):
+        return tuple(axes)
+
+    embedding = normal
+
+    def zeros(self, shape, axes):
+        return tuple(axes)
+
+    ones = zeros
+
+    def constant(self, value, axes):
+        return tuple(axes)
+
+    def stack(self, make: Callable[[], dict], n: int) -> dict:
+        return map_dict(lambda a: ("layers",) + a, make())
+
+
+def map_dict(fn: Callable, tree):
+    """``fn`` over the leaves of a tree of nested dictionaries."""
+    if isinstance(tree, dict):
+        return {k: map_dict(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _fill(out: dict, layer: dict, g: int) -> None:
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            _fill(out[k], v, g)
+        else:
+            out[k][g].copy_(v)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -66,6 +135,22 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     var = xf.square().mean(dim=-1, keepdim=True)
     xf = xf * torch.rsqrt(var + eps)
     return (xf * (1.0 + scale.float())).to(dt)
+
+
+def sequence_whole(x: torch.Tensor) -> torch.Tensor:
+    """Under a mesh, the residual stream's activation with its sequence
+    whole (the "attn_seq" rule; the stream's "seq" may be split): the
+    products inside a mixer or an MLP fold (B, S) into rows, forward and
+    backward, which DTensor cannot do over a split sequence (torch 2.11).
+    Taken at a block's input and output, so gradients reach the products
+    whole too."""
+    return shard_act(x, ("batch", "attn_seq", "embed_act"))
+
+
+def rms_norm_in(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """``rms_norm`` of the residual stream into a mixer or an MLP
+    (``sequence_whole``)."""
+    return sequence_whole(rms_norm(x, scale, eps))
 
 
 def dtype_const(c: float, like: torch.Tensor) -> float:
@@ -108,9 +193,9 @@ def mlp_apply(x: torch.Tensor, w_in: torch.Tensor, w_gate: Optional[torch.Tensor
 
 
 def init_mlp(pf: ParamFactory, d: int, ff: int, act: str) -> dict:
-    p = {"w_in": pf.normal((d, ff)), "w_out": pf.normal((ff, d))}
+    p = {"w_in": pf.normal((d, ff), ("embed", "ff")), "w_out": pf.normal((ff, d), ("ff", "embed"))}
     if act == "swiglu":
-        p["w_gate"] = pf.normal((d, ff))
+        p["w_gate"] = pf.normal((d, ff), ("embed", "ff"))
     return p
 
 

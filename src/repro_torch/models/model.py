@@ -2,6 +2,10 @@
 
 * ``init(generator)``  -> float parameters (the reference's layout), as the
                           reference's ``Model.init(rng)``
+* ``abstract_params()`` -> (a tree of ``meta`` tensors in the parameter
+                          dtype, the logical-axes tree of the same
+                          structure): shapes without allocation, the
+                          reference's ``ShapeDtypeStruct`` tree
 * ``train_loss(params, batch)`` -> (loss, {"ce_loss", "moe_aux"}); ``params``
                           explicit, as the reference's facade takes them
                           (float32 leaves with ``requires_grad`` to train),
@@ -33,6 +37,7 @@ from torch import nn
 from ..pytree import flatten_with_path
 from . import config as C
 from . import encdec, transformer
+from .layers import AxesFactory, ParamFactory
 
 
 def impl(cfg: C.ModelConfig):
@@ -53,6 +58,21 @@ class Model(nn.Module):
         if self.cfg.is_encdec:
             return encdec.init_encdec_params(generator, self.cfg)
         return transformer.init_decoder_params(generator, self.cfg)
+
+    def _tree(self, pf) -> Dict:
+        return impl(self.cfg).encdec_tree(pf, self.cfg) if self.cfg.is_encdec else \
+            transformer.decoder_tree(pf, self.cfg)
+
+    def param_axes(self) -> Dict:
+        """Each parameter's logical axes (``"embed"``, ``"heads"``, ...), in
+        the parameter tree's structure."""
+        return self._tree(AxesFactory())
+
+    def abstract_params(self):
+        """(parameters on the ``meta`` device, ``param_axes()``): nothing is
+        allocated."""
+        pf = ParamFactory(None, getattr(torch, self.cfg.param_dtype), device="meta")
+        return self._tree(pf), self.param_axes()
 
     def load(self, params: Dict) -> "Model":
         """Hold ``params`` cast for decoding (``cast_params``) as buffers,

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..act_sharding import shard_act
 from .layers import ParamFactory, dtype_const, gelu, sigmoid, softplus
 
 _C = 8.0  # Griffin's decay temperature
@@ -26,14 +27,14 @@ _C = 8.0  # Griffin's decay temperature
 
 def init_rglru(pf: ParamFactory, d: int, rnn_dim: int, conv_width: int) -> dict:
     return {
-        "w_x": pf.normal((d, rnn_dim)),
-        "w_gate_branch": pf.normal((d, rnn_dim)),
-        "w_out": pf.normal((rnn_dim, d)),
-        "conv_w": pf.normal((conv_width, rnn_dim), stddev=0.1),
-        "conv_b": pf.zeros((rnn_dim,)),
-        "w_input_gate": pf.normal((rnn_dim, rnn_dim)),
-        "w_a_gate": pf.normal((rnn_dim, rnn_dim)),
-        "lam": pf.constant(np.linspace(0.5, 4.0, rnn_dim)),
+        "w_x": pf.normal((d, rnn_dim), ("embed", "rnn")),
+        "w_gate_branch": pf.normal((d, rnn_dim), ("embed", "rnn")),
+        "w_out": pf.normal((rnn_dim, d), ("rnn", "embed")),
+        "conv_w": pf.normal((conv_width, rnn_dim), ("conv", "rnn"), stddev=0.1),
+        "conv_b": pf.zeros((rnn_dim,), ("rnn",)),
+        "w_input_gate": pf.normal((rnn_dim, rnn_dim), ("rnn", "rnn_out")),
+        "w_a_gate": pf.normal((rnn_dim, rnn_dim), ("rnn", "rnn_out")),
+        "lam": pf.constant(np.linspace(0.5, 4.0, rnn_dim), ("rnn",)),
     }
 
 
@@ -91,7 +92,7 @@ def rglru_train(p: dict, x: torch.Tensor) -> Tuple[torch.Tensor, RGLRUState]:
     u_in = x @ p["w_x"]
     u, conv_state = _conv1d(p, u_in)
     a, i = _decay(p, u)
-    h = _scan(a.float(), _gated(a, i, u).float())
+    h = shard_act(_scan(a.float(), _gated(a, i, u).float()), ("batch", "attn_seq", "rnn_act"))
     branch = gelu(x @ p["w_gate_branch"])
     return (h.to(x.dtype) * branch) @ p["w_out"], RGLRUState(h[:, -1], conv_state)
 

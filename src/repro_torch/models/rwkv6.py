@@ -24,40 +24,42 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..act_sharding import shard_act
 from .layers import ParamFactory, sigmoid, silu
 
 CHUNK = 32
 _LOGW_MIN, _LOGW_MAX = -2.5, -1e-4
 _DECAY_RANK = 64
+_E, _HD = ("embed",), ("heads", "head_dim")   # axes of the mixing and per-head leaves
 
 
 def init_rwkv_tm(pf: ParamFactory, d: int, heads: int, head_dim: int) -> dict:
     hk = heads * head_dim
     half = np.full((d,), 0.5)
     return {
-        "mu_r": pf.constant(half), "mu_k": pf.constant(half), "mu_v": pf.constant(half),
-        "mu_g": pf.constant(half), "mu_w": pf.constant(half),
-        "w_r": pf.normal((d, hk)),
-        "w_k": pf.normal((d, hk)),
-        "w_v": pf.normal((d, hk)),
-        "w_g": pf.normal((d, hk)),
-        "w_o": pf.normal((hk, d)),
-        "decay_base": pf.constant(np.linspace(-1.5, -0.5, hk).reshape(heads, head_dim)),
-        "decay_lora_a": pf.normal((d, _DECAY_RANK)),
-        "decay_lora_b": pf.normal((_DECAY_RANK, hk), stddev=0.01),
-        "bonus_u": pf.constant(np.full((heads, head_dim), 0.5)),
-        "ln_scale": pf.ones((heads, head_dim)),
+        "mu_r": pf.constant(half, _E), "mu_k": pf.constant(half, _E),
+        "mu_v": pf.constant(half, _E), "mu_g": pf.constant(half, _E), "mu_w": pf.constant(half, _E),
+        "w_r": pf.normal((d, hk), ("embed", "heads_flat")),
+        "w_k": pf.normal((d, hk), ("embed", "heads_flat")),
+        "w_v": pf.normal((d, hk), ("embed", "heads_flat")),
+        "w_g": pf.normal((d, hk), ("embed", "heads_flat")),
+        "w_o": pf.normal((hk, d), ("heads_flat", "embed")),
+        "decay_base": pf.constant(np.linspace(-1.5, -0.5, hk).reshape(heads, head_dim), _HD),
+        "decay_lora_a": pf.normal((d, _DECAY_RANK), ("embed", "lora")),
+        "decay_lora_b": pf.normal((_DECAY_RANK, hk), ("lora", "heads_flat"), stddev=0.01),
+        "bonus_u": pf.constant(np.full((heads, head_dim), 0.5), _HD),
+        "ln_scale": pf.ones((heads, head_dim), _HD),
     }
 
 
 def init_rwkv_cm(pf: ParamFactory, d: int, ff: int) -> dict:
     half = np.full((d,), 0.5)
     return {
-        "mu_r": pf.constant(half),
-        "mu_k": pf.constant(half),
-        "w_r": pf.normal((d, d)),
-        "w_k": pf.normal((d, ff)),
-        "w_v": pf.normal((ff, d)),
+        "mu_r": pf.constant(half, _E),
+        "mu_k": pf.constant(half, _E),
+        "w_r": pf.normal((d, d), ("embed", "embed_out")),
+        "w_k": pf.normal((d, ff), ("embed", "ff")),
+        "w_v": pf.normal((ff, d), ("ff", "embed")),
     }
 
 
@@ -139,12 +141,14 @@ def rwkv_tm_train(p: dict, x: torch.Tensor, heads: int,
     diag = (rc * u[:, None, None, :] * kc).sum(dim=-1)
     o = att @ vc + diag[..., None] * vc
 
-    state = torch.zeros((b, heads, hd, hd), dtype=torch.float32, device=x.device)
+    state = shard_act(torch.zeros((b, heads, hd, hd), dtype=torch.float32, device=x.device),
+                      ("batch", "heads", None, None))
     inter = []
     for c in range(nc):
         inter.append(q_s[:, :, c] @ state)
-        state = torch.exp(lp_last[:, :, c, 0])[..., None] * state + \
-            k_st[:, :, c].transpose(-1, -2) @ vc[:, :, c]
+        state = shard_act(torch.exp(lp_last[:, :, c, 0])[..., None] * state
+                          + k_st[:, :, c].transpose(-1, -2) @ vc[:, :, c],
+                          ("batch", "heads", None, None))
     o = o + torch.stack(inter, dim=2)                # (b, h, nc, C, v)
     o = o.permute(0, 2, 3, 1, 4).reshape(b, s, heads, hd)
     last = x[:, -1, :]

@@ -24,7 +24,8 @@ For serving, ``cast_params`` casts the weights to the compute dtype once, at
 load; the reference casts each layer's weights on every step (``cast_tree``),
 which gives the same numbers.  ``train_loss`` and ``prefill`` cast on every
 call, as the reference does, so that gradients reach float32 master weights.
-Sharding hints (``shard_act``) and ``scan_mode`` have no counterpart here.
+``shard_act`` marks the reference's sharding sites (a no-op outside a
+mesh; ``act_sharding``); ``scan_mode`` has no counterpart here.
 The reference's ``remat`` policies do (``forward_train``, ``train_loss``):
 ``"none"`` keeps every activation for the backward pass; ``"full"``
 recomputes each ``block_pattern`` group (the reference's checkpoint unit;
@@ -49,11 +50,12 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..act_sharding import local_call, local_sum, shard_act
 from . import config as C
 from .attention import (KVCache, attention_decode, attention_train, init_attention,
                         init_kv_cache, valid_slots)
-from .layers import (ParamFactory, dtype_const, init_mlp, mlp_apply, rms_norm, rope_angles,
-                     token_losses)
+from .layers import (ParamFactory, dtype_const, init_mlp, map_dict, mlp_apply, rms_norm,
+                     rms_norm_in, rope_angles, sequence_whole, token_losses)
 from .moe import init_moe, moe_apply
 from .rglru import RGLRUState, init_rglru, init_rglru_state, rglru_decode, rglru_train
 from .rwkv6 import (RWKVState, init_rwkv_cm, init_rwkv_state, init_rwkv_tm, rwkv_cm_decode,
@@ -82,13 +84,6 @@ def window_of(cfg: C.ModelConfig, mixer: str) -> int:
     return {C.ATTN: 0, C.ATTN_SWA: cfg.attn_window, C.ATTN_LOCAL: cfg.local_window}[mixer]
 
 
-def map_dict(fn: Callable, tree):
-    """``fn`` over the leaves of a tree of nested dictionaries."""
-    if isinstance(tree, dict):
-        return {k: map_dict(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 # ---------------------------------------------------------------------------
 # Init.
 # ---------------------------------------------------------------------------
@@ -96,7 +91,7 @@ def map_dict(fn: Callable, tree):
 
 def _init_layer(pf: ParamFactory, cfg: C.ModelConfig, mixer: str, mlp: str) -> Dict:
     d = cfg.d_model
-    p: Dict = {"ln1": pf.zeros((d,)), "ln2": pf.zeros((d,))}
+    p: Dict = {"ln1": pf.zeros((d,), ("embed",)), "ln2": pf.zeros((d,), ("embed",))}
     if mixer in ATTENTION:
         p["mixer"] = init_attention(pf, d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     elif mixer == C.RGLRU:
@@ -116,45 +111,28 @@ def _init_layer(pf: ParamFactory, cfg: C.ModelConfig, mixer: str, mlp: str) -> D
     return p
 
 
-def stack_layers(make: Callable[[], Dict], n: int) -> Dict:
-    """``n`` layers from ``make`` stacked on a leading axis, filled one at a
-    time (one layer is alive beside the stack; a single layer is a view)."""
-    first = make()
-    if n == 1:
-        return map_dict(lambda t: t.unsqueeze(0), first)
-    out = map_dict(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
-    for g in range(n):
-        layer = first if g == 0 else make()
-        _fill(out, layer, g)
-        first = None
-    return out
-
-
-def _fill(out: Dict, layer: Dict, g: int) -> None:
-    for k, v in layer.items():
-        if isinstance(v, dict):
-            _fill(out[k], v, g)
-        else:
-            out[k][g].copy_(v)
+def decoder_tree(pf, cfg: C.ModelConfig) -> Dict:
+    """The parameter tree that ``pf`` makes: tensors (``ParamFactory``) or
+    their logical axes (``AxesFactory``), layer by layer."""
+    d = cfg.d_model
+    params: Dict = {"embed": pf.embedding((cfg.vocab_size, d), ("vocab", "embed"))}
+    if not cfg.tie_embeddings:
+        params["unembed"] = pf.normal((d, cfg.vocab_size), ("embed", "vocab"))
+    params["final_ln"] = pf.zeros((d,), ("embed",))
+    if cfg.scan_groups:
+        params["scan"] = {
+            f"pos{j}": pf.stack(lambda m=mixer, f=mlp: _init_layer(pf, cfg, m, f),
+                                cfg.scan_groups)
+            for j, (mixer, mlp) in enumerate(cfg.block_pattern)}
+    for j, (mixer, mlp) in enumerate(cfg.remainder_kinds):
+        params[f"rem{j}"] = _init_layer(pf, cfg, mixer, mlp)
+    return params
 
 
 def init_decoder_params(generator: torch.Generator, cfg: C.ModelConfig) -> Dict:
     """Random parameters in ``cfg.param_dtype`` on the generator's device,
     with the reference's initialiser scales, drawn layer by layer."""
-    pf = ParamFactory(generator, getattr(torch, cfg.param_dtype))
-    d = cfg.d_model
-    params: Dict = {"embed": pf.embedding((cfg.vocab_size, d))}
-    if not cfg.tie_embeddings:
-        params["unembed"] = pf.normal((d, cfg.vocab_size))
-    params["final_ln"] = pf.zeros((d,))
-    if cfg.scan_groups:
-        params["scan"] = {
-            f"pos{j}": stack_layers(lambda m=mixer, f=mlp: _init_layer(pf, cfg, m, f),
-                                    cfg.scan_groups)
-            for j, (mixer, mlp) in enumerate(cfg.block_pattern)}
-    for j, (mixer, mlp) in enumerate(cfg.remainder_kinds):
-        params[f"rem{j}"] = _init_layer(pf, cfg, mixer, mlp)
-    return params
+    return decoder_tree(ParamFactory(generator, getattr(torch, cfg.param_dtype)), cfg)
 
 
 def cast_params(params: Dict, cfg: C.ModelConfig) -> Dict:
@@ -213,6 +191,13 @@ def default_positions(inputs: torch.Tensor) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=inputs.device).expand(b, s)
 
 
+def lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` at int ``tokens`` (B, S).  Under a mesh on each
+    rank's batch rows, the table whole: DTensor's rule for the lookup's
+    backward (``index_put``) fails on split tokens (torch 2.11)."""
+    return local_call(lambda t, tab: tab[t.long()], (tokens, ("batch", None)), (table, (None, None)))
+
+
 def embed_inputs(params: Dict, inputs: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
     """Tokens (B, S) int looked up in ``embed`` (times sqrt(d) when tied,
     in the table's dtype), or embeddings (B, S, d) float taken as they are;
@@ -220,7 +205,7 @@ def embed_inputs(params: Dict, inputs: torch.Tensor, cfg: C.ModelConfig) -> torc
     if inputs.is_floating_point():
         x = inputs
     else:
-        x = params["embed"][inputs.long()]
+        x = lookup(params["embed"], inputs)
         if cfg.tie_embeddings:
             x = x * dtype_const(cfg.d_model ** 0.5, x)
     return x.to(getattr(torch, cfg.compute_dtype))
@@ -282,12 +267,13 @@ def _run_layers(layers: List[Tuple[str, str, Dict]], positions: torch.Tensor,
     """Layers (``layers_of``'s entries) over x, the MoE aux loss added to
     ``aux``; each layer with a cache stores its state in it."""
     for (mixer, mlp, p), lc in zip(layers, caches):
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        x = shard_act(x, ("batch", "seq", "embed_act"))
+        h = rms_norm_in(x, p["ln1"], cfg.norm_eps)
         out, state = _mixer_train(p["mixer"], h, positions, cfg, mixer)
-        x = x + out
-        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + sequence_whole(out)
+        h2 = rms_norm_in(x, p["ln2"], cfg.norm_eps)
         y, a = _mlp_train(p["mlp"], h2, cfg, mlp, cfg.capacity_factor)
-        x = x + y
+        x = x + sequence_whole(y)
         if a is not None:
             aux = aux + a
         if lc is not None:
@@ -340,15 +326,34 @@ def _store(lc: LayerCache, state, h2: torch.Tensor) -> None:
         lc.shift_cm.copy_(h2[:, -1])
 
 
+def _unembed(table: torch.Tensor, x: torch.Tensor, tied: bool) -> torch.Tensor:
+    """Logits of x against the output table: ``embed`` transposed when the
+    embeddings are tied, else ``unembed``."""
+    w = table.to(x.dtype)
+    return x @ (w.T if tied else w)
+
+
 def logits_from_hidden(params: Dict, x: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return x @ params["embed"].to(x.dtype).T
-    return x @ params["unembed"].to(x.dtype)
+    tied = cfg.tie_embeddings
+    return _unembed(params["embed"] if tied else params["unembed"], x, tied)
 
 
-def _chunk_loss(params: Dict, x: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
-                cfg: C.ModelConfig) -> torch.Tensor:
-    return (token_losses(logits_from_hidden(params, x, cfg), targets) * mask).sum()
+def _chunk_loss(table: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,
+                mask: torch.Tensor, tied: bool) -> torch.Tensor:
+    return (token_losses(_unembed(table, x, tied), targets) * mask).sum()
+
+
+def _ce_sum(table: torch.Tensor, x: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+            tied: bool) -> torch.Tensor:
+    s = x.shape[1]
+    c = min(LOSS_CHUNK, s)
+    if s % c:
+        c = s
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, c):
+        total = total + checkpoint(_chunk_loss, table, x[:, i:i + c], targets[:, i:i + c],
+                                   mask[:, i:i + c], tied, use_reentrant=False)
+    return total
 
 
 def chunked_ce_loss(params: Dict, x: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
@@ -358,15 +363,19 @@ def chunked_ce_loss(params: Dict, x: torch.Tensor, targets: torch.Tensor, mask: 
     compute dtype and then float32, are recomputed in the backward pass
     (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).
     A length that 512 does not divide is evaluated in one chunk.  The sum
-    over the chunks is divided by ``max(sum(mask), 1)``."""
-    s = x.shape[1]
-    c = min(LOSS_CHUNK, s)
-    if s % c:
-        c = s
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(0, s, c):
-        total = total + checkpoint(_chunk_loss, params, x[:, i:i + c], targets[:, i:i + c],
-                                   mask[:, i:i + c], cfg, use_reentrant=False)
+    over the chunks is divided by ``max(sum(mask), 1)``.
+
+    Under a mesh the loss head runs on each rank's batch rows, the output
+    table whole (``local_sum``): DTensor's rules for the label gather fail
+    on a split vocabulary (torch 2.13) and its lookup's backward on split
+    rows (torch 2.11), and the chunks' recompute is plain PyTorch there.
+    The reference's ``vocab_act`` constraint on each chunk's logits has no
+    counterpart: those logits exist only inside that local region."""
+    tied = cfg.tie_embeddings
+    table = params["embed"] if tied else params["unembed"]
+    total = local_sum(functools.partial(_ce_sum, tied=tied), (table, (None, None)),
+                      (x, ("batch", None, None)), (targets, ("batch", None)),
+                      (mask, ("batch", None)))
     return total / mask.sum().clamp(min=1.0)
 
 

@@ -8,6 +8,11 @@ model keeps its layers stacked on a leading axis, as the reference does for
 its scan, so the per-layer norm scales (layers, d) decay and ``final_ln`` (d,)
 does not, in both packages.  Moments are stored in ``moment_dtype``; the
 step count is a 0-d int32 tensor on the host.
+
+Parameters may be DTensors (a sharded train step): the moments take each
+parameter's placements, the gradient norm sums every shard, and
+``update_in_place`` works on each rank's local shards, the gradient first
+placed as its parameter is (the data-parallel reduce-scatter).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from ..act_sharding import is_dtensor
 from ..pytree import leaves, tree_map, unflatten_like
 
 
@@ -59,7 +65,8 @@ class AdamW:
     # -- state -------------------------------------------------------------------
     def init(self, params) -> AdamWState:
         dt = getattr(torch, self.moment_dtype)
-        zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+        zeros = lambda p: (torch.zeros_like(p, dtype=dt) if is_dtensor(p)
+                           else torch.zeros(p.shape, dtype=dt, device=p.device))
         return AdamWState(torch.zeros((), dtype=torch.int32), tree_map(zeros, params),
                           tree_map(zeros, params))
 
@@ -67,7 +74,7 @@ class AdamW:
     def _consts(self, grads, state: AdamWState):
         """(step, clip scale, bias corrections, lr) of the next update."""
         step = state.step + 1
-        gnorm = torch.stack([g.float().square().sum() for g in leaves(grads)]).sum().sqrt()
+        gnorm = torch.stack([_square_sum(g) for g in leaves(grads)]).sum().sqrt()
         scale = torch.clamp(self.grad_clip_norm / (gnorm + 1e-9), max=1.0)
         return (step, scale, 1.0 - self.b1 ** step.float(), 1.0 - self.b2 ** step.float(),
                 self.lr_at(step))
@@ -104,6 +111,9 @@ class AdamW:
         consts = self._consts(grads, state)
         for g, m, v, p in zip(leaves(grads), leaves(state.mu), leaves(state.nu), leaves(params)):
             decay = p.ndim >= 2
+            if is_dtensor(p):
+                g = g.redistribute(p.device_mesh, p.placements).to_local()
+                m, v, p = (t.to_local() for t in (m, v, p))
             pieces = [t.view(-1).split(IN_PLACE_PIECE) for t in (m, v, p)]
             for gs, ms, vs, ps in zip(g.reshape(-1).split(IN_PLACE_PIECE), *pieces):
                 u, m_new, v_new = self._leaf(gs, ms, vs, ps, consts, decay)
@@ -111,6 +121,12 @@ class AdamW:
                 vs.copy_(v_new)
                 ps.add_(u)
         return AdamWState(consts[0], state.mu, state.nu)
+
+
+def _square_sum(g) -> torch.Tensor:
+    """sum(g^2) in float32; a DTensor's over all its shards."""
+    out = g.float().square().sum()
+    return out.full_tensor() if is_dtensor(out) else out
 
 
 @torch.no_grad()

@@ -15,8 +15,9 @@ from typing import Callable
 
 import torch
 
+from ..act_sharding import activation_rules, is_dtensor
 from ..models.model import impl
-from ..pytree import leaves, tree_map, unflatten_like
+from ..pytree import flatten_with_path, leaves, tree_map, unflatten_like
 from .optimizer import AdamW
 
 
@@ -27,6 +28,9 @@ def trainable(params):
 
 def _value_and_grad(model, params, batch):
     loss, metrics = model.train_loss(params, batch)
+    if is_dtensor(loss):  # sharded: a partial sum over the batch shards, made whole
+        loss = loss.full_tensor()
+        metrics = {k: v.full_tensor() if is_dtensor(v) else v for k, v in metrics.items()}
     grads = torch.autograd.grad(loss, leaves(params))
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, unflatten_like(params, grads)
 
@@ -38,6 +42,39 @@ def make_train_step(model, opt: AdamW) -> Callable:
         loss, metrics, grads = _value_and_grad(model, params, batch)
         opt_state = opt.update_in_place(grads, opt_state, params)
         return params, opt_state, loss, metrics
+
+    return train_step
+
+
+def _require_dtensors(tree, what: str) -> None:
+    plain = [".".join(path) for path, leaf in flatten_with_path(tree) if not is_dtensor(leaf)]
+    if plain:
+        raise ValueError(f"sharded train step: {len(plain)} {what} leaves are not DTensors "
+                         f"(first: {plain[0]}); place them with distribute_tree")
+
+
+def make_sharded_train_step(model, opt: AdamW, mesh) -> Callable:
+    """``make_train_step``'s step under ``activation_rules(mesh)``: with the
+    parameters, the AdamW state and the batch placed as DTensors
+    (``sharding.param_pspecs`` / ``batch_pspecs`` + ``distribute_tree``),
+    DTensor's propagation splits the step as GSPMD does for the reference
+    (``PERF.md`` lists where the model takes its operands whole or local).
+
+    Each call checks that every parameter, moment and batch leaf is a
+    DTensor, since the rules take a plain tensor as replicated (the step
+    count, a host scalar, is the one plain leaf).  Only remat ``"none"``
+    runs: a checkpoint's recompute around the model's local regions fails
+    in DTensor's dispatch (torch 2.11)."""
+    if model.remat != "none":
+        raise ValueError(f"the sharded train step runs remat 'none' only, not {model.remat!r}")
+    step = make_train_step(model, opt)
+
+    def train_step(params, opt_state, batch):
+        _require_dtensors(params, "parameter")
+        _require_dtensors((opt_state.mu, opt_state.nu), "AdamW moment")
+        _require_dtensors(batch, "batch")
+        with activation_rules(mesh):
+            return step(params, opt_state, batch)
 
     return train_step
 

@@ -1133,3 +1133,115 @@ def test_attention_schedule_on_card_matches_plain(cuda, kind, s, kw, dtype):
     for what, a, b in zip(("out", "dq", "dk", "dv"), got["schedule"], got["plain"]):
         atol = 3e-5 if what == "out" else 1e-4
         torch.testing.assert_close(a, b, rtol=rtol, atol=atol, msg=lambda m, w=what: f"{w}: {m}")
+
+
+# ---------------------------------------------------------------------------
+# Sharding on the card: a one-process NCCL group and its 1 x 1 mesh.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def card_mesh():
+    """The card's 1 x 1 ("data", "model") mesh over a one-process NCCL group
+    (in-memory store, no port), for the tests below."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_single_process, make_host_mesh
+
+    init_single_process("cuda")
+    try:
+        yield make_host_mesh(device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_train_step_on_card_matches_plain(cuda, card_mesh):
+    """The smoke TinyLlama in float32: two sharded steps (every leaf a
+    DTensor) equal two plain steps, losses and weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.pytree import leaves, tree_map
+    from repro_torch.sharding import batch_pspecs, distribute_tree, param_pspecs
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import (make_sharded_train_step, make_train_step,
+                                              trainable)
+
+    cfg = get_config("tinyllama-1.1b", smoke=True).replace(param_dtype="float32",
+                                                           compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(cuda).manual_seed(0))
+    gen = torch.Generator(cuda).manual_seed(1)
+    batches = [{"inputs": torch.randint(0, cfg.vocab_size, (8, 64), device=cuda, generator=gen),
+                "targets": torch.randint(0, cfg.vocab_size, (8, 64), device=cuda, generator=gen),
+                "mask": torch.ones(8, 64, device=cuda)} for _ in range(2)]
+    opt = AdamW(learning_rate=1e-3, warmup_steps=1, schedule="constant")
+    sds, axes = model.abstract_params()
+    specs = param_pspecs(sds, axes, card_mesh, mode="train", fsdp=True)
+    bspecs = batch_pspecs(cfg, "train", 8, card_mesh)
+    sharded = trainable(distribute_tree(tree_map(torch.clone, params), specs, card_mesh))
+    plain = trainable(params)
+    dstate, state = opt.init(sharded), opt.init(plain)
+    sstep, step = make_sharded_train_step(model, opt, card_mesh), make_train_step(model, opt)
+    for b in batches:
+        plain, state, loss, _ = step(plain, state, b)
+        sharded, dstate, dloss, _ = sstep(sharded, dstate, distribute_tree(b, bspecs, card_mesh))
+        assert abs(float(dloss) - float(loss)) <= 1e-5 * abs(float(loss))
+    with torch.no_grad():
+        for a, b in zip(leaves(sharded), leaves(plain)):
+            assert float((a.to_local() - b).abs().max()) <= 1e-6
+
+
+def test_moe_mesh_branch_on_card_group_of_one(cuda, card_mesh):
+    from repro_torch.act_sharding import activation_rules
+    from repro_torch.models import moe
+    from repro_torch.models.layers import ParamFactory
+
+    p = moe.init_moe(ParamFactory(torch.Generator(cuda).manual_seed(0), torch.float32), 64, 128,
+                     8, "swiglu")
+    x = torch.randn(4, 32, 64, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    want, want_aux = moe.moe_apply(p, x, top_k=2, capacity_factor=4.0)
+    with activation_rules(card_mesh):
+        got, aux = moe.moe_apply(p, x, top_k=2, capacity_factor=4.0)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert abs(float(aux) - float(want_aux)) <= 1e-5 * abs(float(want_aux))
+
+
+def test_restore_onto_card_mesh(cuda, card_mesh, tmp_path):
+    from repro_torch.ckpt import checkpoint as ckpt
+
+    tree = {"w": torch.arange(64.0).reshape(8, 8), "b": torch.arange(6.0)}
+    ckpt.save(str(tmp_path), 1, tree)
+    like = {k: torch.empty(v.shape, device="meta") for k, v in tree.items()}
+    back = ckpt.restore(str(tmp_path), 1, like, mesh=card_mesh,
+                        specs={"w": ("data", "model"), "b": ()})
+    for k, v in tree.items():
+        assert back[k].device.type == "cuda"
+        assert torch.equal(back[k].full_tensor().cpu(), v)
+
+
+EXAMPLES = [
+    ("torch_quickstart.py",),
+    ("torch_serve_kv_dedup.py",),
+    ("torch_train_e2e.py", "--steps", "6", "--d-model", "64", "--layers", "2", "--batch", "2",
+     "--seq", "64", "--ckpt-every", "3"),
+    ("torch_paper_comparison.py", "--requests", "20000"),
+]
+
+
+@pytest.mark.parametrize("argv", EXAMPLES, ids=[a[0] for a in EXAMPLES])
+def test_example_on_card(cuda, argv, tmp_path):
+    """Each port example with ``--device cuda`` at its smallest size."""
+    import subprocess
+    import sys
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    args = list(argv[1:]) + (["--ckpt-dir", str(tmp_path)] if "torch_train_e2e" in argv[0]
+                             else [])
+    out = subprocess.run([sys.executable, os.path.join(root, "examples", argv[0]), *args,
+                          "--device", "cuda"], capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")), cwd=root)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec
