@@ -1614,8 +1614,8 @@ def phase_paged_attention(dev, results: dict, srv, mix, seed: int) -> None:
 # The cluster phase: the reference's cluster benchmark settings
 # (``benchmarks/cluster_scaling.py``: 4 shards, 32,768 cache entries, batch
 # 8,192) and GC schedule (``benchmarks/gc_reclaim.py``: a step every 4
-# chunks, 512 moves a shard), over 2 M requests of workload A.
-CLUSTER_REQUESTS = 2_000_000
+# chunks, 512 moves a shard), over 1 M requests of workload A.
+CLUSTER_REQUESTS = 1_000_000
 CLUSTER_SHARDS, CLUSTER_GROWN, CLUSTER_REPLICAS = 4, 8, 2
 CLUSTER_CACHE, CLUSTER_BATCH = 32768, 8192
 CLUSTER_GC_EVERY, CLUSTER_GC_MOVES = 4, 512
@@ -3284,6 +3284,18 @@ SHARD_LOSS_RTOL, SHARD_WEIGHT_TOL = 1e-5, 1e-6
 SHARD_MOE_TOKENS = (4, 512)       # Mixtral-8x7B's layer at published width
 SHARD_MOE_RTOL = 1e-5
 SHARD_MEAN_TOL = 0.05             # of each leaf's largest gradient
+SHARD_REMATS = ("dots", "full")   # (f): the sharded step under each, against the plain one
+SHARD_PROMPT = (4, 512)           # (g): TinyLlama's sharded prefill, then SHARD_DECODE steps
+SHARD_DECODE = 4
+# (h): the dry-run CLI's cells, train, prefill and decode on both meshes
+SHARD_DRY_ARGS = ("--arch", "tinyllama-1.1b", "--mesh", "both")
+SHARD_DRY_OPS_SHOWN = 8  # (h): each cell's largest operations by traced FLOPs
+# (i): the 1 x 1 trace of (f)'s steps against the card: the peak within 10% of
+# max_memory_allocated; the traced FLOPs at most this far above _step_flops
+# (which counts neither remat's recompute, nor the loss head's, nor the
+# local regions' second forward pass)
+SHARD_TRACE_PEAK_RTOL = 0.10
+SHARD_TRACE_FLOPS_OVER = 0.40
 
 
 def _rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -3483,10 +3495,9 @@ def _host_terms(results: dict, smi: str) -> None:
     shape = SHAPES["train_4k"]
     at_shape = analytic_terms(cfg, "train", shape.seq_len, shape.global_batch, mesh,
                               remat=long["remat"])
-    cells = dryrun.run_all(verbose=False)
+    cells = dryrun.run_all(verbose=False, trace=False)  # the accounting; (h) traces
     ok = [c for c in cells if c["status"] == "ok"]
     check(len(cells) == 80 and len(ok) == 66, f"sharding: dry run {len(cells)} cells, {len(ok)} ok")
-    over = [f"{c['mesh']} {c['arch']} {c['shape']}" for c in ok if not c["fits_hbm"]]
     emit("sharding", part="host_terms", card=smi, long_step=long,
          analytic_at_long_step={"flops": at_long.flops, "hbm_bytes": at_long.hbm_bytes,
                                 "wire_bytes": at_long.wire_bytes},
@@ -3494,16 +3505,260 @@ def _host_terms(results: dict, smi: str) -> None:
          analytic_train_4k={"batch": shape.global_batch, "flops": at_shape.flops,
                             "hbm_bytes": at_shape.hbm_bytes, "wire_bytes": at_shape.wire_bytes},
          dry_run_records=len(cells), dry_run_ok=len(ok), dry_run_device=ok[0]["device"],
-         dry_run_device_bytes=ok[0]["device_memory_bytes"], cells_over_memory=over,
-         part_s=time.perf_counter() - t0)
+         dry_run_device_bytes=ok[0]["device_memory_bytes"], part_s=time.perf_counter() - t0)
+
+
+def _remat_steps(dev, mesh, smi: str, seed: int) -> dict:
+    """(f) TinyLlama-1.1B at full size and the launcher's batch under remat
+    "dots" and "full": SHARD_STEPS plain and sharded steps from the same
+    weights and batches, losses and every leaf equal (else within
+    SHARD_LOSS_RTOL, the gap printed); the first sharded step's peak memory
+    above what else the process holds (``torch.cuda.max_memory_allocated``,
+    reset first) for (i).  Returns {remat: that step's bytes}."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch
+    from repro_torch.models import build_model
+    from repro_torch.pytree import leaves, tree_map
+    from repro_torch.sharding import batch_pspecs, distribute_tree, param_pspecs
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import (make_sharded_train_step, make_train_step,
+                                              trainable)
+
+    cfg = get_config("tinyllama-1.1b")
+    args = launch.parse_args(["--seed", str(seed), "--device", str(dev)])
+    pipe = launch.make_pipeline(args, cfg.vocab_size, dev)
+    batches = [{k: torch.as_tensor(v).to(dev) for k, v in pipe.next_batch(args.batch,
+                                                                           args.seq).items()}
+               for _ in range(SHARD_STEPS)]
+    opt = AdamW(learning_rate=args.lr, warmup_steps=max(args.steps // 20, 5),
+                total_steps=args.steps)
+    peaks = {}
+    for remat in SHARD_REMATS:
+        t0 = time.perf_counter()
+        model = build_model(cfg, remat=remat)
+        params = model.init(torch.Generator(dev).manual_seed(seed))
+        sds, axes = model.abstract_params()
+        specs = param_pspecs(sds, axes, mesh, mode="train", fsdp=True)
+        bspecs = batch_pspecs(cfg, "train", args.batch, mesh)
+        sharded = trainable(distribute_tree(tree_map(torch.clone, params), specs, mesh))
+        plain = trainable(params)
+        dstate, state = opt.init(sharded), opt.init(plain)
+        sstep, step = make_sharded_train_step(model, opt, mesh), make_train_step(model, opt)
+        losses, dlosses, step_s, dstep_s = [], [], [], []
+        for i, batch in enumerate(batches):
+            t1 = time.perf_counter()
+            plain, state, loss, _ = step(plain, state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            placed = distribute_tree(batch, bspecs, mesh)
+            if i == 0:
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                inputs = sum(t.to_local().untyped_storage().nbytes() for t in
+                             leaves(sharded) + leaves(dstate.mu) + leaves(dstate.nu)
+                             + leaves(placed))
+            t1 = time.perf_counter()
+            sharded, dstate, dloss, _ = sstep(sharded, dstate, placed)
+            torch.cuda.synchronize()
+            dstep_s.append(time.perf_counter() - t1)
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated()
+                peaks[remat] = {"max_memory_allocated": peak, "held_before": base,
+                                "inputs": inputs, "step_peak": peak - base + inputs}
+            del placed
+            losses.append(float(loss))
+            dlosses.append(float(dloss))
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(dlosses, losses))
+        weight_gap, equal = 0.0, 0
+        with torch.no_grad():
+            for a, b in zip(leaves(sharded), leaves(plain)):
+                gap = _rel_gap(a.to_local(), b)
+                weight_gap = max(weight_gap, gap)
+                equal += int(torch.equal(a.to_local(), b))
+        check(loss_gap <= SHARD_LOSS_RTOL and weight_gap <= SHARD_LOSS_RTOL,
+              f"sharding: remat {remat}: losses {dlosses} against {losses}, weights "
+              f"{weight_gap} apart")
+        emit("sharding", part="remat_step", card=smi, remat=remat, model=cfg.name,
+             layers=cfg.num_layers, batch=[args.batch, args.seq], steps=SHARD_STEPS,
+             losses=losses, sharded_losses=dlosses, loss_rel_gap=loss_gap,
+             max_weight_rel_gap=weight_gap, leaves_equal=equal, leaves=len(leaves(plain)),
+             bit_equal=bool(loss_gap == 0 and equal == len(leaves(plain))),
+             plain_step_ms=[x * 1e3 for x in step_s], sharded_step_ms=[x * 1e3 for x in dstep_s],
+             memory=peaks[remat], part_s=time.perf_counter() - t0)
+        del sharded, dstate, state, plain, params, model
+        _free()
+    del batches, pipe
+    return peaks
+
+
+def _sharded_serving(dev, mesh, smi: str, seed: int) -> None:
+    """(g) TinyLlama-1.1B at full width, bf16 weights: a sharded prefill of
+    SHARD_PROMPT into a cache placed by ``cache_pspecs`` and SHARD_DECODE
+    sharded decode steps, against the plain prefill and decode steps."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.act_sharding import placements
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.sharding import batch_pspecs, distribute_tree, param_pspecs
+    from repro_torch.train.train_step import (make_serve_step, make_sharded_prefill_step,
+                                              make_sharded_serve_step)
+
+    t0 = time.perf_counter()
+    cfg = get_config("tinyllama-1.1b").replace(param_dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(seed))
+    g = torch.Generator(dev).manual_seed(seed + 2)
+    b, s = SHARD_PROMPT
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), device=dev, generator=g)
+    toks = torch.randint(0, cfg.vocab_size, (SHARD_DECODE, b, 1), device=dev, generator=g)
+    slots = s + SHARD_DECODE
+    t1 = time.perf_counter()
+    logits, cache = model.prefill(params, {"inputs": prompt}, slots)
+    serve = make_serve_step(model)
+    want = [logits] + [serve(params, cache, toks[i], s + i)[0] for i in range(SHARD_DECODE)]
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    del cache
+    sds, axes = model.abstract_params()
+    dparams = distribute_tree(params, param_pspecs(sds, axes, mesh, mode="serve", fsdp=False),
+                              mesh)
+    t1 = time.perf_counter()
+    dlogits, dcache = make_sharded_prefill_step(model, mesh, slots)(
+        dparams, distribute_tree({"inputs": prompt}, batch_pspecs(cfg, "prefill", b, mesh), mesh))
+    dserve = make_sharded_serve_step(model, mesh)
+    got = [dlogits] + [dserve(dparams, dcache, distribute_tensor(toks[i], mesh,
+                                                                 placements((), mesh)),
+                              s + i)[0] for i in range(SHARD_DECODE)]
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t1
+    gaps = [_rel_gap(a.full_tensor(), w) for a, w in zip(got, want)]
+    equal = [bool(torch.equal(a.full_tensor(), w)) for a, w in zip(got, want)]
+    check(max(gaps) <= SHARD_LOSS_RTOL, f"sharding: sharded prefill/decode logits {gaps} off")
+    emit("sharding", part="prefill_decode", card=smi, model=cfg.name, layers=cfg.num_layers,
+         weights="bfloat16", prompt=list(SHARD_PROMPT), decode_steps=SHARD_DECODE,
+         logits_rel_gap=gaps, logits_equal=equal, plain_s=plain_s, sharded_s=sharded_s,
+         cache_placements=str(dcache.k.placements), part_s=time.perf_counter() - t0)
+    del params, dparams, dcache, got, want
+
+
+def _start_dry_cli(out: str):
+    """(h) The dry-run CLI on SHARD_DRY_ARGS, in a process of its own (the
+    fake process group needs one), writing its records to ``out``."""
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *SHARD_DRY_ARGS,
+                             "--out", out], cwd=ROOT, text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT,
+                            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+
+
+def _trace_child(spec: str) -> None:
+    """(i) ``dryrun.trace_step`` of TinyLlama-1.1B at full depth on a fake
+    1 x 1 mesh at the launcher's batch, for each remat of ``spec``, beside
+    the dry run's straight line from 1 and 2 layers (``trace_cell``);
+    prints one JSON line."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+
+    spec = json.loads(spec)
+    b, s = spec["batch"]
+    cfg = get_config("tinyllama-1.1b")
+    shape, dims = ShapeSpec("launcher", "train", s, b), {"data": 1, "model": 1}
+    out = {}
+    for remat in spec["remats"]:
+        t0 = time.perf_counter()
+        t = dryrun.trace_step(cfg, shape, dryrun.fake_mesh(dims), remat=remat)
+        line = dryrun.trace_cell(cfg, shape, dims, remat=remat)
+        out[remat] = {"trace_s": time.perf_counter() - t0 - line["trace_s"],
+                      "line": {k: line[k] for k in ("peak", "flops", "depths", "trace_s")},
+                      **{k: t[k] for k in ("peak", "flops", "args_live", "collectives")}}
+    dryrun.close_fake_mesh()
+    print(json.dumps(out), flush=True)
+
+
+def _dry_cli(proc, out: str, smi: str) -> None:
+    """(h) The CLI's cells: each ok, with its collectives, peak and trace
+    seconds printed, its traced FLOPs by operation (the largest, and those
+    of operations with an operand as wide as the vocabulary: the logits
+    and loss head), and which cells the traced peak puts over the card's
+    memory."""
+    from repro_torch.configs import get_config
+
+    text, _ = proc.communicate()
+    check(proc.returncode == 0 and os.path.exists(out), f"sharding: dry-run CLI:\n{text[-4000:]}")
+    with open(out) as f:
+        cells = json.load(f)
+    os.remove(out)
+    ok = [c for c in cells if c["status"] == "ok"]
+    check(all(c["status"] in ("ok", "skipped") for c in cells)
+          and {(c["kind"], c["mesh"]) for c in ok} >= {(k, m) for k in ("train", "prefill",
+                                                                          "decode")
+                                                       for m in ("16x16", "2x16x16")},
+          f"sharding: dry-run CLI cells {[(c['shape'], c['mesh'], c['status']) for c in cells]}")
+    emit("sharding", part="dry_run_cli", card=smi, args=list(SHARD_DRY_ARGS),
+         cells=[{"arch": c["arch"], "shape": c["shape"], "mesh": c["mesh"], "status": c["status"],
+                 **({"collective_bytes": c["collectives"]["total_bytes"],
+                     "collective_counts": c["collectives"]["counts"],
+                     "peak": c["bytes_per_device"]["peak"], "args": c["bytes_per_device"]["args"],
+                     "traced_flops": c["traced_flops_per_device"], "trace_s": c["trace_s"],
+                     "fits_hbm": c["fits_hbm"],
+                     "flops_by_op": dict(list(c["traced_flops_by_op"].items())
+                                         [:SHARD_DRY_OPS_SHOWN]),
+                     "vocab_wide_flops": _vocab_wide_flops(
+                         c["traced_flops_by_op"], get_config(c["arch"]).vocab_size)}
+                    if c["status"] == "ok" else {})}
+                for c in cells],
+         traced_cells_over_memory=[f"{c['mesh']} {c['arch']} {c['shape']}" for c in ok
+                                   if not c["fits_hbm"]])
+
+
+def _vocab_wide_flops(by_op: dict, vocab: int) -> int:
+    """The traced FLOPs of operations with an operand dimension of the
+    vocabulary's size (``StepTrace``'s keys list the operand shapes)."""
+    wide = (f"({vocab},", f" {vocab},", f" {vocab})")
+    return sum(n for key, n in by_op.items() if any(w in key for w in wide))
+
+
+def _traced_against_card(proc, peaks: dict, smi: str) -> None:
+    """(i) The 1 x 1 full-depth traces of (f)'s steps against the card: the
+    traced peak within SHARD_TRACE_PEAK_RTOL of the step's measured peak,
+    the traced FLOPs between ``_step_flops`` and SHARD_TRACE_FLOPS_OVER
+    above it; the dry run's straight line from 1 and 2 layers printed
+    beside (at this batch the optimizer's pieces, which stop growing with
+    depth, set the peak, so the line overshoots it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch
+
+    traced = _child_outcome(proc, "sharding: the 1 x 1 trace")
+    cfg = get_config("tinyllama-1.1b")
+    args = launch.parse_args([])
+    flops = _step_flops(cfg, args.batch, args.seq)
+    for remat, t in traced.items():
+        real = peaks[remat]["step_peak"]
+        peak_gap = (t["peak"] - real) / real
+        flops_over = t["flops"] / flops - 1.0
+        check(abs(peak_gap) <= SHARD_TRACE_PEAK_RTOL,
+              f"sharding: traced peak {t['peak']} against the card's {real} ({remat})")
+        check(0.0 <= flops_over <= SHARD_TRACE_FLOPS_OVER,
+              f"sharding: traced FLOPs {t['flops']} against _step_flops {flops} ({remat})")
+        emit("sharding", part="trace_vs_card", card=smi, remat=remat, model=cfg.name,
+             batch=[args.batch, args.seq], traced_peak=t["peak"], card_step_peak=real,
+             peak_rel_gap=peak_gap, traced_args=t["args_live"],
+             card_inputs=peaks[remat]["inputs"], traced_flops=t["flops"], step_flops=flops,
+             flops_over=flops_over, traced_collectives=t["collectives"], trace_s=t["trace_s"],
+             straight_line=t["line"],
+             straight_line_peak_rel_gap=(t["line"]["peak"] - real) / real)
 
 
 def phase_sharding(dev, results: dict, smi: str, seed: int) -> None:
     """The port's sharding on one card: a one-process NCCL group (no port,
     an in-memory store) and its 1 x 1 ("data", "model") mesh; (a) the
     sharded train step, (b) the MoE's mesh branch, (c) the compressed mean,
-    (d) elastic restore, (e) the host arithmetic.  Launch counts are zeroed
-    just before the phase and read just after (``launches_by_path``)."""
+    (d) elastic restore, (e) the host arithmetic, (f) the sharded step under
+    remat "dots" and "full", (g) sharded prefill and decode, (h) the traced
+    dry run's CLI and (i) the 1 x 1 trace of (f)'s steps against the card
+    ((h) and (i) in processes of their own on the host, from the phase's
+    start).  Launch counts are zeroed just before the phase and read just
+    after (``launches_by_path``)."""
     import torch.distributed as dist
 
     from repro_torch.kernels import _build
@@ -3513,6 +3768,15 @@ def phase_sharding(dev, results: dict, smi: str, seed: int) -> None:
     torch.cuda.synchronize()
     _build.reset_launches()
     t0 = time.perf_counter()
+    # (h) and (i) trace on the host's cores, beside the card's parts
+    dry_out = os.path.join(ROOT, "build", "sharding_dry_run.json")
+    os.makedirs(os.path.dirname(dry_out), exist_ok=True)
+    from repro_torch.launch import train as launch
+
+    largs = launch.parse_args([])
+    tracer = _start_child("_trace_child", {"batch": [largs.batch, largs.seq],
+                                           "remats": list(SHARD_REMATS)})
+    cli = _start_dry_cli(dry_out)
     init_single_process(str(dev))
     try:
         want = {"cuda": "nccl", "cpu": "gloo"}[dev.type]
@@ -3524,12 +3788,22 @@ def phase_sharding(dev, results: dict, smi: str, seed: int) -> None:
         _compressed_mean(dev, grads, smi)
         del grads
         _free()
+        peaks = _remat_steps(dev, mesh, smi, seed)
+        _free()
+        _sharded_serving(dev, mesh, smi, seed)
+        _free()
         _sharded_moe(dev, mesh, smi, seed)
         _free()
         _elastic_restore(dev, mesh, results, smi)
         _host_terms(results, smi)
+        _dry_cli(cli, dry_out, smi)
+        _traced_against_card(tracer, peaks, smi)
     finally:
         dist.destroy_process_group()
+        for proc in (tracer, cli):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     for name in KERNELS:

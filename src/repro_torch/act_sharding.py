@@ -178,6 +178,65 @@ def shard_act(x, names: Sequence[Optional[str]]):
     return x.redistribute(mesh, placements(act_spec(x.shape, names, mesh, rules), mesh))
 
 
+def fsdp_gather(x):
+    """Under ``activation_rules``, a weight DTensor made whole over the
+    batch axes ("pod", "data": where FSDP splits it), its "model" split
+    kept: the all-gather GSPMD makes before a layer uses an FSDP-split
+    weight (its gradient comes back reduce-scattered).  Taken per layer,
+    inside the layer's remat unit, so the gathered weights of one layer
+    are alive at a time.  Anything else is returned as it is."""
+    if getattr(_state, "ctx", None) is None or not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    names, fsdp = list(mesh_shape(x.device_mesh)), batch_mesh_axes(x.device_mesh)
+    plc = [Replicate() if names[i] in fsdp else p for i, p in enumerate(x.placements)]
+    return x if plc == list(x.placements) else x.redistribute(x.device_mesh, plc)
+
+
+def unflatten(x, dim: int, sizes: Sequence[int]):
+    """x with dimension ``dim`` viewed as ``sizes``.  On a DTensor whose
+    ``dim`` is split over more ranks than divide ``sizes[0]``, the split is
+    undone first: DTensor cannot unflatten it (GSPMD splits the inner
+    dimension too, e.g. 4 heads of 16 over 16 ranks)."""
+    dim = dim % x.ndim
+    if sizes[0] % split_ranks(x, dim):
+        from torch.distributed.tensor import Replicate, Shard
+
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if isinstance(p, Shard) and p.dim == dim else p for p in x.placements])
+    return x.view(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+
+
+def view_heads(x, heads: int):
+    """x (..., heads * hd) viewed as (..., heads, hd) (``unflatten``)."""
+    return unflatten(x, -1, (heads, x.shape[-1] // heads))
+
+
+def split_ranks(x, dim: int) -> int:
+    """Over how many ranks dimension ``dim`` of ``x`` is split (1 for a
+    plain tensor, or one split only over mesh dimensions of size 1)."""
+    if not is_dtensor(x):
+        return 1
+    from torch.distributed.tensor import Shard
+
+    total = 1
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim % x.ndim:
+            total *= x.device_mesh.size(i)
+    return total
+
+
+def flatten_heads(x):
+    """x (..., heads, hd) -> (..., heads * hd).  On a DTensor the result is
+    pinned to its placements (an identity ``redistribute``), so that its
+    gradient comes back placed as it is, which ``unflatten`` can take: a
+    product against a weight split on the flat dimension would otherwise
+    hand back a gradient split where the heads are not."""
+    y = x.reshape(*x.shape[:-2], -1)
+    return y.redistribute(y.device_mesh, y.placements) if is_dtensor(y) else y
+
+
 def active_spec(x, names: Sequence[Optional[str]]) -> Optional[Spec]:
     """The spec ``shard_act(x, names)`` gives ``x`` under the active rules
     (``None`` outside ``activation_rules``)."""
@@ -202,21 +261,30 @@ def _grad_placements(dts: Sequence) -> List[list]:
 
 class _Local(torch.autograd.Function):
     """``fn`` on the local shards of DTensors, forward and backward on plain
-    tensors: the inputs' local tensors go in detached, ``fn``'s graph is
-    kept, and the backward pass hands it the outputs' local gradients and
-    returns the inputs' as DTensors (``_grad_placements``)."""
+    tensors: the inputs' local tensors go in detached, and the backward pass
+    hands ``fn``'s graph the outputs' local gradients and returns the
+    inputs' as DTensors (``_grad_placements``).  ``fn``'s graph is kept from
+    the forward pass; inside a remat unit (``remat_unit``) only the inputs
+    are kept and the graph is made again in the backward pass, so that the
+    unit's checkpoint never meets it from inside another backward pass
+    (one there would recompute the whole unit a second time)."""
 
     @staticmethod
-    def forward(ctx, fn, mesh, out_placements, *dts):
-        ins = [d._local_tensor.detach().requires_grad_(d.requires_grad) for d in dts]
-        with torch.enable_grad():
-            outs = fn(*ins)
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        ctx.graph = (ins, outs)
-        ctx.mesh, ctx.out_placements = mesh, out_placements
-        ctx.grad_placements = _grad_placements(dts)
+    def forward(ctx, fn, mesh, out_placements, recompute, *dts):
         from torch.distributed.tensor import DTensor
 
+        ctx.fn, ctx.recompute = fn, recompute
+        ctx.mesh, ctx.out_placements = mesh, out_placements
+        ctx.set_materialize_grads(False)  # an unused output's gradient stays None
+        ctx.grad_placements = _grad_placements(dts)
+        if recompute:
+            with torch.no_grad():
+                outs = fn(*(d._local_tensor for d in dts))
+            ctx.save_for_backward(*dts)
+        else:
+            ctx.graph = _local_graph(fn, dts)
+            outs = ctx.graph[1]
+        outs = outs if isinstance(outs, tuple) else (outs,)
         return tuple(DTensor.from_local(o.detach(), mesh, pl, run_check=False)
                      for o, pl in zip(outs, out_placements))
 
@@ -224,7 +292,7 @@ class _Local(torch.autograd.Function):
     def backward(ctx, *grads):
         from torch.distributed.tensor import DTensor, Partial, Replicate
 
-        ins, outs = ctx.graph
+        ins, outs = _local_graph(ctx.fn, ctx.saved_tensors) if ctx.recompute else ctx.graph
         # a partial output's gradient is whole on every rank (d sum / d part = 1)
         pairs = [(o, g.redistribute(ctx.mesh, [Replicate() if isinstance(p, Partial) else p
                                                for p in pl]).to_local())
@@ -237,32 +305,77 @@ class _Local(torch.autograd.Function):
         for t, pl in zip(ins, ctx.grad_placements):
             g = next(got) if t.requires_grad else None
             out.append(None if g is None else DTensor.from_local(g, ctx.mesh, pl, run_check=False))
-        del ctx.graph
-        return (None, None, None, *out)
+        ctx.graph = None
+        return (None, None, None, None, *out)
+
+
+def _local_graph(fn: Callable, dts: Sequence) -> Tuple[list, tuple]:
+    """(the local inputs, detached, tracking gradients where the DTensors
+    do; ``fn``'s outputs on them, with their graph)."""
+    ins = [d._local_tensor.detach().requires_grad_(d.requires_grad) for d in dts]
+    with torch.enable_grad():
+        outs = fn(*ins)
+    return ins, outs if isinstance(outs, tuple) else (outs,)
+
+
+def current_rules():
+    """The active ``activation_rules`` (mesh, rules), or None: what a remat
+    unit captures to run under again (``remat_unit``)."""
+    return getattr(_state, "ctx", None)
+
+
+@contextlib.contextmanager
+def remat_unit(rules):
+    """Inside a remat unit's checkpoint (``transformer.remat_call``): the
+    rules captured when the unit first ran (``current_rules``), since its
+    recompute runs in the autograd engine's thread for the device (a card's
+    backward pass does), where this module's thread-local rules are absent
+    (DTensor's implicit replication is process-wide and stays on); and local
+    regions keep their inputs only and make their graph again in the
+    backward pass (``_Local``)."""
+    prev = getattr(_state, "ctx", None), getattr(_state, "recompute", False)
+    _state.ctx, _state.recompute = rules, True
+    try:
+        yield
+    finally:
+        _state.ctx, _state.recompute = prev
 
 
 def run_local(fn: Callable, dts: Sequence, out_placements: Sequence[list]) -> tuple:
     """``fn``'s outputs over the local shards of ``dts`` (DTensors on one
     mesh), each output a DTensor with its ``out_placements``: the port's
     ``shard_map``, differentiable (``_Local``)."""
-    return _Local.apply(fn, dts[0].device_mesh, list(out_placements), *dts)
+    return _Local.apply(fn, dts[0].device_mesh, list(out_placements),
+                        getattr(_state, "recompute", False), *dts)
 
 
-def local_call(fn: Callable, *args: Tuple[torch.Tensor, Sequence[Optional[str]]]):
+def local_call(fn: Callable, *args: Tuple[torch.Tensor, Sequence[Optional[str]]],
+               outs: Optional[Sequence[Sequence[Optional[str]]]] = None):
     """``fn`` over the local shards of DTensor arguments: each ``(tensor,
     names)`` is constrained by ``shard_act`` (a plain tensor is taken as
     replicated), and ``fn``'s one output comes back as a DTensor split as
-    the first argument is, on dimensions it shares with it (``run_local``).
-    For functions whose rows are independent along the split dimensions
-    (attention over batch rows and heads, a lookup or a loss per token).
+    the first argument is, on dimensions it shares with it (``run_local``);
+    with ``outs`` (one tuple of names per output), ``fn``'s outputs come back
+    split as the arguments' dimensions of those names are.  For functions
+    whose rows are independent along the split dimensions (attention or a
+    recurrence over batch rows and heads, a lookup or a loss per token).
     Outside a ``DeviceMesh`` context, or with no DTensor among the
     arguments, ``fn`` runs on the tensors as they are."""
     ctx = getattr(_state, "ctx", None)
     tensors = [a for a, _ in args]
     if ctx is None or isinstance(ctx[0], dict) or not any(is_dtensor(a) for a in tensors):
         return fn(*tensors)
-    placed = _placed(ctx[0], args)
-    return run_local(fn, placed, [placed[0].placements])[0]
+    mesh, rules = ctx
+    placed = _placed(mesh, args)
+    if outs is None:
+        return run_local(fn, placed, [placed[0].placements])[0]
+    axes: Dict[str, AxisSpec] = {}
+    for (_, names), d in zip(args, placed):
+        for name, entry in zip(names, act_spec(d.shape, names, mesh, rules)):
+            if name:
+                axes.setdefault(name, entry)
+    return run_local(fn, placed, [placements(tuple(axes.get(n) if n else None for n in names),
+                                             mesh) for names in outs])
 
 
 def _placed(mesh, args) -> list:

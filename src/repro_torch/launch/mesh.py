@@ -6,6 +6,9 @@ the partition rules and the dry run read: no process group is made.
 ``make_host_mesh`` builds a ``DeviceMesh`` over the processes of the current
 ``torch.distributed`` group (one card: 1 x 1), and ``init_single_process``
 starts that group for one process without opening a port.
+``make_fake_mesh`` builds a production-sized ``DeviceMesh`` inside one
+process over ``torch.distributed``'s "fake" backend, whose collectives move
+nothing: the dry run traces each rank's step on it (``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -59,3 +62,25 @@ def init_single_process(device: str = "cuda") -> None:
         torch.cuda.set_device(torch.device(device).index or 0)
     dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1,
                             timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+
+
+def make_fake_mesh(shape: Dict[str, int]):
+    """A ``DeviceMesh`` of ``shape`` (ordered ``{axis: size}``, e.g.
+    ``make_production_mesh()``) on CPU over a "fake" process group of that
+    many ranks, this process rank 0: collectives return tensors of the
+    right shapes and move nothing.  A process has one default group, so
+    this raises if one is already up: the dry run owns its process."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if dist.is_initialized():
+        raise RuntimeError("make_fake_mesh: a process group is already up; the fake mesh "
+                           "needs a process of its own")
+    # registers the "fake" backend (torch ships it with its distributed tests)
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+
+    chips = 1
+    for size in shape.values():
+        chips *= size
+    dist.init_process_group("fake", store=dist.HashStore(), rank=0, world_size=chips)
+    return init_device_mesh("cpu", tuple(shape.values()), mesh_dim_names=tuple(shape))

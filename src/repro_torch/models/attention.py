@@ -32,7 +32,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..act_sharding import active_spec, local_call
+from ..act_sharding import (active_mesh, active_spec, is_dtensor, local_call, mesh_shape,
+                            split_ranks, unflatten, view_heads)
 from .layers import ParamFactory, apply_rope, rotate
 
 NEG_INF = -1e30
@@ -374,18 +375,16 @@ def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: b
 def project_kv(p: dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Unrotated K and V (B, S, KVH, hd) of x (B, S, d): a cross-attention
     layer's memory."""
-    b, s, d = x.shape
-    kv_heads, hd = p["wk"].shape[1], p["wk"].shape[2]
-    k = (x @ p["wk"].reshape(d, kv_heads * hd)).view(b, s, kv_heads, hd)
-    v = (x @ p["wv"].reshape(d, kv_heads * hd)).view(b, s, kv_heads, hd)
+    d, kv_heads, hd = p["wk"].shape
+    k = view_heads(x @ p["wk"].reshape(d, kv_heads * hd), kv_heads)
+    v = view_heads(x @ p["wv"].reshape(d, kv_heads * hd), kv_heads)
     return k, v
 
 
 def _project_q(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Unrotated Q (B, S, H, hd) of x (B, S, d)."""
-    b, s, d = x.shape
-    heads, hd = p["wq"].shape[1], p["wq"].shape[2]
-    return (x @ p["wq"].reshape(d, heads * hd)).view(b, s, heads, hd)
+    d, heads, hd = p["wq"].shape
+    return view_heads(x @ p["wq"].reshape(d, heads * hd), heads)
 
 
 def project_qkv(p: dict, x: torch.Tensor, positions: Optional[torch.Tensor], *,
@@ -441,13 +440,32 @@ def _schedule(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw) -
     in place, which DTensor cannot follow, and every (row, KV head) of them
     is independent.  Query heads split over "model" only together with
     their KV heads (the reference's sites: q ("batch", "attn_seq", "heads",
-    None), its output the same)."""
+    None), its output the same).  Where the KV heads are fewer than the
+    "model" ranks but the query heads split over them (TinyLlama's 4 and 32
+    on 16), each KV head is repeated until they split too (``_repeat_kv``),
+    so that each rank attends its own query heads, as GSPMD splits them."""
     spec = active_spec(k, ("batch", "attn_seq", "kv_heads", None))
+    if spec is not None and spec[2] is None and is_dtensor(k):
+        k, v = _repeat_kv(q, k), _repeat_kv(q, v)
+        spec = active_spec(k, ("batch", "attn_seq", "kv_heads", None))
     heads = "heads" if spec is not None and spec[2] is not None else None
     return local_call(functools.partial(attend, **kw),
                       (q, ("batch", "attn_seq", heads, None)),
                       (k, ("batch", "attn_seq", heads and "kv_heads", None)),
                       (v, ("batch", "attn_seq", heads and "kv_heads", None)))
+
+
+def _repeat_kv(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """K or V (B, S, KVH, D) with each KV head repeated ``m / KVH`` times
+    (m the "model" ranks) where that splits the heads over "model" and the
+    query heads split there too, else as it is.  Query head h sees KV head
+    ``h // (H / KVH)``, which is copy ``h // (H / m)`` of the repeated
+    ones."""
+    m = mesh_shape(active_mesh()).get("model", 1)
+    b, s, kvh, d = x.shape
+    if m % kvh or q.shape[2] % m or kvh == m:
+        return x
+    return x[:, :, :, None].expand(b, s, kvh, m // kvh, d).reshape(b, s, m, d)
 
 
 class KVCache(NamedTuple):
@@ -482,20 +500,40 @@ def valid_slots(slots: int, pos: int, ring: bool, device=None) -> torch.Tensor:
     return (pos % slots - idx) % slots <= min(pos, slots - 1)
 
 
-def _attend_one(p: dict, q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
-                valid: Optional[torch.Tensor]) -> torch.Tensor:
+def _attend_heads(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                  valid: Optional[torch.Tensor]) -> torch.Tensor:
     """q (B, 1, H, hd) against (B, slots, KVH, hd) K/V under the (slots,)
     mask ``valid`` (``None``: every slot): the reference's einsums as matrix
     products, the query heads of a KV head grouped against it instead of
-    repeating K and V.  Returns (B, 1, d)."""
+    repeating K and V.  Returns (B, 1, H, hd)."""
     b, _, heads, hd = q.shape
     kv_heads = cache_k.shape[2]
-    qg = q.view(b, kv_heads, heads // kv_heads, hd)           # (B, KVH, G, hd)
+    qg = unflatten(q[:, 0], 1, (kv_heads, heads // kv_heads))  # (B, KVH, G, hd)
     logits = (qg @ cache_k.permute(0, 2, 3, 1)) * hd ** -0.5  # (B, KVH, G, slots)
     if valid is not None:
         logits = torch.where(valid, logits, NEG_INF)
     attn = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     out = attn @ cache_v.transpose(1, 2)                      # (B, KVH, G, hd)
+    return out.reshape(b, 1, heads, hd)
+
+
+def _attend_one(p: dict, q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """``_attend_heads`` then the output projection: (B, 1, d).  On a cache
+    whose slots are not split (``split_ranks``), under a mesh the heads run
+    on each rank's batch rows and KV heads (``local_call``): DTensor cannot
+    fold a split KV-head dimension into the products' batch (torch 2.11);
+    a cache split over its slots (sequence-parallel decode) takes DTensor's
+    products, which reduce the softmax across the slots."""
+    b, _, heads, hd = q.shape
+    if is_dtensor(cache_k) and split_ranks(cache_k, 1) == 1:
+        kvh = "kv_heads" if split_ranks(cache_k, 2) > 1 else None
+        attend = functools.partial(_attend_heads, valid=valid)
+        out = local_call(attend, (q, ("batch", None, kvh and "heads", None)),
+                         (cache_k, ("batch", None, kvh, None)),
+                         (cache_v, ("batch", None, kvh, None)))
+    else:
+        out = _attend_heads(q, cache_k, cache_v, valid)
     return out.reshape(b, 1, heads * hd) @ p["wo"].reshape(heads * hd, -1)
 
 
@@ -513,9 +551,35 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor, cache_v: t
     k_new, v_new = project_kv(p, x)
     k_new = rotate(k_new, *rope)
     slot = pos % cache_k.shape[1]
-    cache_k[:, slot] = k_new[:, 0]
-    cache_v[:, slot] = v_new[:, 0]
+    write_slot(cache_k, slot, k_new[:, 0])
+    write_slot(cache_v, slot, v_new[:, 0])
     return _attend_one(p, q, cache_k, cache_v, valid)
+
+
+def write_slot(cache: torch.Tensor, slot: int, value: torch.Tensor) -> None:
+    """``cache[:, slot] = value`` for a cache (B, slots, ...) and a value
+    (B, ...).  On a DTensor cache, each rank writes into its own shard, and
+    only the rank whose slots hold ``slot`` writes (the slots may be split,
+    ``sharding.cache_pspecs``): the value placed as the cache is on its
+    other dimensions."""
+    if not is_dtensor(cache):
+        cache[:, slot] = value
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, plc = cache.device_mesh, cache.placements
+    coord = mesh.get_coordinate()
+    lo, size = 0, cache.shape[1]
+    for i, p in enumerate(plc):
+        if isinstance(p, Shard) and p.dim == 1:  # this rank's slots: [lo, lo + size)
+            chunk = -(-size // mesh.size(i))
+            lo, size = lo + chunk * coord[i], max(0, min(size, chunk * (coord[i] + 1))
+                                                     - chunk * coord[i])
+    vplc = [Replicate() if isinstance(p, Shard) and p.dim == 1
+            else Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1 else p for p in plc]
+    local = value.redistribute(mesh, vplc).to_local()
+    if lo <= slot < lo + size:
+        cache.to_local()[:, slot - lo] = local
 
 
 def cross_attention_decode(p: dict, x: torch.Tensor, mem_k: torch.Tensor,

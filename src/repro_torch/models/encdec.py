@@ -24,17 +24,17 @@ KVH, hd).
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ..act_sharding import shard_act
+from ..act_sharding import fsdp_gather, local_sum, shard_act
 from . import config as C
 from .attention import (attention_decode, attention_train, cross_attention_decode,
                         init_attention, project_kv, valid_slots)
 from .layers import (ParamFactory, dtype_const, init_mlp, map_dict, mlp_apply, rms_norm,
                      rms_norm_in, rope_angles, sequence_whole, sinusoidal_positions,
-                     softmax_cross_entropy)
+                     token_losses)
 from .transformer import check_remat, default_positions, lookup, remat_call, unstack
 
 
@@ -92,6 +92,7 @@ def _layer_remat(remat: str) -> str:
 
 
 def _enc_layer(lp: Dict, cfg: C.ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    lp = map_dict(fsdp_gather, lp)
     x = shard_act(x, ("batch", "seq", "embed_act"))
     h = rms_norm_in(x, lp["ln1"], cfg.norm_eps)
     x = x + sequence_whole(attention_train(lp["attn"], h, None, causal=False, use_rope=False)[0])
@@ -109,7 +110,8 @@ def encode(params: Dict, embeds: torch.Tensor, cfg: C.ModelConfig,
     x = x + sinusoidal_positions(s, d, device=x.device).to(x.dtype)[None]
     for lp in _layers(params["enc_scan"], cfg.encoder_layers, cfg):
         x = remat_call(functools.partial(_enc_layer, lp, cfg), policy, x)
-    return rms_norm(x, params["enc_final_ln"], cfg.norm_eps)
+    # the decoder's cross-attention takes the states with their sequence whole
+    return sequence_whole(rms_norm(x, fsdp_gather(params["enc_final_ln"]), cfg.norm_eps))
 
 
 def _embed(params: Dict, tokens: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
@@ -121,6 +123,7 @@ def _embed(params: Dict, tokens: torch.Tensor, cfg: C.ModelConfig) -> torch.Tens
 
 def _dec_layer(lp: Dict, positions: torch.Tensor, cfg: C.ModelConfig, x: torch.Tensor,
                enc: torch.Tensor) -> torch.Tensor:
+    lp = map_dict(fsdp_gather, lp)
     x = shard_act(x, ("batch", "seq", "embed_act"))
     h = rms_norm_in(x, lp["ln1"], cfg.norm_eps)
     x = x + sequence_whole(attention_train(lp["self_attn"], h, positions, causal=True,
@@ -132,27 +135,44 @@ def _dec_layer(lp: Dict, positions: torch.Tensor, cfg: C.ModelConfig, x: torch.T
     return x + sequence_whole(_mlp(lp["mlp"], h, cfg))
 
 
-def decoder_logits(params: Dict, enc: torch.Tensor, tokens: torch.Tensor,
-                   cfg: C.ModelConfig, remat: str = "none") -> torch.Tensor:
-    """The teacher-forced decoder over tokens (B, S) against the encoder
-    states: (B, S, V) logits in the compute dtype."""
+def _decoder_hidden(params: Dict, enc: torch.Tensor, tokens: torch.Tensor,
+                    cfg: C.ModelConfig, remat: str) -> torch.Tensor:
     policy = _layer_remat(remat)
     x = _embed(params, tokens, cfg)
     positions = default_positions(tokens)
     for lp in _layers(params["dec_scan"], cfg.num_layers, cfg):
         x = remat_call(functools.partial(_dec_layer, lp, positions, cfg), policy, x, enc)
-    x = rms_norm(x, params["dec_final_ln"], cfg.norm_eps)
-    return x @ params["embed"].to(x.dtype).T
+    return rms_norm(x, fsdp_gather(params["dec_final_ln"]), cfg.norm_eps)
+
+
+def _logits(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return x @ table.to(x.dtype).T
+
+
+def decoder_logits(params: Dict, enc: torch.Tensor, tokens: torch.Tensor,
+                   cfg: C.ModelConfig, remat: str = "none") -> torch.Tensor:
+    """The teacher-forced decoder over tokens (B, S) against the encoder
+    states: (B, S, V) logits in the compute dtype."""
+    return _logits(params["embed"], _decoder_hidden(params, enc, tokens, cfg, remat))
+
+
+def _loss_sum(table, x, targets, mask) -> torch.Tensor:
+    return (token_losses(_logits(table, x), targets) * mask).sum()
 
 
 def train_loss(params: Dict, batch: Dict[str, torch.Tensor], cfg: C.ModelConfig,
                remat: str = "none") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token loss of a batch {"encoder_embeds": (B, S_enc, d),
     "decoder_tokens", "targets": (B, S) int, "mask": (B, S) float}:
-    ``(loss, {"ce_loss", "moe_aux"})`` (aux 0)."""
+    ``(loss, {"ce_loss", "moe_aux"})`` (aux 0): ``softmax_cross_entropy`` of
+    the decoder's logits, the loss head under a mesh on each rank's batch
+    rows with the table whole (``local_sum``, as ``transformer``'s)."""
     enc = encode(params, batch["encoder_embeds"], cfg, remat)
-    logits = decoder_logits(params, enc, batch["decoder_tokens"], cfg, remat)
-    loss = softmax_cross_entropy(logits, batch["targets"], batch["mask"])
+    x = _decoder_hidden(params, enc, batch["decoder_tokens"], cfg, remat)
+    mask = batch["mask"]
+    total = local_sum(_loss_sum, (params["embed"], (None, None)), (x, ("batch", None, None)),
+                      (batch["targets"], ("batch", None)), (mask, ("batch", None)))
+    loss = total / mask.sum().clamp(min=1.0)
     return loss, {"ce_loss": loss, "moe_aux": torch.zeros((), device=loss.device)}
 
 
@@ -169,13 +189,15 @@ def init_dec_cache(cfg: C.ModelConfig, batch: int, self_slots: int, enc_slots: i
 
 @torch.no_grad()
 def encode_prefill(params: Dict, embeds: torch.Tensor, cfg: C.ModelConfig,
-                   self_slots: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                   self_slots: int, cache: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Encode and compute every decoder layer's cross-attention K/V once:
     (encoder states, a cache with ``self_slots`` empty self-attention
-    slots)."""
+    slots; ``cache``: a zeroed one of that shape to fill instead)."""
     enc = encode(params, embeds, cfg)
-    cache = init_dec_cache(cfg, embeds.shape[0], self_slots, embeds.shape[1],
-                           device=embeds.device)
+    if cache is None:
+        cache = init_dec_cache(cfg, embeds.shape[0], self_slots, embeds.shape[1],
+                               device=embeds.device)
     for i, lp in enumerate(_layers(params["dec_scan"], cfg.num_layers, cfg)):
         cache["cross_k"][i], cache["cross_v"][i] = project_kv(lp["cross_attn"], enc)
     return enc, cache
@@ -192,6 +214,8 @@ def decode_step(params: Dict, cache: Dict[str, torch.Tensor], tokens: torch.Tens
     rope = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     valid = valid_slots(cache["self_k"].shape[2], pos, False, device=x.device)
     for i, lp in enumerate(_layers(params["dec_scan"], cfg.num_layers, cfg)):
+        lp = map_dict(fsdp_gather, lp)
+        x = shard_act(x, ("batch", None, "embed_act"))  # as transformer.decode_step
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         x = x + attention_decode(lp["self_attn"], h, cache["self_k"][i], cache["self_v"][i],
                                  pos, rope, valid)
@@ -200,5 +224,6 @@ def decode_step(params: Dict, cache: Dict[str, torch.Tensor], tokens: torch.Tens
                                        cache["cross_v"][i])
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + _mlp(lp["mlp"], h, cfg)
-    x = rms_norm(x, params["dec_final_ln"], cfg.norm_eps)
+    x = rms_norm(shard_act(x, ("batch", None, "embed_act")), params["dec_final_ln"],
+                 cfg.norm_eps)
     return (x @ params["embed"].T)[:, 0, :], cache

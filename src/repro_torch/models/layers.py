@@ -221,9 +221,8 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
                              f"head_dim / 2 = {head_dim // 2}")
         if positions.ndim == 2:
             positions = positions.expand(3, *positions.shape)
-        band = torch.repeat_interleave(
-            torch.arange(len(mrope_sections), device=positions.device),
-            torch.tensor(list(mrope_sections), device=positions.device))
+        band = torch.tensor([i for i, n in enumerate(mrope_sections) for _ in range(n)],
+                            device=positions.device)
         angles = positions[band].movedim(0, -1).float() * freqs   # (B, S, hd / 2)
     else:
         angles = positions[..., None].float() * freqs

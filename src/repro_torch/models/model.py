@@ -104,15 +104,17 @@ class Model(nn.Module):
         return impl(self.cfg).train_loss(params, batch, self.cfg, self.remat)
 
     # -- serving ---------------------------------------------------------------
-    def prefill(self, params: Dict, batch: Dict[str, torch.Tensor], slots: Optional[int] = None):
+    def prefill(self, params: Dict, batch: Dict[str, torch.Tensor], slots: Optional[int] = None,
+                cache=None):
         """``slots``: the decode cache's (self-attention) slots, by default
         the prompt's length (the decoder's ``decoder_slots`` for an
-        encoder-decoder model)."""
+        encoder-decoder model); ``cache``: a zeroed cache of as many slots
+        to fill instead of a new one."""
         if self.cfg.is_encdec:
             return encdec.encode_prefill(params, batch["encoder_embeds"], self.cfg,
-                                         slots or self.cfg.decoder_slots)
+                                         slots or self.cfg.decoder_slots, cache=cache)
         return transformer.prefill(params, batch.get("embeds", batch.get("inputs")),
-                                   batch.get("positions"), self.cfg, slots)
+                                   batch.get("positions"), self.cfg, slots, cache=cache)
 
     def decode_step(self, cache, tokens: torch.Tensor, pos: int, **kw):
         """``kw``: a decoder-only model's ``capacity_factor`` for its MoE

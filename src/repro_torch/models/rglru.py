@@ -19,7 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..act_sharding import shard_act
+from ..act_sharding import local_call, shard_act
 from .layers import ParamFactory, dtype_const, gelu, sigmoid, softplus
 
 _C = 8.0  # Griffin's decay temperature
@@ -50,10 +50,13 @@ def init_rglru_state(batch: int, rnn_dim: int, conv_width: int, dtype,
 
 
 def _decay(p: dict, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-step decay a_t and input gate i_t from the branch activations."""
-    gate_a = sigmoid(u @ p["w_a_gate"])
+    """Per-step decay a_t and input gate i_t from the branch activations;
+    under a mesh each gate's product (summed over the "rnn" split) is
+    placed as u, on the rows and the channels."""
+    names = ("batch", "attn_seq", "rnn_act")[-u.ndim:]
+    gate_a = sigmoid(shard_act(u @ p["w_a_gate"], names))
     a = torch.exp(-_C * softplus(p["lam"]) * gate_a)
-    return a, sigmoid(u @ p["w_input_gate"])
+    return a, sigmoid(shard_act(u @ p["w_input_gate"], names))
 
 
 def _conv1d(p: dict, u: torch.Tensor,
@@ -86,13 +89,25 @@ def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
+_SEQ_RNN = ("batch", "attn_seq", "rnn_act")
+
+
+def _conv_local(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    return _conv1d({"conv_w": w, "conv_b": b}, u)
+
+
 def rglru_train(p: dict, x: torch.Tensor) -> Tuple[torch.Tensor, RGLRUState]:
     """(B, S, d) -> (B, S, d), and the state after the sequence (prefill's
-    cache: the reference recomputes it in ``_rglru_tail_state``)."""
+    cache: the reference recomputes it in ``_rglru_tail_state``).  Under a
+    mesh the conv and the scan, independent per (row, channel), run on each
+    rank's rows and channels (``local_call``; the reference's site is h
+    ("batch", "attn_seq", "rnn_act"))."""
     u_in = x @ p["w_x"]
-    u, conv_state = _conv1d(p, u_in)
+    u, conv_state = local_call(_conv_local, (u_in, _SEQ_RNN), (p["conv_w"], (None, "rnn_act")),
+                               (p["conv_b"], ("rnn_act",)),
+                               outs=(_SEQ_RNN, ("batch", None, "rnn_act")))
     a, i = _decay(p, u)
-    h = shard_act(_scan(a.float(), _gated(a, i, u).float()), ("batch", "attn_seq", "rnn_act"))
+    h = local_call(_scan, (a.float(), _SEQ_RNN), (_gated(a, i, u).float(), _SEQ_RNN))
     branch = gelu(x @ p["w_gate_branch"])
     return (h.to(x.dtype) * branch) @ p["w_out"], RGLRUState(h[:, -1], conv_state)
 

@@ -24,7 +24,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ..act_sharding import shard_act
+from ..act_sharding import flatten_heads, local_call, view_heads
 from .layers import ParamFactory, sigmoid, silu
 
 CHUNK = 32
@@ -86,13 +86,12 @@ def _mix(x, xs, mu):
     return x * mu + xs * (1.0 - mu)
 
 
-def _projections(p: dict, x: torch.Tensor, xs: torch.Tensor, heads: int, hd: int):
-    b, s, _ = x.shape
-    r = (_mix(x, xs, p["mu_r"]) @ p["w_r"]).view(b, s, heads, hd)
-    k = (_mix(x, xs, p["mu_k"]) @ p["w_k"]).view(b, s, heads, hd)
-    v = (_mix(x, xs, p["mu_v"]) @ p["w_v"]).view(b, s, heads, hd)
-    g = (_mix(x, xs, p["mu_g"]) @ p["w_g"]).view(b, s, heads, hd)
-    dec = ((_mix(x, xs, p["mu_w"]) @ p["decay_lora_a"]) @ p["decay_lora_b"]).view(b, s, heads, hd)
+def _projections(p: dict, x: torch.Tensor, xs: torch.Tensor, heads: int):
+    r = view_heads(_mix(x, xs, p["mu_r"]) @ p["w_r"], heads)
+    k = view_heads(_mix(x, xs, p["mu_k"]) @ p["w_k"], heads)
+    v = view_heads(_mix(x, xs, p["mu_v"]) @ p["w_v"], heads)
+    g = view_heads(_mix(x, xs, p["mu_g"]) @ p["w_g"], heads)
+    dec = view_heads((_mix(x, xs, p["mu_w"]) @ p["decay_lora_a"]) @ p["decay_lora_b"], heads)
     logw = -torch.exp(p["decay_base"].float() + dec.float())
     return r, k, v, g, torch.clamp(logw, _LOGW_MIN, _LOGW_MAX)   # logw (b, s, h, k)
 
@@ -107,23 +106,16 @@ def _head_norm(p: dict, o: torch.Tensor) -> torch.Tensor:
 
 def _output(p: dict, o: torch.Tensor, g: torch.Tensor, dtype) -> torch.Tensor:
     """o (B, S, H, V) float32 -> (B, S, d): head norm, SiLU gate, w_o."""
-    b, s, heads, hd = o.shape
     o = _head_norm(p, o) * silu(g.float()).to(o.dtype)
-    return o.reshape(b, s, heads * hd).to(dtype) @ p["w_o"]
+    return flatten_heads(o.to(dtype)) @ p["w_o"]
 
 
-def rwkv_tm_train(p: dict, x: torch.Tensor, heads: int,
-                  hd: int) -> Tuple[torch.Tensor, RWKVState]:
-    """(B, S, d) -> (B, S, d), S a multiple of 32 (``ValueError`` else, where
-    the reference asserts), and the state after the sequence (prefill's
-    cache, with both shifts at the last input token: the reference
-    recomputes it in ``_rwkv_tail_state``)."""
-    b, s, d = x.shape
-    if s % CHUNK:
-        raise ValueError(f"seq {s} not a multiple of {CHUNK}")
-    xs = _token_shift(x, torch.zeros((b, d), dtype=x.dtype, device=x.device))
-    r, k, v, g, logw = _projections(p, x, xs, heads, hd)
-    u = p["bonus_u"].float()
+def _wkv_chunked(r, k, v, logw, u) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked recurrence over (B, S, H, hd) r, k, v and float32 log
+    decays, u (H, hd): the output (B, S, H, V) float32 and the state (B, H,
+    K, V) after the sequence.  Each (row, head) is independent."""
+    b, s, heads, hd = r.shape
+    u = u.float()
     nc = s // CHUNK
 
     def chunked(t):  # (b, h, nc, C, k), float32 for the recurrence
@@ -136,36 +128,66 @@ def rwkv_tm_train(p: dict, x: torch.Tensor, heads: int,
     k_in = kc * torch.exp(-lp)                       # bounded by the clamp x chunk
     k_st = kc * torch.exp(lp_last - lp)              # <= 1
 
-    mask = torch.ones(CHUNK, CHUNK, device=x.device).tril(-1)
+    mask = torch.ones(CHUNK, CHUNK, device=r.device).tril(-1)
     att = (q_s @ k_in.transpose(-1, -2)) * mask
     diag = (rc * u[:, None, None, :] * kc).sum(dim=-1)
     o = att @ vc + diag[..., None] * vc
 
-    state = shard_act(torch.zeros((b, heads, hd, hd), dtype=torch.float32, device=x.device),
-                      ("batch", "heads", None, None))
+    state = torch.zeros((b, heads, hd, hd), dtype=torch.float32, device=r.device)
     inter = []
     for c in range(nc):
         inter.append(q_s[:, :, c] @ state)
-        state = shard_act(torch.exp(lp_last[:, :, c, 0])[..., None] * state
-                          + k_st[:, :, c].transpose(-1, -2) @ vc[:, :, c],
-                          ("batch", "heads", None, None))
+        state = (torch.exp(lp_last[:, :, c, 0])[..., None] * state
+                 + k_st[:, :, c].transpose(-1, -2) @ vc[:, :, c])
     o = o + torch.stack(inter, dim=2)                # (b, h, nc, C, v)
-    o = o.permute(0, 2, 3, 1, 4).reshape(b, s, heads, hd)
+    return o.permute(0, 2, 3, 1, 4).reshape(b, s, heads, hd), state
+
+
+_SEQ_HEADS = ("batch", "attn_seq", "heads", None)
+_STATE = ("batch", "heads", None, None)
+
+
+def rwkv_tm_train(p: dict, x: torch.Tensor, heads: int,
+                  hd: int) -> Tuple[torch.Tensor, RWKVState]:
+    """(B, S, d) -> (B, S, d), S a multiple of 32 (``ValueError`` else, where
+    the reference asserts), and the state after the sequence (prefill's
+    cache, with both shifts at the last input token: the reference
+    recomputes it in ``_rwkv_tail_state``).  Under a mesh the recurrence
+    runs on each rank's rows and heads (``local_call``; the reference's
+    state sites are ("batch", "heads", None, None))."""
+    b, s, d = x.shape
+    if s % CHUNK:
+        raise ValueError(f"seq {s} not a multiple of {CHUNK}")
+    xs = _token_shift(x, torch.zeros((b, d), dtype=x.dtype, device=x.device))
+    r, k, v, g, logw = _projections(p, x, xs, heads)
+    o, state = local_call(_wkv_chunked, (r, _SEQ_HEADS), (k, _SEQ_HEADS), (v, _SEQ_HEADS),
+                          (logw, _SEQ_HEADS), (p["bonus_u"], ("heads", None)),
+                          outs=(_SEQ_HEADS, _STATE))
     last = x[:, -1, :]
     return _output(p, o, g, x.dtype), RWKVState(state, last, last)
+
+
+def _wkv_step(r, k, v, logw, u, state_s) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token's recurrence: r, k, v, logw (B, 1, H, hd), u (H, hd), state
+    (B, H, K, V) float32 -> (output (B, 1, H, V) float32, new state)."""
+    u = u.float()
+    rf, kf, vf = (t[:, 0].float() for t in (r, k, v))          # (b, h, k)
+    o = (rf[..., None, :] @ state_s)[..., 0, :]
+    o = o + (rf * (u * kf)).sum(dim=-1, keepdim=True) * vf
+    s_new = torch.exp(logw[:, 0])[..., None] * state_s + kf[..., :, None] * vf[..., None, :]
+    return o[:, None], s_new
 
 
 def rwkv_tm_decode(p: dict, x: torch.Tensor, state_s: torch.Tensor, shift: torch.Tensor,
                    heads: int, hd: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One token: x (B, 1, d), state_s (B, H, K, V) float32, shift (B, d) the
-    previous token; returns (out (B, 1, d), new state, new shift)."""
-    r, k, v, g, logw = _projections(p, x, shift[:, None, :], heads, hd)
-    u = p["bonus_u"].float()
-    rf, kf, vf = (t[:, 0].float() for t in (r, k, v))          # (b, h, k)
-    o = (rf[..., None, :] @ state_s)[..., 0, :]
-    o = o + (rf * (u * kf)).sum(dim=-1, keepdim=True) * vf
-    s_new = torch.exp(logw[:, 0])[..., None] * state_s + kf[..., :, None] * vf[..., None, :]
-    return _output(p, o[:, None], g, x.dtype), s_new, x[:, 0, :]
+    previous token; returns (out (B, 1, d), new state, new shift).  Under a
+    mesh the step runs on each rank's rows and heads, as in training."""
+    r, k, v, g, logw = _projections(p, x, shift[:, None, :], heads)
+    o, s_new = local_call(_wkv_step, (r, _SEQ_HEADS), (k, _SEQ_HEADS), (v, _SEQ_HEADS),
+                          (logw, _SEQ_HEADS), (p["bonus_u"], ("heads", None)),
+                          (state_s, _STATE), outs=(_SEQ_HEADS, _STATE))
+    return _output(p, o, g, x.dtype), s_new, x[:, 0, :]
 
 
 def _channel_mix(p: dict, x: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:

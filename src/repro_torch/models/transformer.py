@@ -50,7 +50,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..act_sharding import local_call, local_sum, shard_act
+from ..act_sharding import (current_rules, fsdp_gather, local_call, local_sum, remat_unit,
+                            shard_act)
 from . import config as C
 from .attention import (KVCache, attention_decode, attention_train, init_attention,
                         init_kv_cache, valid_slots)
@@ -250,13 +251,21 @@ def _dots_policy(ctx, op, *args, **kwargs):
 def remat_call(fn: Callable, remat: str, *args):
     """``fn(*args)`` under a remat policy: as it is (``"none"``), recomputed
     whole in the backward pass (``"full"``), or recomputed but for the
-    outputs of its weight products (``"dots"``)."""
+    outputs of its weight products (``"dots"``).  Under a mesh the unit
+    runs, and is recomputed, under the rules active now, and its local
+    regions keep their inputs only (``act_sharding.remat_unit``)."""
     if remat == "none":
         return fn(*args)
-    if remat == "full":
-        return checkpoint(fn, *args, use_reentrant=False)
     check_remat(remat)
-    return checkpoint(fn, *args, use_reentrant=False,
+    rules = current_rules()
+
+    def unit(*a):
+        with remat_unit(rules):
+            return fn(*a)
+
+    if remat == "full":
+        return checkpoint(unit, *args, use_reentrant=False)
+    return checkpoint(unit, *args, use_reentrant=False,
                       context_fn=functools.partial(create_selective_checkpoint_contexts,
                                                    _dots_policy))
 
@@ -267,6 +276,7 @@ def _run_layers(layers: List[Tuple[str, str, Dict]], positions: torch.Tensor,
     """Layers (``layers_of``'s entries) over x, the MoE aux loss added to
     ``aux``; each layer with a cache stores its state in it."""
     for (mixer, mlp, p), lc in zip(layers, caches):
+        p = map_dict(fsdp_gather, p)
         x = shard_act(x, ("batch", "seq", "embed_act"))
         h = rms_norm_in(x, p["ln1"], cfg.norm_eps)
         out, state = _mixer_train(p["mixer"], h, positions, cfg, mixer)
@@ -301,22 +311,34 @@ def forward_train(params: Dict, inputs: torch.Tensor, positions: torch.Tensor,
         x, aux = remat_call(functools.partial(_run_layers, layers[unit], positions, cfg,
                                               caches[unit]), remat, x, aux)
     x, aux = _run_layers(layers[grouped:], positions, cfg, caches[grouped:], x, aux)
-    return rms_norm(x, params["final_ln"], cfg.norm_eps), aux
+    return rms_norm(x, fsdp_gather(params["final_ln"]), cfg.norm_eps), aux
+
+
+def _ring(x: torch.Tensor, slots: int) -> torch.Tensor:
+    """The cache of ``slots`` slots that K or V x (B, S, KVH, hd) leaves:
+    position t at slot ``t % slots`` for the last ``min(S, slots)``
+    positions, zeros in the slots after a shorter prompt (a dense cache
+    holds every position at its own slot)."""
+    s = x.shape[1]
+    if s < slots:
+        tail = torch.zeros((x.shape[0], slots - s) + tuple(x.shape[2:]), dtype=x.dtype,
+                           device=x.device)
+        return torch.cat([x, tail], dim=1)
+    x = x[:, s - slots:]
+    r = s % slots  # the slot of the first position kept
+    return torch.cat([x[:, slots - r:], x[:, :slots - r]], dim=1) if r else x
 
 
 def _store(lc: LayerCache, state, h2: torch.Tensor) -> None:
-    """Copy a layer's state after the prompt into its cache: an attention
-    layer's last ``min(slots, S)`` K/V at slots ``t % slots`` (a dense cache
-    holds slots >= S, so that is every position at its own slot), a
-    recurrent layer's state, and RWKV's channel-mix shift (the last
-    ``ln2`` output)."""
+    """Write a layer's state after the prompt into its (fresh) cache, whole:
+    an attention layer's K/V as ``_ring`` lays them out, a recurrent
+    layer's state, and RWKV's channel-mix shift (the last ``ln2`` output).
+    Whole-tensor copies, so that a cache placed on a mesh takes them on
+    each rank's shard."""
     if isinstance(lc, KVCache):
         k, v = state
-        s, slots = k.shape[1], lc.k.shape[1]
-        first = max(0, s - slots)
-        idx = torch.arange(first, s, device=k.device) % slots
-        lc.k[:, idx] = k[:, first:]
-        lc.v[:, idx] = v[:, first:]
+        lc.k.copy_(_ring(k, lc.k.shape[1]))
+        lc.v.copy_(_ring(v, lc.v.shape[1]))
     elif isinstance(lc, RGLRUState):
         lc.h.copy_(state.h)
         lc.conv.copy_(state.conv)
@@ -397,7 +419,8 @@ def train_loss(params: Dict, batch: Dict[str, torch.Tensor], cfg: C.ModelConfig,
 
 @torch.no_grad()
 def prefill(params: Dict, inputs: torch.Tensor, positions: Optional[torch.Tensor],
-            cfg: C.ModelConfig, slots: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+            cfg: C.ModelConfig, slots: Optional[int] = None,
+            cache: Optional[Cache] = None) -> Tuple[torch.Tensor, Cache]:
     """Forward of tokens (B, S) or embeddings (B, S, d) at positions (B, S)
     or (3, B, S) (``None``: 0 to S - 1) that also fills a decode cache
     (``init_cache(cfg, B, slots)``): returns the last position's (B, V)
@@ -406,14 +429,17 @@ def prefill(params: Dict, inputs: torch.Tensor, positions: Optional[torch.Tensor
     position S.  A full-attention layer needs ``slots >= S``; a windowed
     one keeps the last ``min(window, slots, S)`` positions in ring order
     (the reference scatters every position into its ring, which writes a
-    slot more than once when S exceeds the window)."""
+    slot more than once when S exceeds the window).  ``cache``: a zeroed
+    cache of that many slots to fill (a sharded prefill's, placed by
+    ``cache_pspecs``) instead of a new one."""
     b, s = inputs.shape[:2]
     slots = s if slots is None else slots
     if positions is None:
         positions = default_positions(inputs)
     if slots < s and any(m == C.ATTN for m, _ in cfg.layer_kinds):
         raise ValueError(f"a cache of {slots} slots cannot hold {s} tokens")
-    cache = init_cache(cfg, b, slots, device=inputs.device)
+    if cache is None:
+        cache = init_cache(cfg, b, slots, device=inputs.device)
     x, _ = forward_train(params, inputs, positions, cfg, cache=cache)
     return logits_from_hidden(params, x[:, -1:], cfg)[:, 0], cache
 
@@ -474,7 +500,11 @@ def decode_step(params: Dict, cache: Cache, tokens: torch.Tensor, pos: int, cfg:
     rope = rope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.mrope_sections)
     masks: Dict = {}
     for i, (mixer, mlp, p) in enumerate(layers_of(params, cfg)):
+        p = map_dict(fsdp_gather, p)
         lc = layer_cache(cache, i)
+        # under a mesh the residual stream whole on "model": the row-split
+        # output products leave partial sums, summed here (TP's all-reduce)
+        x = shard_act(x, ("batch", None, "embed_act"))
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         if mixer in ATTENTION:
             key = (lc.k.shape[1], window_of(cfg, mixer) > 0)
@@ -498,5 +528,5 @@ def decode_step(params: Dict, cache: Cache, tokens: torch.Tensor, pos: int, cfg:
         else:
             out, _ = _mlp_train(p["mlp"], h, cfg, mlp, capacity_factor)
         x = x + out
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps)
+    x = rms_norm(shard_act(x, ("batch", None, "embed_act")), params["final_ln"], cfg.norm_eps)
     return (x @ params["unembed"])[:, 0, :], cache

@@ -9,6 +9,8 @@ from .partition import (
     batch_axes,
     batch_dim_spec,
     distribute_tree,
+    empty_placed,
+    local_shape,
     param_pspecs,
     spec_for_axes,
 )
@@ -20,6 +22,8 @@ __all__ = [
     "batch_axes",
     "batch_dim_spec",
     "distribute_tree",
+    "empty_placed",
+    "local_shape",
     "param_pspecs",
     "spec_for_axes",
     "batch_pspecs",

@@ -92,6 +92,49 @@ def batch_dim_spec(mesh, batch_size: int):
     return None
 
 
+def local_shape(shape: Sequence[int], plc, mesh) -> Tuple[int, ...]:
+    """The shape of this rank's shard of a tensor of ``shape`` under the
+    DTensor placements ``plc``: each ``Shard(dim)`` split as ``torch.chunk``
+    splits it (chunks of ``ceil(n / ranks)``, the last ones short or empty),
+    in mesh-dimension order."""
+    from torch.distributed.tensor import Shard
+
+    coord = mesh.get_coordinate()
+    out = list(shape)
+    for i, p in enumerate(plc):
+        if isinstance(p, Shard):
+            size, chunk = out[p.dim], -(-out[p.dim] // mesh.size(i))
+            out[p.dim] = max(0, min(size, chunk * (coord[i] + 1)) - chunk * coord[i])
+    return tuple(out)
+
+
+def contiguous_stride(shape: Sequence[int]) -> Tuple[int, ...]:
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(n, 1)
+    return tuple(reversed(out))
+
+
+def empty_placed(tree, spec_tree, mesh, device=None, zero: bool = True):
+    """DTensors of ``tree``'s shapes and dtypes (tensors on any device,
+    ``meta`` ones included) placed by ``spec_tree``, each rank allocating
+    only its shard (``local_shape``), zeroed unless ``zero`` is false: the
+    placed counterpart of ``torch.zeros``, with no full tensor made."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    def make(t, spec):
+        plc = placements(spec, mesh)
+        make_local = torch.zeros if zero else torch.empty
+        local = make_local(local_shape(t.shape, plc, mesh), dtype=t.dtype,
+                           device=device or mesh.device_type)
+        return DTensor.from_local(local, mesh, plc, run_check=False, shape=t.shape,
+                                  stride=contiguous_stride(t.shape))
+
+    return tree_map(make, tree, spec_tree)
+
+
 def distribute_tree(tree, spec_tree, mesh):
     """Each tensor of ``tree`` placed on the ``DeviceMesh`` as a DTensor by
     its spec (every rank passes the same full tensor and keeps its shard)."""

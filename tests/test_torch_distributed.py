@@ -22,7 +22,20 @@ reference, run here in this process:
 * the sharded TinyLlama smoke step (float32) against the one-process step:
   losses within 1e-4, weights within ROADMAP section 3's AdamW tolerance;
   in bfloat16, losses within its 5e-2; a batch or moment leaf that is not
-  a DTensor is refused.
+  a DTensor is refused;
+* the sharded step under remat "dots" and "full", and the sharded
+  gradient-accumulation step (2 microbatches; also with mask sums that
+  differ between microbatches), each against the one-process step with the
+  same policy, at the same tolerances; Mixtral's accumulation step against
+  the accumulation over global row blocks placed from the host (its mesh
+  branch's capacity and aux loss are each batch shard's);
+* sharded prefill into a cache placed by ``cache_pspecs`` and 4 sharded
+  decode steps against the one-process ones (float32 logits within 1e-4)
+  on four smoke block kinds;
+* one attention layer (forward and gradients, float32, within 1e-5 of
+  each tensor's largest) with 4 KV heads on "model" = 4 (the (1, 4) mesh)
+  and with KV heads that do not divide "model": 2 on 4 (repeated until they
+  split) and 3 on 2 (taken whole).
 """
 
 import datetime
@@ -167,6 +180,215 @@ def _train_case(rank, mesh22, mesh14, ckpt_dir, compute_dtype, out):
         out["params14"] = [p.full_tensor() for p in leaves(back)]
 
 
+def _smoke_f32(arch):
+    from repro_torch.configs import get_config
+
+    return get_config(arch, smoke=True).replace(param_dtype="float32", compute_dtype="float32")
+
+
+def _run_steps(model, opt, params, batches, mesh=None, microbatches=1):
+    """Two steps from ``params`` (cloned): on one process, or sharded on
+    ``mesh`` (parameters by ``param_pspecs`` with FSDP, batches by
+    ``batch_pspecs``).  Returns (losses, the weights after, as full
+    tensors)."""
+    from repro_torch.pytree import leaves, tree_map
+    from repro_torch.sharding import batch_pspecs, distribute_tree, param_pspecs
+    from repro_torch.train.train_step import (make_grad_accum_train_step,
+                                              make_sharded_train_step, make_train_step,
+                                              trainable)
+
+    params = tree_map(torch.clone, params)
+    if mesh is None:
+        p = trainable(params)
+        step = (make_train_step(model, opt) if microbatches == 1
+                else make_grad_accum_train_step(model, opt, microbatches))
+        place = lambda b: b
+    else:
+        sds, axes = model.abstract_params()
+        p = trainable(distribute_tree(params, param_pspecs(sds, axes, mesh, mode="train",
+                                                           fsdp=True), mesh))
+        step = make_sharded_train_step(model, opt, mesh, microbatches)
+        bspecs = batch_pspecs(model.cfg, "train", BATCH, mesh)
+        place = lambda b: distribute_tree(b, bspecs, mesh)
+    state = opt.init(p)
+    losses = []
+    for b in batches:
+        p, state, loss, _ = step(p, state, place(b))
+        losses.append(loss)
+    return torch.stack(losses), [t.full_tensor().detach() if mesh is not None else t.detach()
+                                 for t in leaves(p)]
+
+
+def _batches(cfg, seed, uneven_mask=False):
+    """Two batches of BATCH x SEQ tokens; with ``uneven_mask``, row r keeps
+    each position with probability 0.2 + 0.8 r / (BATCH - 1), so the
+    microbatches' mask sums differ."""
+    g = torch.Generator().manual_seed(seed)
+    keep = torch.linspace(0.2, 1.0, BATCH)[:, None]
+    return [{"inputs": torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=g),
+             "targets": torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=g),
+             "mask": ((torch.rand(BATCH, SEQ, generator=g) < keep).float() if uneven_mask
+                      else torch.ones(BATCH, SEQ))} for _ in range(2)]
+
+
+def _run_block_steps(model, opt, params, batches, mesh, microbatches):
+    """The sharded accumulation step written out: microbatch i cut on the
+    host as the global rows i B / n to (i + 1) B / n and then placed, its
+    gradients taken through the sharded loss, summed in float32 and divided
+    by the count, and one AdamW update.  Returns what ``_run_steps`` does."""
+    from repro_torch.act_sharding import activation_rules
+    from repro_torch.pytree import leaves, tree_map
+    from repro_torch.sharding import batch_pspecs, distribute_tree, param_pspecs
+    from repro_torch.train.train_step import _value_and_grad, trainable
+
+    sds, axes = model.abstract_params()
+    p = trainable(distribute_tree(tree_map(torch.clone, params),
+                                  param_pspecs(sds, axes, mesh, mode="train", fsdp=True), mesh))
+    state = opt.init(p)
+    rows = BATCH // microbatches
+    bspecs = batch_pspecs(model.cfg, "train", rows, mesh)
+    losses = []
+    for b in batches:
+        grads = tree_map(lambda t: torch.zeros_like(t, dtype=torch.float32), p)
+        loss_sum = 0.0
+        with activation_rules(mesh):
+            for i in range(microbatches):
+                part = distribute_tree({k: v[i * rows:(i + 1) * rows] for k, v in b.items()},
+                                       bspecs, mesh)
+                loss, _, g = _value_and_grad(model, p, part)
+                for acc, gi in zip(leaves(grads), leaves(g)):
+                    acc.add_(gi)
+                loss_sum = loss_sum + loss
+            grads = tree_map(lambda t: t / microbatches, grads)
+            state = opt.update_in_place(grads, state, p)
+        losses.append(loss_sum / microbatches)
+    return torch.stack(losses), [t.full_tensor().detach() for t in leaves(p)]
+
+
+def _remat_cases(rank, mesh22, out):
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import AdamW
+
+    cfg = _smoke_f32("tinyllama-1.1b")
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    batches = _batches(cfg, 1)
+    opt = AdamW(learning_rate=1e-3, warmup_steps=1, schedule="constant")
+    for remat, mb in (("dots", 1), ("full", 1), ("none", 2)):
+        model = build_model(cfg, remat=remat)
+        losses, plain = _run_steps(model, opt, params, batches, microbatches=mb)
+        dlosses, sharded = _run_steps(model, opt, params, batches, mesh22, microbatches=mb)
+        out[f"steps_{remat}_{mb}"] = dict(losses=losses, dlosses=dlosses, plain=plain,
+                                          sharded=sharded)
+    # microbatches whose mask sums differ: each one's mean is over its own
+    # rows, so the rows that share a microbatch decide the loss
+    model = build_model(cfg)
+    batches = _batches(cfg, 6, uneven_mask=True)
+    losses, plain = _run_steps(model, opt, params, batches, microbatches=2)
+    dlosses, sharded = _run_steps(model, opt, params, batches, mesh22, microbatches=2)
+    out["steps_mask_2"] = dict(losses=losses, dlosses=dlosses, plain=plain, sharded=sharded)
+    # an MoE: on a mesh its capacity and aux loss are each batch shard's (the
+    # reference's mesh branch), so the step is held against the same
+    # accumulation over global row blocks placed from the host
+    cfg = _smoke_f32("mixtral-8x7b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(7))
+    batches = _batches(cfg, 8, uneven_mask=True)
+    losses, plain = _run_block_steps(model, opt, params, batches, mesh22, 2)
+    dlosses, sharded = _run_steps(model, opt, params, batches, mesh22, microbatches=2)
+    out["steps_moe_2"] = dict(losses=losses, dlosses=dlosses, plain=plain, sharded=sharded)
+
+
+SERVE_ARCHS = ("tinyllama-1.1b", "mixtral-8x7b", "recurrentgemma-2b", "rwkv6-1.6b")
+SERVE_DECODE = 4
+
+
+def _serve_cases(rank, mesh22, out):
+    """Prefill (SEQ tokens into SEQ + SERVE_DECODE slots) and SERVE_DECODE
+    decode steps, on one process and sharded on (2, 2)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models.model import build_model
+    from repro_torch.sharding import batch_pspecs, distribute_tree, param_pspecs
+    from repro_torch.train.train_step import (make_serve_step, make_sharded_prefill_step,
+                                              make_sharded_serve_step)
+
+    for arch in SERVE_ARCHS:
+        cfg = _smoke_f32(arch)
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(2))
+        g = torch.Generator().manual_seed(3)
+        prompt = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=g)
+        steps = torch.randint(0, cfg.vocab_size, (SERVE_DECODE, BATCH, 1), generator=g)
+        slots = SEQ + SERVE_DECODE
+        logits, cache = model.prefill(params, {"inputs": prompt}, slots)
+        want = [logits]
+        serve = make_serve_step(model)
+        for i in range(SERVE_DECODE):
+            logits, cache = serve(params, cache, steps[i], SEQ + i)
+            want.append(logits)
+        sds, axes = model.abstract_params()
+        dparams = distribute_tree(params, param_pspecs(sds, axes, mesh22, mode="serve",
+                                                       fsdp=False), mesh22)
+        dlogits, dcache = make_sharded_prefill_step(model, mesh22, slots)(
+            dparams, distribute_tree({"inputs": prompt},
+                                     batch_pspecs(cfg, "prefill", BATCH, mesh22), mesh22))
+        got = [dlogits.full_tensor()]
+        dserve = make_sharded_serve_step(model, mesh22)
+        for i in range(SERVE_DECODE):
+            tok = distribute_tensor(steps[i], mesh22, placements_of((), mesh22))
+            dlogits, dcache = dserve(dparams, dcache, tok, SEQ + i)
+            got.append(dlogits.full_tensor())
+        out[f"serve_{arch}"] = dict(want=torch.stack(want), got=torch.stack(got))
+
+
+def placements_of(spec, mesh):
+    from repro_torch.act_sharding import placements
+
+    return placements(spec, mesh)
+
+
+# (heads, KV heads, mesh): 4 KV heads on "model" = 4; KV heads that do not
+# divide "model" (2 on 4: repeated; 3 on 2: taken whole)
+ATTN_CASES = ((8, 4, "mesh14"), (8, 2, "mesh14"), (6, 3, "mesh22"))
+
+
+def _attention_cases(rank, meshes, out):
+    from repro_torch.act_sharding import activation_rules, fsdp_gather
+    from repro_torch.models import attention
+    from repro_torch.models.layers import AxesFactory, ParamFactory, map_dict
+    from repro_torch.sharding import distribute_tree, param_pspecs
+
+    d, hd, b, s = 32, 8, 4, 64
+    for heads, kvh, mesh_name in ATTN_CASES:
+        mesh = meshes[mesh_name]
+        p = attention.init_attention(ParamFactory(torch.Generator().manual_seed(4),
+                                                  torch.float32), d, heads, kvh, hd)
+        axes = attention.init_attention(AxesFactory(), d, heads, kvh, hd)
+        g = torch.Generator().manual_seed(5)
+        x = torch.randn(b, s, d, generator=g)
+        w = torch.randn(b, s, d, generator=g)
+        pos = torch.arange(s).expand(b, s)
+
+        def grads(weights, xx, sharded):
+            weights = {k: v.detach().requires_grad_(True) for k, v in weights.items()}
+            xx = xx.detach().requires_grad_(True)
+            wanted = [xx] + [weights[k] for k in sorted(weights)]
+            if sharded:  # backward too under the rules, as the sharded step runs it
+                with activation_rules(mesh):
+                    y = attention.attention_train(map_dict(fsdp_gather, weights), xx, pos)[0]
+                    loss = (y * distribute_tree(w, ("data",), mesh)).sum().full_tensor()
+                    gs = torch.autograd.grad(loss, wanted)
+            else:
+                y = attention.attention_train(weights, xx, pos)[0]
+                gs = torch.autograd.grad((y * w).sum(), wanted)
+            full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+            return [full(y).detach()] + [full(t) for t in gs]
+
+        specs = param_pspecs(p, axes, mesh, mode="train", fsdp=True)
+        got = grads(distribute_tree(p, specs, mesh), distribute_tree(x, ("data",), mesh), True)
+        out[f"attn_{heads}_{kvh}_{mesh_name}"] = dict(want=grads(p, x, False), got=got)
+
+
 def _worker(rank, store_path, out_dir, inputs):
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -185,6 +407,9 @@ def _worker(rank, store_path, out_dir, inputs):
         _restore_case(rank, mesh22, mesh14, ckpt_dir, out)
         _train_case(rank, mesh22, mesh14, ckpt_dir, "float32", out)
         _train_case(rank, mesh22, mesh14, ckpt_dir, "bfloat16", out)
+        _remat_cases(rank, mesh22, out)
+        _serve_cases(rank, mesh22, out)
+        _attention_cases(rank, {"mesh22": mesh22, "mesh14": mesh14}, out)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -433,3 +658,66 @@ def test_ranks_agree(ranks):
     for out in ranks["out"][1:]:
         assert torch.equal(out["train_float32"]["dlosses"], first["train_float32"]["dlosses"])
         assert torch.equal(out["compressed"], first["compressed"])
+
+
+# ---------------------------------------------------------------------------
+# Remat, microbatches, prefill and decode, attention heads on a mesh.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["dots_1", "full_1", "none_2", "mask_2", "moe_2"],
+                         ids=["remat-dots", "remat-full", "microbatches-2",
+                              "microbatches-2-uneven-mask", "microbatches-2-moe"])
+def test_sharded_step_policies_match_one_process(ranks, case):
+    """The sharded step under remat "dots" and "full" (the local regions
+    recomputed in backward) and the sharded gradient-accumulation step
+    (microbatch i the global rows i B / n to (i + 1) B / n, also with mask
+    sums that differ between microbatches), each against the one-process
+    step with the same policy; Mixtral's accumulation against the same
+    accumulation over global row blocks placed from the host
+    (``_run_block_steps``).  Losses within 1e-4, weights within ROADMAP
+    section 3's AdamW tolerance."""
+    for out in ranks["out"]:
+        got = out[f"steps_{case}"]
+        assert float((got["dlosses"] - got["losses"]).abs().max()) < 1e-4, got["dlosses"]
+        diffs = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(got["sharded"],
+                                                                      got["plain"])])
+        assert float(diffs.max()) <= 2 * 2.5e-3
+        assert float((diffs <= 1e-5).float().mean()) >= 0.999
+
+
+def test_remat_policies_agree_on_one_process(ranks):
+    """Remat changes memory, not numbers: "dots" and "full" give "none"'s
+    losses and weights (float32, 1e-5 relative), on one process."""
+    out = ranks["out"][0]
+    base = out["train_float32"]
+    for case in ("dots_1", "full_1"):
+        got = out[f"steps_{case}"]
+        assert torch.allclose(got["losses"], base["losses"], rtol=1e-5, atol=0)
+        for a, b in zip(got["plain"], base["plain"]):
+            assert torch.allclose(a, b, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mixtral-8x7b", "recurrentgemma-2b",
+                                  "rwkv6-1.6b"])
+def test_sharded_prefill_and_decode_match_one_process(ranks, arch):
+    """Sharded prefill into a cache placed by ``cache_pspecs`` and 4 sharded
+    decode steps (tokens replicated) give the one-process logits within
+    1e-4 (float32)."""
+    for out in ranks["out"]:
+        got = out[f"serve_{arch}"]
+        assert got["got"].shape == got["want"].shape
+        assert float((got["got"] - got["want"]).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("heads,kvh,mesh", ATTN_CASES,
+                         ids=["4kv-on-model4", "2kv-on-model4", "3kv-on-model2"])
+def test_attention_heads_on_model_axis(ranks, heads, kvh, mesh):
+    """One attention layer, its output and the gradients of x and the four
+    weights, sharded against one process: within 1e-5 of each one's
+    largest."""
+    for out in ranks["out"]:
+        got = out[f"attn_{heads}_{kvh}_{mesh}"]
+        for a, b in zip(got["got"], got["want"]):
+            assert a.shape == b.shape
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())

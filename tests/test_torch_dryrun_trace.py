@@ -1,0 +1,387 @@
+"""The traced dry run (``repro_torch.launch.{step_trace,dryrun}``) on the
+CPU.
+
+Run: PYTHONPATH=src python -m pytest -q tests/test_torch_dryrun_trace.py
+
+* The wire model (``step_trace.summarize``) equals the reference's
+  ``collective_bytes`` on HLO lines made from the same (kind, shape, dtype)
+  list.
+* On a fake 4 x 4 mesh, ``StepTrace`` counts known redistributions exactly
+  (an all-gather, an all-reduce, a reduce-scatter), a storage shared by
+  views once, and a sharded product's FLOPs per device.
+* At smoke widths, the straight-line extrapolation from one and two periods
+  of ``block_pattern`` (and the remainder) equals a trace at the full
+  depth: collective counts and bytes and FLOPs exactly, the peak within
+  ``PEAK_RTOL``.
+* The CLI on smoke configs on both production meshes: every cell "ok",
+  ``args`` the accounting that ``test_torch_launch.py`` holds to the
+  reference's spec trees, ``peak >= args``; a cell that raises is recorded
+  as failed and the CLI exits 1.
+* Against the reference's own dry run (``repro.launch.dryrun.run_cell``,
+  512 forced host devices, its layers unrolled so the compiled module
+  holds the whole step): on TinyLlama's and Mixtral's smoke prefill and
+  decode cells on both meshes, the traced FLOPs per device equal the
+  matrix-product FLOPs of the reference's compiled SPMD module
+  (``_hlo_dot_flops``: 2 x result elements x contracted size over its
+  ``dot`` instructions, what ``FlopCounterMode`` counts; XLA's
+  ``cost_analysis`` adds every elementwise operation), but for one cell
+  pinned in ``FLOPS_APART``; every collective kind the reference's module
+  issues, the trace issues.  The train cells are not compared: the smoke
+  batch of 4 rows does not split over 16 "data" ranks, and there the
+  reference's partitioner splits the sequence where the port's rules
+  replicate the rows.
+* ``act_rules`` reaches the traced step as it reaches ``analytic_terms``.
+
+A process has one default process group, so every part that makes the fake
+group runs in a subprocess of its own; the slower ones start together
+(``children``).
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+
+import jax
+import pytest
+
+from repro_torch.launch import dryrun, step_trace
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+ENV = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+# The peak is not a straight line in depth: a transient of the first layer
+# or of the loss head may decide it at one depth and not at another.
+PEAK_RTOL = 0.02
+
+
+@pytest.fixture(scope="module")
+def ref_dryrun():
+    jax.devices()  # the platform starts first, at the device count it has
+    before = os.environ.get("XLA_FLAGS")
+    try:
+        import repro.launch.dryrun as module
+    finally:
+        if before is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = before
+    return module
+
+
+def _run(code: str, timeout: float = 120) -> dict:
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=ENV,
+                         timeout=timeout, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+class _Child:
+    """A subprocess started now and read once, when a test asks."""
+
+    def __init__(self, args, timeout: float):
+        self.proc = subprocess.Popen(args, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True, env=ENV, cwd=ROOT)
+        self.timeout, self.done = timeout, None
+
+    def result(self):
+        if self.done is None:
+            out, err = self.proc.communicate(timeout=self.timeout)
+            self.done = subprocess.CompletedProcess(self.proc.args, self.proc.returncode, out, err)
+        return self.done
+
+    def json(self):
+        run = self.result()
+        assert run.returncode == 0, run.stderr[-3000:]
+        return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+# The cells held against the reference's compiled module.
+REF_ARCHS = ("tinyllama-1.1b", "mixtral-8x7b")
+REF_SHAPES = ("prefill_32k", "decode_32k")
+
+_REF_CELLS = r"""
+import json, math, re
+import repro.launch.dryrun as R  # first: it fakes 512 host devices
+from repro.configs import SMOKE_SHAPES, get_config
+from repro.models import scan_mode
+R.SHAPES = SMOKE_SHAPES
+R.get_config = lambda arch: get_config(arch, smoke=True)
+texts = []
+_collective_bytes = R.collective_bytes
+R.collective_bytes = lambda text: (texts.append(text), _collective_bytes(text))[1]
+DEF = re.compile(r"^\s*(?:ROOT\s+)?%?([\w.\-]+) = \w+\[([0-9,]*)\]")
+DOT = re.compile(r"^\s*(?:ROOT\s+)?%?([\w.\-]+) = \w+\[([0-9,]*)\]\S* "
+                 r"dot\(%?([\w.\-]+), %?[\w.\-]+\).*?lhs_contracting_dims=\{([0-9,]*)\}")
+dims = lambda s: [int(d) for d in s.split(",") if d]
+
+def hlo_dot_flops(text):
+    shapes = {m.group(1): dims(m.group(2)) for m in map(DEF.match, text.splitlines()) if m}
+    total = 0
+    for m in filter(None, map(DOT.match, text.splitlines())):
+        lhs = shapes[m.group(3)]
+        total += 2 * math.prod(dims(m.group(2))) * math.prod(lhs[c] for c in dims(m.group(4)))
+    return total
+
+out = []
+for multi_pod in (False, True):
+    for arch in ARCHS:
+        for shape in SHAPES:
+            with scan_mode.unrolled():
+                rec = R.run_cell(arch, shape, multi_pod=multi_pod, verbose=False)
+            out.append(dict(arch=arch, shape=shape, mesh=rec["mesh"],
+                            dot_flops=hlo_dot_flops(texts[-1]), cost_flops=rec["hlo_body_flops"],
+                            loops=texts[-1].count(" while("), counts=rec["collectives"]["counts"]))
+print(json.dumps(out))
+"""
+
+_PORT_CELLS = r"""
+import json
+from repro_torch.launch import dryrun
+cells = dryrun.run_all((False, True), ARCHS, SHAPES, verbose=False, smoke=True)
+print(json.dumps(cells))
+"""
+
+_ACT_RULES = r"""
+import json
+from repro_torch.launch import dryrun
+out = {}
+for name, rules in (("default", None), ("seq_off", {"seq": None})):
+    rec = dryrun.run_cell("tinyllama-1.1b", "prefill_32k", verbose=False, smoke=True,
+                          act_rules=rules)
+    out[name] = dict(collectives=rec["collectives"], wire=rec["collective_wire_bytes_per_device"])
+dryrun.close_fake_mesh()
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def children(tmp_path_factory):
+    """The file's slower subprocesses, started together: the CLI on
+    TinyLlama's smoke cells on both meshes, the port's and the reference's
+    prefill and decode cells of REF_ARCHS, and the ``act_rules`` pair."""
+    cli_out = tmp_path_factory.mktemp("cli") / "dry.json"
+    consts = f"ARCHS = {list(REF_ARCHS)!r}\nSHAPES = {list(REF_SHAPES)!r}\n"
+    kids = {
+        "cli": _Child([sys.executable, "-m", "repro_torch.launch.dryrun", "--smoke", "--arch",
+                       "tinyllama-1.1b", "--mesh", "both", "--out", str(cli_out)], 240),
+        "ref": _Child([sys.executable, "-c", consts + _REF_CELLS], 240),
+        "port": _Child([sys.executable, "-c", consts + _PORT_CELLS], 240),
+        "act_rules": _Child([sys.executable, "-c", _ACT_RULES], 240),
+    }
+    kids["cli_out"] = cli_out
+    yield kids
+    for kid in kids.values():
+        if isinstance(kid, _Child) and kid.proc.poll() is None:
+            kid.proc.kill()
+            kid.proc.wait()
+
+
+# ---------------------------------------------------------------------------
+# The wire model.
+# ---------------------------------------------------------------------------
+
+_HLO_DTYPES = {"f32": 4, "bf16": 2, "s32": 4, "u8": 1, "pred": 1}
+_OPS = [("all-reduce", (1024,), "f32"), ("all-gather", (16, 128), "bf16"),
+        ("reduce-scatter", (2, 3, 5), "f32"), ("all-to-all", (8, 64), "bf16"),
+        ("collective-permute", (7,), "s32"), ("all-reduce", (3, 3), "bf16"),
+        ("all-gather", (4096,), "u8")]
+
+
+def test_wire_model_equals_reference_collective_bytes(ref_dryrun):
+    lines = []
+    for i, (kind, shape, dt) in enumerate(_OPS):
+        ty = f"{dt}[{','.join(map(str, shape))}]"
+        lines.append(f"  %{kind}.{i} = {ty}{{0}} {kind}({ty} %p{i}), replica_groups={{}}")
+    ours = step_trace.summarize((kind, _HLO_DTYPES[dt] * math.prod(shape))
+                                for kind, shape, dt in _OPS)
+    assert ours == ref_dryrun.collective_bytes("\n".join(lines))
+    assert step_trace.KINDS == tuple(ref_dryrun.collective_bytes("")["bytes"])
+
+
+# ---------------------------------------------------------------------------
+# Known redistributions, views and products on a fake 4 x 4 mesh.
+# ---------------------------------------------------------------------------
+
+_KNOWN = r"""
+import json, torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from repro_torch.launch.mesh import make_fake_mesh
+from repro_torch.launch.step_trace import StepTrace
+mesh = make_fake_mesh({"data": 4, "model": 4})
+out = {}
+with FakeTensorMode(allow_non_fake_inputs=True):
+    a = DTensor.from_local(torch.empty(4, 8), mesh, [Shard(0), Replicate()], run_check=False)
+    b = DTensor.from_local(torch.empty(8, 8), mesh, [Replicate(), Partial()], run_check=False)
+    c = DTensor.from_local(torch.empty(8, 8), mesh, [Replicate(), Partial()], run_check=False)
+    w = DTensor.from_local(torch.empty(8, 16), mesh, [Replicate(), Replicate()], run_check=False)
+    with StepTrace() as tr:
+        a.redistribute(mesh, [Replicate(), Replicate()])   # all-gather over "data"
+        b.redistribute(mesh, [Replicate(), Replicate()])   # all-reduce over "model"
+        c.redistribute(mesh, [Replicate(), Shard(0)])      # reduce-scatter over "model"
+        out["collectives"] = tr.collectives()
+    with StepTrace() as tr:
+        y = a @ w                                           # (4, 8) @ (8, 16) on each rank
+        out["flops"] = tr.flops
+    with StepTrace() as tr:
+        base = torch.empty(1024)
+        views = [base[:10], base.view(32, 32), base[512:]]
+        out["live_views"] = tr.live_bytes
+        del base
+        out["live_after_base"] = tr.live_bytes
+        del views
+        out["live_after_views"] = tr.live_bytes
+        out["peak"] = tr.peak
+print(json.dumps(out))
+"""
+
+
+def test_known_redistributions_views_and_products(children):
+    got = _run(_KNOWN)  # (``children`` starts the slower subprocesses meanwhile)
+    coll = got["collectives"]
+    assert coll["counts"] == {"all-reduce": 1, "all-gather": 1, "reduce-scatter": 1,
+                              "all-to-all": 0, "collective-permute": 0}
+    # all-gather: the (16, 8) float32 result; all-reduce: 2 x (8, 8) float32;
+    # reduce-scatter: the (2, 8) float32 shard
+    assert coll["bytes"] == {"all-reduce": 2 * 256, "all-gather": 512, "reduce-scatter": 64,
+                             "all-to-all": 0, "collective-permute": 0}
+    assert coll["total_bytes"] == 1088
+    assert got["flops"] == 2 * 4 * 8 * 16
+    assert got["live_views"] == got["live_after_base"] == got["peak"] == 4096
+    assert got["live_after_views"] == 0
+
+
+# ---------------------------------------------------------------------------
+# Depth: the straight line against a full-depth trace.
+# ---------------------------------------------------------------------------
+
+_DEPTH = r"""
+import json
+from repro_torch.configs import SMOKE_SHAPES, get_config
+from repro_torch.launch import dryrun
+mesh = {"data": 16, "model": 16}
+out = []
+for arch, shape, layers, remat in CASES:
+    cfg = get_config(arch, smoke=True)
+    cfg = dryrun.depth_cut(cfg, layers or cfg.num_layers)
+    if shape != "train_4k":
+        cfg = cfg.replace(param_dtype="bfloat16")
+    spec = SMOKE_SHAPES[shape]
+    line = dryrun.trace_cell(cfg, spec, mesh, remat=remat)
+    whole = dryrun.trace_step(cfg, spec, dryrun.fake_mesh(mesh), remat=remat)
+    out.append(dict(arch=arch, shape=shape, layers=cfg.num_layers, depths=line["depths"],
+                    line={k: line[k] for k in ("collectives", "flops", "peak")},
+                    whole={k: whole[k] for k in ("collectives", "flops", "peak")}))
+dryrun.close_fake_mesh()
+print(json.dumps(out))
+"""
+
+# (arch, shape, layers (0: the smoke config's), remat): cuts deeper than the
+# smoke configs (whose 2 layers a trace at 1 and 2 meets trivially), the
+# remainder of RecurrentGemma's 3-layer pattern included (7 = 2 x 3 + 1),
+# and DeepSeek's smoke depth (3)
+DEPTH_CASES = [("tinyllama-1.1b", "train_4k", 4, "dots"),
+               ("recurrentgemma-2b", "prefill_32k", 7, "none"),
+               ("mixtral-8x7b", "prefill_32k", 4, "none"),
+               ("deepseek-67b", "decode_32k", 0, "none")]
+
+
+def test_extrapolation_equals_full_depth_trace():
+    got = _run(f"CASES = {json.dumps(DEPTH_CASES)}\n" + _DEPTH, timeout=300)
+    assert len(got) == len(DEPTH_CASES)
+    for case in got:
+        line, whole = case["line"], case["whole"]
+        assert line["collectives"] == whole["collectives"], case
+        assert line["flops"] == whole["flops"], case
+        assert abs(line["peak"] - whole["peak"]) <= PEAK_RTOL * whole["peak"], case
+    rg = next(c for c in got if c["arch"] == "recurrentgemma-2b")
+    assert rg["depths"] == [3, 6, 4] and rg["layers"] == 7
+
+
+# ---------------------------------------------------------------------------
+# The CLI.
+# ---------------------------------------------------------------------------
+
+
+def _cli(*args, timeout=240):
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+                          capture_output=True, text=True, env=ENV, timeout=timeout, cwd=ROOT)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b"])
+def test_cli_smoke_cells_on_both_meshes(children, arch):
+    out = children["cli_out"]
+    run = children["cli"].result()
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+    cells = json.loads(out.read_text())
+    assert [c["mesh"] for c in cells] == ["16x16"] * 4 + ["2x16x16"] * 4
+    ok = [c for c in cells if c["status"] == "ok"]
+    assert all(c["status"] in ("ok", "skipped") for c in cells)
+    assert {c["kind"] for c in ok} == {"train", "prefill", "decode"}
+    for c in ok:
+        account = dryrun.run_cell(arch, c["shape"], multi_pod=c["mesh"] == "2x16x16",
+                                  verbose=False, trace=False, smoke=True)
+        assert c["bytes_per_device"]["args"] == account["bytes_per_device"]["args"]
+        assert c["bytes_per_device"]["peak"] >= c["bytes_per_device"]["args"]
+        assert c["fits_hbm"] == (c["bytes_per_device"]["peak"] <= c["device_memory_bytes"])
+        assert set(c["collectives"]) == {"bytes", "counts", "total_bytes"}
+        assert c["collectives"]["total_bytes"] > 0
+        assert c["traced_flops_per_device"] > 0 and c["trace_s"] > 0
+        assert sum(c["traced_flops_by_op"].values()) == c["traced_flops_per_device"]
+        assert c["traced_depths"][:2] == [1, 2]
+    assert f"{len(ok)} ok / {len(cells) - len(ok)} skipped / 0 failed" in run.stdout
+
+
+def test_cli_records_a_failing_cell_and_exits_1(tmp_path):
+    """4 rows do not split into 3 microbatches: the cell is recorded as
+    failed with its error, and the CLI goes on and exits 1."""
+    out = tmp_path / "dry.json"
+    run = _cli("--smoke", "--arch", "tinyllama-1.1b", "--shape", "train_4k", "--microbatches",
+               "3", "--out", str(out))
+    assert run.returncode == 1
+    (cell,) = json.loads(out.read_text())
+    assert cell["status"] == "failed"
+    assert "does not split into 3 microbatches" in cell["error"]
+    assert "0 ok / 0 skipped / 1 failed" in run.stdout
+
+
+# ---------------------------------------------------------------------------
+# Against the reference's compiled module.
+# ---------------------------------------------------------------------------
+
+# (arch, shape, mesh): (the port's FLOPs a device, the reference's matrix-
+# product FLOPs a device) where they part.  TinyLlama's decode on 2 x 16 x 16:
+# with its 2 rows split over "pod", DTensor gathers the smoke MLP's weights
+# over "data" and multiplies them whole where GSPMD keeps them split
+# (ROADMAP section 3).
+FLOPS_APART = {("tinyllama-1.1b", "decode_32k", "2x16x16"): (124_928, 63_488)}
+
+
+def test_flops_and_collective_kinds_against_reference_compiled_module(children):
+    ref = children["ref"].json()
+    port = {(c["arch"], c["shape"], c["mesh"]): c for c in children["port"].json()}
+    assert len(ref) == len(port) == 2 * len(REF_ARCHS) * len(REF_SHAPES)
+    for r in ref:
+        key = (r["arch"], r["shape"], r["mesh"])
+        c = port[key]
+        assert c["status"] == "ok", c
+        # the whole step is in the module (no loop counted once), and the
+        # parser reads a part of XLA's own count
+        assert r["loops"] == 0 and 0 < r["dot_flops"] <= r["cost_flops"], r
+        want = FLOPS_APART.get(key, (r["dot_flops"], r["dot_flops"]))
+        assert (c["traced_flops_per_device"], r["dot_flops"]) == want, key
+        kinds = lambda counts: {k for k, n in counts.items() if n}
+        assert kinds(r["counts"]) <= kinds(c["collectives"]["counts"]), (key, r["counts"])
+        assert not kinds(c["collectives"]["counts"]) & {"all-to-all", "collective-permute"}
+
+
+def test_act_rules_reach_the_traced_step(children):
+    """``run_cell(act_rules={"seq": None})`` (no sequence-parallel residual)
+    drops the gathers of the sequence before each norm from the trace, as
+    it drops them from ``analytic_terms``."""
+    got = children["act_rules"].json()
+    base, off = got["default"], got["seq_off"]
+    assert off["collectives"]["counts"]["all-gather"] < base["collectives"]["counts"]["all-gather"]
+    assert off["collectives"]["total_bytes"] < base["collectives"]["total_bytes"]
+    assert off["wire"] < base["wire"]

@@ -1193,6 +1193,80 @@ def test_sharded_train_step_on_card_matches_plain(cuda, card_mesh):
             assert float((a.to_local() - b).abs().max()) <= 1e-6
 
 
+@pytest.mark.parametrize("remat", ["dots", "full"])
+def test_sharded_remat_step_on_card_matches_plain(cuda, card_mesh, remat):
+    """The smoke TinyLlama in float32 under remat "dots" and "full" (the local
+    regions recomputed in backward): two sharded steps equal two plain steps
+    with the same policy, losses and weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.pytree import leaves, tree_map
+    from repro_torch.sharding import batch_pspecs, distribute_tree, param_pspecs
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import (make_sharded_train_step, make_train_step,
+                                              trainable)
+
+    cfg = get_config("tinyllama-1.1b", smoke=True).replace(param_dtype="float32",
+                                                           compute_dtype="float32")
+    model = build_model(cfg, remat=remat)
+    params = model.init(torch.Generator(cuda).manual_seed(0))
+    gen = torch.Generator(cuda).manual_seed(1)
+    batches = [{"inputs": torch.randint(0, cfg.vocab_size, (8, 64), device=cuda, generator=gen),
+                "targets": torch.randint(0, cfg.vocab_size, (8, 64), device=cuda, generator=gen),
+                "mask": torch.ones(8, 64, device=cuda)} for _ in range(2)]
+    opt = AdamW(learning_rate=1e-3, warmup_steps=1, schedule="constant")
+    sds, axes = model.abstract_params()
+    specs = param_pspecs(sds, axes, card_mesh, mode="train", fsdp=True)
+    bspecs = batch_pspecs(cfg, "train", 8, card_mesh)
+    sharded = trainable(distribute_tree(tree_map(torch.clone, params), specs, card_mesh))
+    plain = trainable(params)
+    dstate, state = opt.init(sharded), opt.init(plain)
+    sstep, step = make_sharded_train_step(model, opt, card_mesh), make_train_step(model, opt)
+    for b in batches:
+        plain, state, loss, _ = step(plain, state, b)
+        sharded, dstate, dloss, _ = sstep(sharded, dstate, distribute_tree(b, bspecs, card_mesh))
+        assert abs(float(dloss) - float(loss)) <= 1e-5 * abs(float(loss))
+    with torch.no_grad():
+        for a, b in zip(leaves(sharded), leaves(plain)):
+            assert float((a.to_local() - b).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mixtral-8x7b"])
+def test_sharded_prefill_and_decode_on_card_match_plain(cuda, card_mesh, arch):
+    """Sharded prefill into a cache placed by ``cache_pspecs`` and 4 sharded
+    decode steps on the 1 x 1 mesh equal the plain ones (float32 logits
+    within 1e-5 of their largest)."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.sharding import batch_pspecs, distribute_tree, param_pspecs
+    from repro_torch.train.train_step import (make_serve_step, make_sharded_prefill_step,
+                                              make_sharded_serve_step)
+
+    cfg = get_config(arch, smoke=True).replace(param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(cuda).manual_seed(2))
+    gen = torch.Generator(cuda).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 64), device=cuda, generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (4, 4, 1), device=cuda, generator=gen)
+    logits, cache = model.prefill(params, {"inputs": prompt}, 68)
+    serve = make_serve_step(model)
+    want = [logits] + [serve(params, cache, toks[i], 64 + i)[0] for i in range(4)]
+    sds, axes = model.abstract_params()
+    dparams = distribute_tree(params, param_pspecs(sds, axes, card_mesh, mode="serve",
+                                                   fsdp=False), card_mesh)
+    dlogits, dcache = make_sharded_prefill_step(model, card_mesh, 68)(
+        dparams, distribute_tree({"inputs": prompt}, batch_pspecs(cfg, "prefill", 4, card_mesh),
+                                 card_mesh))
+    dserve = make_sharded_serve_step(model, card_mesh)
+    got = [dlogits] + [dserve(dparams, dcache, distribute_tensor(toks[i], card_mesh,
+                                                                 [Replicate(), Replicate()]),
+                              64 + i)[0] for i in range(4)]
+    for a, b in zip(got, want):
+        assert float((a.full_tensor() - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
 def test_moe_mesh_branch_on_card_group_of_one(cuda, card_mesh):
     from repro_torch.act_sharding import activation_rules
     from repro_torch.models import moe

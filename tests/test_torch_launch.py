@@ -127,7 +127,7 @@ def test_cell_bytes_equal_reference_specs(arch, mesh_name, ref_dryrun):
     shape = make_production_mesh(multi_pod=multi)
     mesh = AbstractMesh(tuple(shape.values()), tuple(shape))
     for name, spec in SHAPES.items():
-        rec = dryrun.run_cell(arch, name, multi_pod=multi, verbose=False)
+        rec = dryrun.run_cell(arch, name, multi_pod=multi, verbose=False, trace=False)
         if rec["status"] == "skipped":
             continue
         cfg = ref_config(arch)
@@ -169,7 +169,8 @@ def test_cell_bytes_equal_reference_specs(arch, mesh_name, ref_dryrun):
 
 
 def test_run_all_records_and_main(tmp_path, monkeypatch):
-    cells = dryrun.run_all(verbose=False)
+    # the accounting; the traced steps are held in test_torch_dryrun_trace.py
+    cells = dryrun.run_all(verbose=False, trace=False)
     assert len(cells) == 80
     assert sum(c["status"] == "ok" for c in cells) == 66
     ok = [c for c in cells if c["status"] == "ok"]
@@ -180,7 +181,8 @@ def test_run_all_records_and_main(tmp_path, monkeypatch):
     assert {c["device"] for c in ok} == {dryrun.H100_80GB_HBM3}
     out = tmp_path / "dry.json"
     monkeypatch.setattr(sys, "argv", ["dryrun", "--arch", "tinyllama-1.1b", "--shape",
-                                      "train_4k", "--mesh", "both", "--out", str(out)])
+                                      "train_4k", "--mesh", "both", "--no-trace", "--out",
+                                      str(out)])
     dryrun.main()
     records = json.loads(out.read_text())
     assert [r["mesh"] for r in records] == ["16x16", "2x16x16"]

@@ -15,8 +15,8 @@ Run: PYTHONPATH=src python -m pytest -q tests/test_torch_sharding.py
 * ``shard_act``'s spec equals the one the reference constrains to.
 * The reference's five cases of ``tests/test_act_sharding_and_partition.py``
   run on the port; ``shard_act`` returns its input outside a mesh.
-* The sharded train step refuses remat other than "none" and plain
-  parameters.
+* The sharded train step builds under every remat policy and refuses
+  plain parameters.
 """
 
 import jax
@@ -287,12 +287,21 @@ def test_param_specs_cover_all_leaves(arch):
 
 @pytest.mark.parametrize("remat", ["full", "dots"])
 def test_sharded_train_step_refuses_remat(remat):
+    """The name is kept from when the sharded step refused every remat
+    policy but "none".  It now takes "full" and "dots" (its local regions
+    recompute in the backward pass; the 2 x 2 runs are in
+    test_torch_distributed.py): the step builds under each, and under each
+    still refuses a plain parameter leaf before it runs."""
     from repro_torch.train.optimizer import AdamW
-    from repro_torch.train.train_step import make_sharded_train_step
+    from repro_torch.train.train_step import make_sharded_train_step, trainable
 
     model = build_model(get_config("tinyllama-1.1b", smoke=True), remat=remat)
-    with pytest.raises(ValueError, match="remat 'none' only"):
-        make_sharded_train_step(model, AdamW(), MESH)
+    step = make_sharded_train_step(model, AdamW(), MESH)
+    params = trainable(model.init(torch.Generator().manual_seed(0)))
+    batch = {"inputs": torch.zeros(2, 8, dtype=torch.int32),
+             "targets": torch.zeros(2, 8, dtype=torch.int32), "mask": torch.ones(2, 8)}
+    with pytest.raises(ValueError, match="parameter leaves are not DTensors"):
+        step(params, AdamW().init(params), batch)
 
 
 def test_sharded_train_step_refuses_plain_params():
