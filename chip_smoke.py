@@ -3290,6 +3290,10 @@ SHARD_DECODE = 4
 # (h): the dry-run CLI's cells, train, prefill and decode on both meshes
 SHARD_DRY_ARGS = ("--arch", "tinyllama-1.1b", "--mesh", "both")
 SHARD_DRY_OPS_SHOWN = 8  # (h): each cell's largest operations by traced FLOPs
+# (h): a train cell's loss head, its vocabulary split over "model": the
+# forward product, its recompute and two backward products, each 2 x rows a
+# device x S x d x V / "model"
+SHARD_LOSS_HEAD_PRODUCTS = 4
 # (i): the 1 x 1 trace of (f)'s steps against the card: the peak within 10% of
 # max_memory_allocated; the traced FLOPs at most this far above _step_flops
 # (which counts neither remat's recompute, nor the loss head's, nor the
@@ -3678,10 +3682,11 @@ def _trace_child(spec: str) -> None:
 def _dry_cli(proc, out: str, smi: str) -> None:
     """(h) The CLI's cells: each ok, with its collectives, peak and trace
     seconds printed, its traced FLOPs by operation (the largest, and those
-    of operations with an operand as wide as the vocabulary: the logits
-    and loss head), and which cells the traced peak puts over the card's
-    memory."""
-    from repro_torch.configs import get_config
+    of the loss head and of operations with an operand as wide as the
+    vocabulary), and which cells the traced peak puts over the card's
+    memory.  A train cell's loss head must trace its vocabulary split over
+    "model" (``_split_loss_head_flops``)."""
+    from repro_torch.configs import SHAPES, get_config
 
     text, _ = proc.communicate()
     check(proc.returncode == 0 and os.path.exists(out), f"sharding: dry-run CLI:\n{text[-4000:]}")
@@ -3694,6 +3699,12 @@ def _dry_cli(proc, out: str, smi: str) -> None:
                                                                           "decode")
                                                        for m in ("16x16", "2x16x16")},
           f"sharding: dry-run CLI cells {[(c['shape'], c['mesh'], c['status']) for c in cells]}")
+    for c in ok:
+        if c["kind"] == "train":
+            want = _split_loss_head_flops(get_config(c["arch"]), SHAPES[c["shape"]], c["mesh"])
+            got = _vocab_wide_flops(c["traced_flops_by_op"], get_config(c["arch"]).vocab_size)
+            check(got == want, f"sharding: {c['mesh']} {c['arch']} {c['shape']}: the loss head "
+                               f"traces {got} FLOPs a device, split over the vocabulary {want}")
     emit("sharding", part="dry_run_cli", card=smi, args=list(SHARD_DRY_ARGS),
          cells=[{"arch": c["arch"], "shape": c["shape"], "mesh": c["mesh"], "status": c["status"],
                  **({"collective_bytes": c["collectives"]["total_bytes"],
@@ -3712,10 +3723,22 @@ def _dry_cli(proc, out: str, smi: str) -> None:
 
 
 def _vocab_wide_flops(by_op: dict, vocab: int) -> int:
-    """The traced FLOPs of operations with an operand dimension of the
-    vocabulary's size (``StepTrace``'s keys list the operand shapes)."""
+    """The traced FLOPs of the loss head (keys labelled ``loss_head/``) and
+    of operations with an operand dimension of the vocabulary's size
+    (``StepTrace``'s keys list the operand shapes)."""
     wide = (f"({vocab},", f" {vocab},", f" {vocab})")
-    return sum(n for key, n in by_op.items() if any(w in key for w in wide))
+    return sum(n for key, n in by_op.items()
+               if key.startswith("loss_head/") or any(w in key for w in wide))
+
+
+def _split_loss_head_flops(cfg, shape, mesh: str) -> int:
+    """A train cell's loss-head FLOPs a device with its vocabulary split
+    over "model" (16 ranks): SHARD_LOSS_HEAD_PRODUCTS products of each
+    device's rows (the global batch over the batch axes) by S x d x V /
+    16."""
+    batch_ranks = {"16x16": 16, "2x16x16": 32}[mesh]
+    return (SHARD_LOSS_HEAD_PRODUCTS * 2 * (shape.global_batch // batch_ranks) * shape.seq_len
+            * cfg.d_model * cfg.vocab_size // 16)
 
 
 def _traced_against_card(proc, peaks: dict, smi: str) -> None:

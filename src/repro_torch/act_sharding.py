@@ -16,6 +16,15 @@ is a tuple with one entry per tensor dimension: a mesh-axis name, a tuple of
 names, or ``None`` (the reference's ``PartitionSpec``, whose one-name tuples
 read as the name).  ``placements`` turns a spec into DTensor placements.
 
+Where DTensor's own rules would keep more than GSPMD keeps, the step takes
+explicit collectives on local shards instead: ``row_parallel`` (a block's
+output product, reduce-scattered onto the residual stream's sequence
+split) and the vocabulary-parallel lookup and loss head
+(``models/vocab.py``), each an ``autograd.Function`` whose backward pass
+pairs its forward collective (all-gather with reduce-scatter, all-reduce
+with identity).  Each runs only where its split has more than one rank,
+so on a 1 x 1 mesh the step is the plain one.
+
 Under a ``DeviceMesh``, ``activation_rules`` also lets plain tensors meet
 DTensors in one operation, taken as replicated (``implicit_replication``),
 for the constants that the model makes from shapes (positions, masks, zero
@@ -325,20 +334,22 @@ def current_rules():
 
 
 @contextlib.contextmanager
-def remat_unit(rules):
+def remat_unit(rules, replay: bool = False):
     """Inside a remat unit's checkpoint (``transformer.remat_call``): the
     rules captured when the unit first ran (``current_rules``), since its
     recompute runs in the autograd engine's thread for the device (a card's
     backward pass does), where this module's thread-local rules are absent
     (DTensor's implicit replication is process-wide and stays on); and local
     regions keep their inputs only and make their graph again in the
-    backward pass (``_Local``)."""
-    prev = getattr(_state, "ctx", None), getattr(_state, "recompute", False)
-    _state.ctx, _state.recompute = rules, True
+    backward pass (``_Local``).  ``replay``: this is the backward pass's
+    rerun of a remat "dots" unit (``replaying``)."""
+    prev = (getattr(_state, "ctx", None), getattr(_state, "recompute", False),
+            getattr(_state, "replay", False))
+    _state.ctx, _state.recompute, _state.replay = rules, True, replay
     try:
         yield
     finally:
-        _state.ctx, _state.recompute = prev
+        _state.ctx, _state.recompute, _state.replay = prev
 
 
 def run_local(fn: Callable, dts: Sequence, out_placements: Sequence[list]) -> tuple:
@@ -407,3 +418,307 @@ def local_sum(fn: Callable, *args: Tuple[torch.Tensor, Sequence[Optional[str]]])
     split = [any(isinstance(d.placements[i], Shard) for d in placed)
              for i in range(len(placed[0].placements))]
     return run_local(fn, placed, [[Partial() if s else Replicate() for s in split]])[0]
+
+
+# ---------------------------------------------------------------------------
+# Explicit collectives on local shards, and the row-parallel block output.
+# ---------------------------------------------------------------------------
+
+# A block's residual stream: rows over the batch axes, its sequence split
+# by the "seq" rule (sequence parallelism; None: whole).
+RESIDUAL = ("batch", "seq", "embed_act")
+
+
+def axis_group(mesh, axis: str) -> Tuple[str, int]:
+    """(process group name, ranks) of one mesh axis."""
+    return mesh.get_group(axis).group_name, mesh.size(list(mesh_shape(mesh)).index(axis))
+
+
+def _c10d():
+    return torch.ops._c10d_functional
+
+
+def gather_rows(t: torch.Tensor, group: Tuple[str, int]) -> torch.Tensor:
+    """Each rank's t (n, ...) concatenated in rank order: (ranks * n, ...)."""
+    name, m = group
+    return _c10d().wait_tensor(_c10d().all_gather_into_tensor(t.contiguous(), m, name))
+
+
+def scatter_rows(t: torch.Tensor, group: Tuple[str, int]) -> torch.Tensor:
+    """The sum of every rank's t (ranks * n, ...), rank r keeping rows r n
+    to (r + 1) n."""
+    name, m = group
+    return _c10d().wait_tensor(_c10d().reduce_scatter_tensor(t.contiguous(), "sum", m, name))
+
+
+def reduce_all(t: torch.Tensor, group: Tuple[str, int], op: str = "sum") -> torch.Tensor:
+    """Every rank's t combined by ``op`` ("sum", "max"), on every rank."""
+    return _c10d().wait_tensor(_c10d().all_reduce(t.contiguous(), op, group[0]))
+
+
+def rows_split_only(x, axis: Optional[str] = None) -> bool:
+    """Whether DTensor x is split along its rows (dimension 0) only, and
+    not over ``axis``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh_shape(x.device_mesh))
+    return all(p == Replicate() or (p == Shard(0) and names[i] != axis)
+               for i, p in enumerate(x.placements))
+
+
+@contextlib.contextmanager
+def _keep_result():
+    prev = getattr(_state, "keep", False)
+    _state.keep = True
+    try:
+        yield
+    finally:
+        _state.keep = prev
+
+
+def keeping_result() -> bool:
+    """Inside ``row_parallel``'s product, whose kept result for remat "dots"
+    is the scattered tensor (``aten.alias`` of it), not the product."""
+    return getattr(_state, "keep", False)
+
+
+def replaying() -> bool:
+    """Inside the backward pass's rerun of a remat "dots" unit."""
+    return getattr(_state, "replay", False)
+
+
+class _RowParallel(torch.autograd.Function):
+    """h (B, S, K) @ w (K, d) with K split over mesh axis ``axis`` in both:
+    each rank's product is a partial sum of the whole (B, S, d), which is
+    reduce-scattered onto the sequence split over that axis (the residual
+    stream's).  The product runs on (S, B) rows, so the collective's blocks
+    are sequence blocks.  Backward all-gathers the output's gradient along
+    the sequence and runs the two products locally.
+
+    Under remat "dots" the unit keeps the scattered result, as GSPMD keeps
+    the dot's output after its reduce-scatter: the result passes through
+    ``aten.alias``, which the policy saves (``keeping_result``), and in the
+    backward pass's rerun of the unit (``replaying``) the product and its
+    collective are skipped and the alias returns the kept tensor.  The
+    product writes through ``out=`` (``aten.mm.out``), an overload no other
+    operation of a unit uses, so skipping it shifts no other operation's
+    place in the policy's record."""
+
+    @staticmethod
+    def forward(ctx, h, w, axis, out_plc, replay):
+        from torch.distributed.tensor import DTensor
+
+        mesh = h.device_mesh
+        hl, wl = h._local_tensor, w._local_tensor
+        b, s, k = hl.shape
+        group = axis_group(mesh, axis)
+        rows = s // group[1] * b
+        with _keep_result():
+            if replay:
+                out = torch.ops.aten.alias(hl.new_empty((rows, wl.shape[1])))
+            else:
+                y = hl.new_empty((s * b, wl.shape[1]))
+                torch.mm(hl.transpose(0, 1).reshape(s * b, k), wl, out=y)
+                out = torch.ops.aten.alias(scatter_rows(y, group))
+        ctx.save_for_backward(hl, wl)
+        ctx.group, ctx.mesh, ctx.out_plc = group, mesh, out_plc
+        ctx.grad_plc = _grad_placements([h, w])
+        local = out.view(s // group[1], b, -1).transpose(0, 1)
+        return DTensor.from_local(local, mesh, out_plc, run_check=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+
+        hl, wl = ctx.saved_tensors
+        gl = g.redistribute(ctx.mesh, ctx.out_plc).to_local()
+        b, sm, d = gl.shape
+        gfull = gather_rows(gl.transpose(0, 1).reshape(sm * b, d), ctx.group)   # (S B, d)
+        s = gfull.shape[0] // b
+        dh = (gfull @ wl.T).view(s, b, -1).transpose(0, 1)
+        dw = hl.transpose(0, 1).reshape(s * b, -1).T @ gfull
+        dh_plc, dw_plc = ctx.grad_plc
+        return (DTensor.from_local(dh, ctx.mesh, dh_plc, run_check=False),
+                DTensor.from_local(dw, ctx.mesh, dw_plc, run_check=False), None, None, None)
+
+
+class _SeqLocal(torch.autograd.Function):
+    """h (B, S, K) @ w (K, N) with w whole on mesh axis ``axis`` and the
+    output split over it along the sequence: each rank multiplies only its
+    sequence block of h (h split there, or whole and cut), no collective.
+    Backward is local; w's gradient is a partial sum over ``axis`` and the
+    batch axes, and h's is placed on the sequence split (zero outside each
+    rank's block)."""
+
+    @staticmethod
+    def forward(ctx, h, w, axis, out_plc):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+        mesh = h.device_mesh
+        names = list(mesh_shape(mesh))
+        hl, wl = h._local_tensor, w._local_tensor
+        if h.placements[names.index(axis)] != Shard(1):   # whole: this rank's block
+            span = hl.shape[1] // mesh.size(names.index(axis))
+            r = mesh.get_local_rank(axis)
+            hl = hl[:, r * span:(r + 1) * span]
+        b, s, k = hl.shape
+        out = (hl.reshape(b * s, k) @ wl).view(b, s, -1)
+        ctx.save_for_backward(hl, wl)
+        ctx.mesh, ctx.out_plc = mesh, out_plc
+        ctx.h_plc = [Shard(1) if n == axis else p for n, p in zip(names, h.placements)]
+        ctx.w_plc = [Partial() if isinstance(hp, Shard) and wp == Replicate() else wp
+                     for hp, wp in zip(ctx.h_plc, w.placements)]
+        return DTensor.from_local(out, mesh, out_plc, run_check=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+
+        hl, wl = ctx.saved_tensors
+        gl = g.redistribute(ctx.mesh, ctx.out_plc).to_local()
+        b, s, n = gl.shape
+        g2 = gl.reshape(b * s, n)
+        dh = (g2 @ wl.T).view(b, s, -1)
+        dw = hl.reshape(b * s, -1).T @ g2
+        return (DTensor.from_local(dh, ctx.mesh, ctx.h_plc, run_check=False),
+                DTensor.from_local(dw, ctx.mesh, ctx.w_plc, run_check=False), None, None)
+
+
+def _seq_axis(mesh, rules, dims) -> Optional[str]:
+    """The one axis, of more than one rank, that splits the residual
+    stream's sequence for an activation of ``dims`` (B, S, d)."""
+    seq = entry_axes(act_spec(dims, RESIDUAL, mesh, rules)[1])
+    return seq[0] if len(seq) == 1 and axes_size(mesh, seq) > 1 else None
+
+
+def _product_plan(h, w, mesh, rules, out_dims):
+    """("row", axis, placements) for ``_RowParallel``, ("seq", axis,
+    placements) for ``_SeqLocal``, or None: the residual's sequence split
+    over one axis A of more than one rank; h's rows split as the
+    residual's (and on nothing else but A); w replicated but on A, where
+    it is split on its rows (``_RowParallel``: h split on its last
+    dimension there, its sequence whole) or whole (``_SeqLocal``: h's
+    sequence split on A or whole)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if h.ndim != 3 or w.ndim != 2:
+        return None
+    axis = _seq_axis(mesh, rules, out_dims)
+    if axis is None:
+        return None
+    out_plc = placements(act_spec(out_dims, RESIDUAL, mesh, rules), mesh)
+    names = list(mesh_shape(mesh))
+    a = names.index(axis)
+    for i, (hp, wp, op) in enumerate(zip(h.placements, w.placements, out_plc)):
+        if i != a and (wp != Replicate() or hp != op):
+            return None
+    if w.placements[a] == Shard(0) and h.placements[a] == Shard(2):
+        return "row", axis, out_plc
+    if w.placements[a] == Replicate() and h.placements[a] in (Shard(1), Replicate()):
+        return "seq", axis, out_plc
+    return None
+
+
+def _training(ctx) -> bool:
+    """Whether the sequence-parallel products apply: under a ``DeviceMesh``
+    with autograd recording (a train step).  Without it (prefill, decode)
+    the block's products take their sequence whole and its output is
+    summed whole, as the reference's compiled prefill computes them."""
+    return ctx is not None and not isinstance(ctx[0], dict) and torch.is_grad_enabled()
+
+
+def sequence_parallel() -> bool:
+    """``_training`` under the active rules."""
+    return _training(getattr(_state, "ctx", None))
+
+
+def row_parallel(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w`` for a block's output product (h (B, S, K) @ w (K, d), K the
+    heads, the MLP's or a recurrence's width).  In a train step under a
+    mesh the result is placed as the residual stream (``RESIDUAL``): where
+    K is split over the axis that splits its sequence, the partial sums are
+    reduce-scattered onto that split (``_RowParallel``); where K and w are
+    whole on it, each rank multiplies its own sequence block
+    (``_SeqLocal``); elsewhere DTensor's product is constrained to it (an
+    all-reduce where "seq" is None, as the reference's
+    non-sequence-parallel step sums).  Without autograd (``_training``) it
+    is summed with its sequence whole."""
+    ctx = getattr(_state, "ctx", None)
+    if ctx is None or not (is_dtensor(h) and is_dtensor(w)):
+        return h @ w
+    if not _training(ctx):
+        return shard_act(h @ w, ("batch", "attn_seq", "embed_act"))
+    plan = _product_plan(h, w, ctx[0], ctx[1], (h.shape[0], h.shape[1], w.shape[1]))
+    if plan is None:
+        return shard_act(h @ w, RESIDUAL)
+    kind, axis, out_plc = plan
+    if kind == "row":
+        return _RowParallel.apply(h, w, axis, out_plc, replaying())
+    return _SeqLocal.apply(h, w, axis, out_plc)
+
+
+class BlockInput:
+    """A block's input (B, S, d) under a mesh: the residual stream after its
+    norm, its sequence split as the stream's.  ``x @ w`` for a product
+    whose weight is whole on the sequence's axis runs on each rank's
+    sequence block (``_SeqLocal``; GSPMD's choice for a dot whose operand
+    is split and whose weight is not: TinyLlama's K and V, every
+    projection of heads that do not divide "model"), its output split on
+    the sequence; any other product takes the input with its sequence
+    whole (``whole``, gathered once: the "attn_seq" rule), as DTensor's
+    products fold (B, S) into rows, which they cannot do over a split
+    sequence (torch 2.11)."""
+
+    def __init__(self, x):
+        self.x = x
+        self._whole = None
+
+    shape = property(lambda self: self.x.shape)
+    dtype = property(lambda self: self.x.dtype)
+    device = property(lambda self: self.x.device)
+
+    def whole(self):
+        if self._whole is None:
+            self._whole = shard_act(self.x, ("batch", "attn_seq", "embed_act"))
+        return self._whole
+
+    def __matmul__(self, w):
+        ctx = getattr(_state, "ctx", None)
+        if ctx is not None and is_dtensor(w) and w.ndim == 2:
+            plan = _product_plan(self.x, w, ctx[0], ctx[1], tuple(self.x.shape))
+            if plan is not None and plan[0] == "seq":
+                return _SeqLocal.apply(self.x, w, plan[1], plan[2])
+        return self.whole() @ w
+
+
+def block_input(x):
+    """x itself outside a mesh (or off DTensors); in a train step under a
+    mesh (``_training``) a ``BlockInput``; else x with its sequence
+    whole."""
+    ctx = getattr(_state, "ctx", None)
+    if ctx is None or not is_dtensor(x):
+        return x
+    if not _training(ctx):
+        return shard_act(x, ("batch", "attn_seq", "embed_act"))
+    return BlockInput(x)
+
+
+def whole_of(x):
+    """A block input with its sequence whole: ``BlockInput.whole``, or x."""
+    return x.whole() if isinstance(x, BlockInput) else x
+
+
+@contextlib.contextmanager
+def work_label(name: str):
+    """Names the operations run inside for a tracer (``launch.step_trace``
+    prefixes their FLOP keys with ``name``)."""
+    prev = getattr(_state, "label", None)
+    _state.label = name
+    try:
+        yield
+    finally:
+        _state.label = prev
+
+
+def current_label() -> Optional[str]:
+    return getattr(_state, "label", None)

@@ -67,6 +67,9 @@ LONG_CONTEXT_ARCHS = {"mixtral-8x7b", "recurrentgemma-2b", "rwkv6-1.6b"}
 # .total_memory reads it: the limit when no card is present.
 H100_80GB_HBM3 = "NVIDIA H100 80GB HBM3"
 H100_80GB_HBM3_BYTES = 85_017_493_504
+# ``--peak-live``: how many of the kinds of storage alive at the peak a
+# record keeps, largest first
+PEAK_LIVE_SHOWN = 24
 
 
 def skip_reason(arch: str, shape: ShapeSpec) -> Optional[str]:
@@ -221,14 +224,17 @@ def _fake_placed(tree, specs, mesh):
 
 def trace_step(cfg: C.ModelConfig, shape: ShapeSpec, mesh, *, remat: str = "dots",
                fsdp: bool = True, serve_fsdp: bool = False, moment_dtype: str = "float32",
-               microbatches: int = 1, act_rules=None) -> Dict[str, Any]:
+               microbatches: int = 1, act_rules=None, keep_peak: bool = False
+               ) -> Dict[str, Any]:
     """One rank's trace of the cell's step at ``cfg``'s depth, on fake
     tensors (``FakeTensorMode``) placed on ``mesh``: the train step (AdamW,
     ``remat``, ``microbatches``), the prefill into a placed cache, or one
     decode step against a placed cache, under ``activation_rules(mesh,
     act_rules)``, as the reference's ``run_cell`` lowers them.  Returns
     ``{"collectives", "peak", "flops", "flops_by_op", "args_live"}``
-    (``args_live``: the bytes alive when the step starts)."""
+    (``args_live``: the bytes alive when the step starts), and with
+    ``keep_peak`` ``"peak_live"``: the bytes alive at the peak by the
+    operation and shape that made them (``StepTrace.peak_live``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from ..sharding import batch_pspecs, cache_pspecs
@@ -240,7 +246,7 @@ def trace_step(cfg: C.ModelConfig, shape: ShapeSpec, mesh, *, remat: str = "dots
     sds, axes = model.abstract_params()
     b = shape.global_batch
     # the mesh's own rank tensor is a real one
-    with FakeTensorMode(allow_non_fake_inputs=True), StepTrace() as tr:
+    with FakeTensorMode(allow_non_fake_inputs=True), StepTrace(keep_peak) as tr:
         if shape.kind == "train":
             pspecs = param_pspecs(sds, axes, mesh, mode="train", fsdp=fsdp)
             params = TS.trainable(_fake_placed(sds, pspecs, mesh))
@@ -272,8 +278,11 @@ def trace_step(cfg: C.ModelConfig, shape: ShapeSpec, mesh, *, remat: str = "dots
         args_live = tr.live_bytes
         out = step(*args)
         del out, args
-    return {"collectives": tr.collectives(), "peak": tr.peak, "flops": tr.flops,
-            "flops_by_op": tr.flops_by_op, "args_live": args_live}
+    out = {"collectives": tr.collectives(), "peak": tr.peak, "flops": tr.flops,
+           "flops_by_op": tr.flops_by_op, "args_live": args_live}
+    if keep_peak:
+        out["peak_live"] = tr.peak_live()
+    return out
 
 
 def trace_cell(cfg: C.ModelConfig, shape: ShapeSpec, mesh_dims: Dict[str, int],
@@ -325,13 +334,16 @@ def run_cell(
     verbose: bool = True,
     trace: bool = True,
     smoke: bool = False,
+    peak_live: bool = False,
 ) -> Dict[str, Any]:
     """One cell's record: the accounting of its step's arguments and, with
     ``trace``, its step traced on the fake production mesh (``trace_cell``)
     under ``act_rules``: the collectives, the peak bytes (which decide
     ``fits_hbm``; None without ``trace``) and the FLOPs per device, also
     by operation (``traced_flops_by_op``).  ``smoke``: the smoke configs
-    and shapes."""
+    and shapes.  ``peak_live``: also trace the step once at full depth
+    and record the bytes alive at its peak by the operation and shape that
+    made them (``peak_live``, the largest ``PEAK_LIVE_SHOWN``)."""
     shape = (SMOKE_SHAPES if smoke else SHAPES)[shape_name]
     rec: Dict[str, Any] = {
         "arch": arch,
@@ -420,6 +432,12 @@ def run_cell(
         total_params=cfg.total_params(),
         active_params=n_active,
     )
+    if trace and peak_live:
+        whole = trace_step(cfg, shape, fake_mesh(mesh), remat=remat, fsdp=fsdp,
+                           serve_fsdp=serve_fsdp, moment_dtype=moment_dtype,
+                           microbatches=microbatches, act_rules=act_rules, keep_peak=True)
+        rec["peak_live"] = {"peak": whole["peak"],
+                            "by_origin": dict(list(whole["peak_live"].items())[:PEAK_LIVE_SHOWN])}
     if trace:
         rec.update(collectives=traced["collectives"], traced_flops_per_device=traced["flops"],
                    trace_s=round(traced["trace_s"], 2), traced_depths=traced["depths"],
@@ -433,6 +451,8 @@ def run_cell(
         print(f"[{rec['mesh']}] {arch:28s} {shape_name:12s} args/dev={args / 2**30:8.2f}GiB"
               f"{extra} fits={rec['fits_hbm']} ({device}) analytic_flops/dev={terms.flops:.3e}",
               flush=True)
+        for origin, n in rec.get("peak_live", {}).get("by_origin", {}).items():
+            print(f"    {n:>16,d}  {origin}", flush=True)
     return rec
 
 
@@ -475,6 +495,9 @@ def main(argv=None) -> None:
     ap.add_argument("--smoke", action="store_true", help="the smoke configs and shapes")
     ap.add_argument("--no-trace", action="store_true",
                     help="the argument accounting alone: no step is traced")
+    ap.add_argument("--peak-live", action="store_true",
+                    help="also trace each step at full depth and record what is alive at its "
+                         "peak, by the operation and shape that made it")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
 
@@ -483,7 +506,7 @@ def main(argv=None) -> None:
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
     cells = run_all(meshes, archs, shapes, remat=args.remat, fsdp=not args.no_fsdp,
                     moment_dtype=args.moment_dtype, microbatches=args.microbatches,
-                    trace=not args.no_trace, smoke=args.smoke)
+                    trace=not args.no_trace, smoke=args.smoke, peak_live=args.peak_live)
     ok = sum(1 for c in cells if c.get("status") == "ok")
     sk = sum(1 for c in cells if c.get("status") == "skipped")
     fail = sum(1 for c in cells if c.get("status") == "failed")

@@ -14,10 +14,17 @@ it keeps is per device:
   the reference's five kinds, its bytes under the reference's wire model
   (all-reduce 2 x the result's bytes, the others the result's bytes);
 * ``peak``: the most bytes of distinct storages alive at once (a storage
-  shared by views counts once; it is freed when its last tensor goes);
+  shared by views counts once; it is freed when its last tensor goes; a
+  collective's ``wait_tensor`` returns its input's storage, as it does on
+  a real group, where fake tensors give it a new one);
 * ``flops``: ``torch.utils.flop_counter``'s formulas (matrix products,
   convolutions, attention) over the local shapes; ``flops_by_op`` splits
-  them by operation and operand shapes (``"mm(8192, 2048)x(2048, 32000)"``).
+  them by operation and operand shapes (``"mm(8192, 2048)x(2048, 32000)"``),
+  prefixed with the name of the enclosing ``act_sharding.work_label``
+  (``"loss_head/mm(8192, 2048)x(2048, 2000)"``);
+* ``peak_live()`` (with ``keep_peak``): the storages alive at the peak,
+  summed by the operation and shape that made each
+  (``"mm -> (8192, 2048) bfloat16"``), largest first.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ from typing import Dict, Iterable, List, Tuple
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
+
+from ..act_sharding import current_label
 
 # The reference's collective kinds (``collective_bytes``), in its order.
 KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute")
@@ -88,14 +97,18 @@ class StepTrace(TorchDispatchMode):
     """Counts a step's collectives, live storage bytes and FLOPs on the
     plain tensors it sees (module docstring).  ``reset_peak()`` starts the
     peak at the bytes alive now (``torch.cuda.reset_peak_memory_stats``);
-    ``track(tree)`` adds tensors made before the mode was entered."""
+    ``track(tree)`` adds tensors made before the mode was entered;
+    ``keep_peak`` keeps the live set at the peak (``peak_live``)."""
 
-    def __init__(self):
+    def __init__(self, keep_peak: bool = False):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
 
         self._flop_registry = flop_registry
         self._live: Dict[int, int] = {}
+        self._origin: Dict[int, str] = {}
+        self._keep_peak = keep_peak
+        self._peak_set: Dict[int, Tuple[str, int]] = {}
         self.live_bytes = 0
         self.peak = 0
         self.flops = 0
@@ -105,8 +118,22 @@ class StepTrace(TorchDispatchMode):
     # -- storages --------------------------------------------------------------
     def _freed(self, key: int) -> None:
         self.live_bytes -= self._live.pop(key, 0)
+        self._origin.pop(key, None)
 
-    def track(self, tree) -> None:
+    def _new_peak(self) -> None:
+        self.peak = self.live_bytes
+        if self._keep_peak:
+            self._peak_set = {k: (self._origin.get(k, "before"), n) for k, n in self._live.items()}
+
+    def peak_live(self) -> Dict[str, int]:
+        """Bytes alive at the peak by origin, largest first (``keep_peak``);
+        storages tracked before the mode saw an operation are "before"."""
+        out: Dict[str, int] = {}
+        for origin, n in self._peak_set.values():
+            out[origin] = out.get(origin, 0) + n
+        return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+    def track(self, tree, origin: str = "before") -> None:
         for t in _tensors(tree):
             if hasattr(t, "_local_tensor"):  # a DTensor: its shard on this rank
                 t = t._local_tensor
@@ -120,12 +147,23 @@ class StepTrace(TorchDispatchMode):
             if key in self._live:
                 continue
             self._live[key] = storage.nbytes()
+            if self._keep_peak:
+                self._origin[key] = f"{origin} -> {tuple(t.shape)} {str(t.dtype)[6:]}"
             self.live_bytes += storage.nbytes()
-            self.peak = max(self.peak, self.live_bytes)
+            if self.live_bytes > self.peak:
+                self._new_peak()
             weakref.finalize(storage, self._freed, key)
 
+    def _hand_over(self, t: torch.Tensor) -> None:
+        """The bytes of t's storage move to the next storage tracked (the
+        waited result, the same memory on a real group)."""
+        key = t.untyped_storage()._cdata
+        self.live_bytes -= self._live.get(key, 0)
+        if key in self._live:
+            self._live[key] = 0
+
     def reset_peak(self) -> None:
-        self.peak = self.live_bytes
+        self._new_peak()
 
     # -- dispatch --------------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -138,6 +176,8 @@ class StepTrace(TorchDispatchMode):
         if _propagating():
             return out
         packet = func._overloadpacket
+        if packet.__name__ == "wait_tensor":
+            self._hand_over(args[0])
         if func.namespace in _NAMESPACES and packet.__name__ in _KIND_OF:
             self.ops.append((_KIND_OF[packet.__name__],
                              sum(t.numel() * t.element_size() for t in _tensors(out))))
@@ -147,9 +187,11 @@ class StepTrace(TorchDispatchMode):
         if fn is not None:
             n = int(fn(*args, **kwargs, out_val=out))
             key = packet.__name__ + "x".join(str(tuple(t.shape)) for t in _tensors(args))
+            label = current_label()
+            key = f"{label}/{key}" if label else key
             self.flops += n
             self.flops_by_op[key] = self.flops_by_op.get(key, 0) + n
-        self.track(out)
+        self.track(out, packet.__name__)
         return out
 
     def collectives(self) -> Dict:

@@ -32,8 +32,9 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..act_sharding import (active_mesh, active_spec, is_dtensor, local_call, mesh_shape,
-                            split_ranks, unflatten, view_heads)
+from ..act_sharding import (active_mesh, active_spec, flatten_heads, is_dtensor, local_call,
+                            mesh_shape, row_parallel, sequence_parallel, split_ranks, unflatten,
+                            view_heads)
 from .layers import ParamFactory, apply_rope, rotate
 
 NEG_INF = -1e30
@@ -431,7 +432,7 @@ def attention_train(p: dict, x: torch.Tensor, positions: Optional[torch.Tensor],
             out = _schedule(banded_attend, q, k, v, window=window)
         else:
             out = _schedule(flash_attend, q, k, v, causal=causal, window=window)
-    return out.reshape(b, s, -1) @ p["wo"].reshape(-1, d), k, v
+    return row_parallel(flatten_heads(out), p["wo"].reshape(-1, d)), k, v
 
 
 def _schedule(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw) -> torch.Tensor:
@@ -443,12 +444,20 @@ def _schedule(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw) -
     None), its output the same).  Where the KV heads are fewer than the
     "model" ranks but the query heads split over them (TinyLlama's 4 and 32
     on 16), each KV head is repeated until they split too (``_repeat_kv``),
-    so that each rank attends its own query heads, as GSPMD splits them."""
+    so that each rank attends its own query heads, as GSPMD splits them.
+    Where the heads do not split, unmasked attention in a train step
+    (Whisper's encoder and cross attention: 12 heads on 16 ranks) takes
+    each rank's block of the residual stream's query rows against every
+    key, as GSPMD splits it, instead of every query on every rank."""
     spec = active_spec(k, ("batch", "attn_seq", "kv_heads", None))
     if spec is not None and spec[2] is None and is_dtensor(k):
         k, v = _repeat_kv(q, k), _repeat_kv(q, v)
         spec = active_spec(k, ("batch", "attn_seq", "kv_heads", None))
     heads = "heads" if spec is not None and spec[2] is not None else None
+    if (spec is not None and heads is None and is_dtensor(q) and kw.get("causal") is False
+            and not kw.get("window") and sequence_parallel()):
+        return local_call(functools.partial(attend, **kw), (q, ("batch", "seq", None, None)),
+                          (k, ("batch", None, None, None)), (v, ("batch", None, None, None)))
     return local_call(functools.partial(attend, **kw),
                       (q, ("batch", "attn_seq", heads, None)),
                       (k, ("batch", "attn_seq", heads and "kv_heads", None)),
@@ -524,7 +533,11 @@ def _attend_one(p: dict, q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.
     on each rank's batch rows and KV heads (``local_call``): DTensor cannot
     fold a split KV-head dimension into the products' batch (torch 2.11);
     a cache split over its slots (sequence-parallel decode) takes DTensor's
-    products, which reduce the softmax across the slots."""
+    products, which reduce the softmax across the slots.  The output
+    product is summed whole under a mesh (``row_parallel``), as GSPMD sums
+    it before the residual add: a partial residual would reach the MLP's
+    column-split weights as a partial input, which DTensor meets by
+    gathering those weights whole."""
     b, _, heads, hd = q.shape
     if is_dtensor(cache_k) and split_ranks(cache_k, 1) == 1:
         kvh = "kv_heads" if split_ranks(cache_k, 2) > 1 else None
@@ -534,7 +547,7 @@ def _attend_one(p: dict, q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.
                          (cache_v, ("batch", None, kvh, None)))
     else:
         out = _attend_heads(q, cache_k, cache_v, valid)
-    return out.reshape(b, 1, heads * hd) @ p["wo"].reshape(heads * hd, -1)
+    return row_parallel(out.reshape(b, 1, heads * hd), p["wo"].reshape(heads * hd, -1))
 
 
 def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,

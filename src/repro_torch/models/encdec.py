@@ -28,7 +28,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ..act_sharding import fsdp_gather, local_sum, shard_act
+from ..act_sharding import RESIDUAL, fsdp_gather, local_sum, shard_act
 from . import config as C
 from .attention import (attention_decode, attention_train, cross_attention_decode,
                         init_attention, project_kv, valid_slots)
@@ -36,6 +36,7 @@ from .layers import (ParamFactory, dtype_const, init_mlp, map_dict, mlp_apply, r
                      rms_norm_in, rope_angles, sequence_whole, sinusoidal_positions,
                      token_losses)
 from .transformer import check_remat, default_positions, lookup, remat_call, unstack
+from .vocab import plan_ce, vocab_ce_sum
 
 
 def _enc_layer_init(pf: ParamFactory, cfg: C.ModelConfig) -> Dict:
@@ -93,11 +94,12 @@ def _layer_remat(remat: str) -> str:
 
 def _enc_layer(lp: Dict, cfg: C.ModelConfig, x: torch.Tensor) -> torch.Tensor:
     lp = map_dict(fsdp_gather, lp)
-    x = shard_act(x, ("batch", "seq", "embed_act"))
+    x = shard_act(x, RESIDUAL)
     h = rms_norm_in(x, lp["ln1"], cfg.norm_eps)
-    x = x + sequence_whole(attention_train(lp["attn"], h, None, causal=False, use_rope=False)[0])
+    x = x + shard_act(attention_train(lp["attn"], h, None, causal=False, use_rope=False)[0],
+                      RESIDUAL)
     h = rms_norm_in(x, lp["ln2"], cfg.norm_eps)
-    return x + sequence_whole(_mlp(lp["mlp"], h, cfg))
+    return x + shard_act(_mlp(lp["mlp"], h, cfg), RESIDUAL)
 
 
 def encode(params: Dict, embeds: torch.Tensor, cfg: C.ModelConfig,
@@ -124,15 +126,15 @@ def _embed(params: Dict, tokens: torch.Tensor, cfg: C.ModelConfig) -> torch.Tens
 def _dec_layer(lp: Dict, positions: torch.Tensor, cfg: C.ModelConfig, x: torch.Tensor,
                enc: torch.Tensor) -> torch.Tensor:
     lp = map_dict(fsdp_gather, lp)
-    x = shard_act(x, ("batch", "seq", "embed_act"))
+    x = shard_act(x, RESIDUAL)
     h = rms_norm_in(x, lp["ln1"], cfg.norm_eps)
-    x = x + sequence_whole(attention_train(lp["self_attn"], h, positions, causal=True,
-                                           rope_theta=cfg.rope_theta)[0])
+    x = x + shard_act(attention_train(lp["self_attn"], h, positions, causal=True,
+                                      rope_theta=cfg.rope_theta)[0], RESIDUAL)
     h = rms_norm_in(x, lp["ln_x"], cfg.norm_eps)
-    x = x + sequence_whole(attention_train(lp["cross_attn"], h, positions,
-                                           kv_override=project_kv(lp["cross_attn"], enc))[0])
+    x = x + shard_act(attention_train(lp["cross_attn"], h, positions,
+                                      kv_override=project_kv(lp["cross_attn"], enc))[0], RESIDUAL)
     h = rms_norm_in(x, lp["ln2"], cfg.norm_eps)
-    return x + sequence_whole(_mlp(lp["mlp"], h, cfg))
+    return x + shard_act(_mlp(lp["mlp"], h, cfg), RESIDUAL)
 
 
 def _decoder_hidden(params: Dict, enc: torch.Tensor, tokens: torch.Tensor,
@@ -165,13 +167,22 @@ def train_loss(params: Dict, batch: Dict[str, torch.Tensor], cfg: C.ModelConfig,
     """Mean next-token loss of a batch {"encoder_embeds": (B, S_enc, d),
     "decoder_tokens", "targets": (B, S) int, "mask": (B, S) float}:
     ``(loss, {"ce_loss", "moe_aux"})`` (aux 0): ``softmax_cross_entropy`` of
-    the decoder's logits, the loss head under a mesh on each rank's batch
-    rows with the table whole (``local_sum``, as ``transformer``'s)."""
+    the decoder's logits, the loss head under a mesh on each rank's rows
+    and sequence block with the table whole (``local_sum``; Whisper's
+    51,865 do not split 16 ways), or where the vocabulary's split has more
+    than one rank, vocabulary-parallel in one chunk whose logits backward
+    keeps (``vocab.vocab_ce_sum``; the reference takes this loss unchunked
+    and without remat)."""
     enc = encode(params, batch["encoder_embeds"], cfg, remat)
     x = _decoder_hidden(params, enc, batch["decoder_tokens"], cfg, remat)
-    mask = batch["mask"]
-    total = local_sum(_loss_sum, (params["embed"], (None, None)), (x, ("batch", None, None)),
-                      (batch["targets"], ("batch", None)), (mask, ("batch", None)))
+    mask, targets = batch["mask"], batch["targets"]
+    table = fsdp_gather(params["embed"])
+    plan = plan_ce(table, x, targets, mask, True, x.shape[1])
+    if plan is not None:
+        total = vocab_ce_sum(table, x, targets, mask, plan, True, keep_logits=True)
+    else:
+        total = local_sum(_loss_sum, (table, (None, None)), (x, ("batch", "seq", None)),
+                          (targets, ("batch", "seq")), (mask, ("batch", "seq")))
     loss = total / mask.sum().clamp(min=1.0)
     return loss, {"ce_loss": loss, "moe_aux": torch.zeros((), device=loss.device)}
 

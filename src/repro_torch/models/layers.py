@@ -23,7 +23,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..act_sharding import shard_act
+from ..act_sharding import block_input, row_parallel, shard_act
 
 
 class ParamFactory:
@@ -138,19 +138,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def sequence_whole(x: torch.Tensor) -> torch.Tensor:
-    """Under a mesh, the residual stream's activation with its sequence
-    whole (the "attn_seq" rule; the stream's "seq" may be split): the
-    products inside a mixer or an MLP fold (B, S) into rows, forward and
-    backward, which DTensor cannot do over a split sequence (torch 2.11).
-    Taken at a block's input and output, so gradients reach the products
-    whole too."""
+    """Under a mesh, an activation with its sequence whole (the "attn_seq"
+    rule; the residual stream's "seq" may be split)."""
     return shard_act(x, ("batch", "attn_seq", "embed_act"))
 
 
-def rms_norm_in(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """``rms_norm`` of the residual stream into a mixer or an MLP
-    (``sequence_whole``)."""
-    return sequence_whole(rms_norm(x, scale, eps))
+def rms_norm_in(x: torch.Tensor, scale: torch.Tensor, eps: float):
+    """``rms_norm`` of the residual stream into a mixer or an MLP: under a
+    mesh an ``act_sharding.BlockInput``, whose products gather the
+    sequence where their weight is split on its axis (the gather's backward
+    pass reduce-scatters the gradient onto the split) and run on each
+    rank's sequence block where it is whole; the block's output comes back
+    onto the split through its ``row_parallel`` product."""
+    return block_input(rms_norm(x, scale, eps))
 
 
 def dtype_const(c: float, like: torch.Tensor) -> float:
@@ -189,7 +189,7 @@ def mlp_apply(x: torch.Tensor, w_in: torch.Tensor, w_gate: Optional[torch.Tensor
         h = silu(x @ w_gate) * h
     else:
         h = gelu(h)
-    return h @ w_out
+    return row_parallel(h, w_out)
 
 
 def init_mlp(pf: ParamFactory, d: int, ff: int, act: str) -> dict:

@@ -19,7 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..act_sharding import local_call, shard_act
+from ..act_sharding import local_call, row_parallel, shard_act
 from .layers import ParamFactory, dtype_const, gelu, sigmoid, softplus
 
 _C = 8.0  # Griffin's decay temperature
@@ -109,7 +109,7 @@ def rglru_train(p: dict, x: torch.Tensor) -> Tuple[torch.Tensor, RGLRUState]:
     a, i = _decay(p, u)
     h = local_call(_scan, (a.float(), _SEQ_RNN), (_gated(a, i, u).float(), _SEQ_RNN))
     branch = gelu(x @ p["w_gate_branch"])
-    return (h.to(x.dtype) * branch) @ p["w_out"], RGLRUState(h[:, -1], conv_state)
+    return row_parallel(h.to(x.dtype) * branch, p["w_out"]), RGLRUState(h[:, -1], conv_state)
 
 
 def rglru_decode(p: dict, x: torch.Tensor,
@@ -119,5 +119,5 @@ def rglru_decode(p: dict, x: torch.Tensor,
     a, i = _decay(p, u)
     h = a[:, 0].float() * state.h + _gated(a, i, u)[:, 0].float()
     branch = gelu(x @ p["w_gate_branch"])
-    out = (h[:, None].to(x.dtype) * branch) @ p["w_out"]
+    out = row_parallel(h[:, None].to(x.dtype) * branch, p["w_out"])
     return out, RGLRUState(h, conv_state)

@@ -24,7 +24,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from ..act_sharding import flatten_heads, local_call, view_heads
+from ..act_sharding import flatten_heads, local_call, row_parallel, view_heads
 from .layers import ParamFactory, sigmoid, silu
 
 CHUNK = 32
@@ -107,7 +107,7 @@ def _head_norm(p: dict, o: torch.Tensor) -> torch.Tensor:
 def _output(p: dict, o: torch.Tensor, g: torch.Tensor, dtype) -> torch.Tensor:
     """o (B, S, H, V) float32 -> (B, S, d): head norm, SiLU gate, w_o."""
     o = _head_norm(p, o) * silu(g.float()).to(o.dtype)
-    return flatten_heads(o.to(dtype)) @ p["w_o"]
+    return row_parallel(flatten_heads(o.to(dtype)), p["w_o"])
 
 
 def _wkv_chunked(r, k, v, logw, u) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -50,14 +50,16 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..act_sharding import (current_rules, fsdp_gather, local_call, local_sum, remat_unit,
-                            shard_act)
+from ..act_sharding import (RESIDUAL, current_rules, fsdp_gather, is_dtensor, keeping_result,
+                            local_call, local_sum, remat_unit, rows_split_only, shard_act,
+                            whole_of)
 from . import config as C
 from .attention import (KVCache, attention_decode, attention_train, init_attention,
                         init_kv_cache, valid_slots)
 from .layers import (ParamFactory, dtype_const, init_mlp, map_dict, mlp_apply, rms_norm,
-                     rms_norm_in, rope_angles, sequence_whole, token_losses)
+                     rms_norm_in, rope_angles, token_losses)
 from .moe import init_moe, moe_apply
+from .vocab import plan_ce, plan_lookup, vocab_ce_sum, vocab_lookup
 from .rglru import RGLRUState, init_rglru, init_rglru_state, rglru_decode, rglru_train
 from .rwkv6 import (RWKVState, init_rwkv_cm, init_rwkv_state, init_rwkv_tm, rwkv_cm_decode,
                     rwkv_cm_train, rwkv_tm_decode, rwkv_tm_train)
@@ -187,15 +189,31 @@ def layers_of(params: Dict, cfg: C.ModelConfig) -> List[Tuple[str, str, Dict]]:
 
 
 def default_positions(inputs: torch.Tensor) -> torch.Tensor:
-    """0 to S - 1 for each row of inputs (B, S, ...)."""
+    """0 to S - 1 for each row of inputs (B, S, ...); on a DTensor split
+    along its rows only, placed as its rows are (each rank makes its own),
+    so that the rotary angles are made for each rank's rows."""
     b, s = inputs.shape[:2]
+    if is_dtensor(inputs) and rows_split_only(inputs):
+        from torch.distributed.tensor import DTensor
+
+        local = inputs._local_tensor
+        pos = torch.arange(s, dtype=torch.int32, device=local.device).expand(local.shape[0], s)
+        return DTensor.from_local(pos, inputs.device_mesh, inputs.placements, run_check=False)
     return torch.arange(s, dtype=torch.int32, device=inputs.device).expand(b, s)
 
 
 def lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Rows of ``table`` at int ``tokens`` (B, S).  Under a mesh on each
-    rank's batch rows, the table whole: DTensor's rule for the lookup's
-    backward (``index_put``) fails on split tokens (torch 2.11)."""
+    """Rows of ``table`` at int ``tokens`` (B, S).  Under a mesh whose
+    vocabulary split has more than one rank, each rank looks up the tokens
+    of its shard (``vocab.vocab_lookup``) and the sum lands placed as the
+    residual stream (reduce-scattered onto its sequence split, or
+    all-reduced); else on each rank's batch rows with the table whole
+    (DTensor's rule for the lookup's backward, ``index_put``, fails on
+    split tokens, torch 2.11)."""
+    table = fsdp_gather(table)
+    axis = plan_lookup(table, tokens)
+    if axis is not None:
+        return shard_act(vocab_lookup(table, tokens, axis), RESIDUAL)
     return local_call(lambda t, tab: tab[t.long()], (tokens, ("batch", None)), (table, (None, None)))
 
 
@@ -223,7 +241,7 @@ def _mixer_train(p: Dict, h: torch.Tensor, positions: torch.Tensor, cfg: C.Model
     if mixer == C.RGLRU:
         return rglru_train(p, h)
     if mixer == C.RWKV:
-        return rwkv_tm_train(p, h, cfg.num_heads, cfg.head_dim)
+        return rwkv_tm_train(p, whole_of(h), cfg.num_heads, cfg.head_dim)
     raise ValueError(mixer)
 
 
@@ -232,9 +250,10 @@ def _mlp_train(p: Dict, h: torch.Tensor, cfg: C.ModelConfig, mlp: str,
     if mlp == C.MLP:
         return mlp_apply(h, p["w_in"], p.get("w_gate"), p["w_out"], cfg.act), None
     if mlp == C.MOE:
-        return moe_apply(p, h, top_k=cfg.top_k, capacity_factor=capacity_factor, act=cfg.act)
+        return moe_apply(p, whole_of(h), top_k=cfg.top_k, capacity_factor=capacity_factor,
+                         act=cfg.act)
     if mlp == C.RWKV_CM:
-        return rwkv_cm_train(p, h), None
+        return rwkv_cm_train(p, whole_of(h)), None
     raise ValueError(mlp)
 
 
@@ -244,6 +263,9 @@ def check_remat(remat: str) -> None:
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
+    if keeping_result():  # a row-parallel product keeps its scattered result
+        return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.alias.default
+                else CheckpointPolicy.PREFER_RECOMPUTE)
     return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
@@ -258,9 +280,13 @@ def remat_call(fn: Callable, remat: str, *args):
         return fn(*args)
     check_remat(remat)
     rules = current_rules()
+    runs = []
 
     def unit(*a):
-        with remat_unit(rules):
+        # a "dots" unit's later runs are the backward pass's reruns
+        replay = remat == "dots" and bool(runs)
+        runs.append(None)
+        with remat_unit(rules, replay):
             return fn(*a)
 
     if remat == "full":
@@ -277,17 +303,17 @@ def _run_layers(layers: List[Tuple[str, str, Dict]], positions: torch.Tensor,
     ``aux``; each layer with a cache stores its state in it."""
     for (mixer, mlp, p), lc in zip(layers, caches):
         p = map_dict(fsdp_gather, p)
-        x = shard_act(x, ("batch", "seq", "embed_act"))
+        x = shard_act(x, RESIDUAL)
         h = rms_norm_in(x, p["ln1"], cfg.norm_eps)
         out, state = _mixer_train(p["mixer"], h, positions, cfg, mixer)
-        x = x + sequence_whole(out)
+        x = x + shard_act(out, RESIDUAL)
         h2 = rms_norm_in(x, p["ln2"], cfg.norm_eps)
         y, a = _mlp_train(p["mlp"], h2, cfg, mlp, cfg.capacity_factor)
-        x = x + sequence_whole(y)
+        x = x + shard_act(y, RESIDUAL)
         if a is not None:
             aux = aux + a
         if lc is not None:
-            _store(lc, state, h2)
+            _store(lc, state, whole_of(h2))
     return x, aux
 
 
@@ -365,12 +391,17 @@ def _chunk_loss(table: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,
     return (token_losses(_unembed(table, x, tied), targets) * mask).sum()
 
 
+def loss_chunk(s: int) -> int:
+    """The loss head's chunk for a sequence of ``s``: ``LOSS_CHUNK``, or
+    ``s`` where that does not divide it."""
+    c = min(LOSS_CHUNK, s)
+    return s if s % c else c
+
+
 def _ce_sum(table: torch.Tensor, x: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
             tied: bool) -> torch.Tensor:
     s = x.shape[1]
-    c = min(LOSS_CHUNK, s)
-    if s % c:
-        c = s
+    c = loss_chunk(s)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, s, c):
         total = total + checkpoint(_chunk_loss, table, x[:, i:i + c], targets[:, i:i + c],
@@ -387,17 +418,24 @@ def chunked_ce_loss(params: Dict, x: torch.Tensor, targets: torch.Tensor, mask: 
     A length that 512 does not divide is evaluated in one chunk.  The sum
     over the chunks is divided by ``max(sum(mask), 1)``.
 
-    Under a mesh the loss head runs on each rank's batch rows, the output
-    table whole (``local_sum``): DTensor's rules for the label gather fail
-    on a split vocabulary (torch 2.13) and its lookup's backward on split
-    rows (torch 2.11), and the chunks' recompute is plain PyTorch there.
-    The reference's ``vocab_act`` constraint on each chunk's logits has no
-    counterpart: those logits exist only inside that local region."""
+    Under a mesh whose "vocab_act" split has more than one rank, each rank
+    takes the chunk's logits of its ``V / m`` columns only
+    (``vocab.vocab_ce_sum``: the row max, the sum of exponentials and the
+    target's logit combined across ranks, each chunk's logits made again
+    in backward).  Else the loss head runs on each rank's rows and
+    sequence block (the reference's chunks take the "seq" split where the
+    vocabulary cannot), the output table whole (``local_sum``): DTensor's
+    rules for the label gather fail on a split vocabulary (torch 2.13) and
+    its lookup's backward on split rows (torch 2.11)."""
     tied = cfg.tie_embeddings
-    table = params["embed"] if tied else params["unembed"]
-    total = local_sum(functools.partial(_ce_sum, tied=tied), (table, (None, None)),
-                      (x, ("batch", None, None)), (targets, ("batch", None)),
-                      (mask, ("batch", None)))
+    table = fsdp_gather(params["embed"] if tied else params["unembed"])
+    plan = plan_ce(table, x, targets, mask, tied, loss_chunk(x.shape[1]))
+    if plan is not None:
+        total = vocab_ce_sum(table, x, targets, mask, plan, tied)
+    else:
+        total = local_sum(functools.partial(_ce_sum, tied=tied), (table, (None, None)),
+                          (x, ("batch", "seq", None)), (targets, ("batch", "seq")),
+                          (mask, ("batch", "seq")))
     return total / mask.sum().clamp(min=1.0)
 
 

@@ -35,7 +35,15 @@ reference, run here in this process:
 * one attention layer (forward and gradients, float32, within 1e-5 of
   each tensor's largest) with 4 KV heads on "model" = 4 (the (1, 4) mesh)
   and with KV heads that do not divide "model": 2 on 4 (repeated until they
-  split) and 3 on 2 (taken whole).
+  split) and 3 on 2 (taken whole);
+* the vocabulary-parallel lookup and loss head (``models/vocab.py``),
+  tied and untied, with the residual stream's sequence split over "model"
+  and whole (``{"seq": None}``): the loss within 1e-4 and the gradients
+  of the table and of x within 1e-5 of each one's largest, against one
+  process; the sharded step with ``{"seq": None}`` against the
+  one-process step at the sharded step's tolerances; and the residual
+  stream entering each block placed ``Shard`` on the sequence over
+  "model" by the default rules, whole with ``{"seq": None}``.
 """
 
 import datetime
@@ -186,7 +194,7 @@ def _smoke_f32(arch):
     return get_config(arch, smoke=True).replace(param_dtype="float32", compute_dtype="float32")
 
 
-def _run_steps(model, opt, params, batches, mesh=None, microbatches=1):
+def _run_steps(model, opt, params, batches, mesh=None, microbatches=1, rules=None):
     """Two steps from ``params`` (cloned): on one process, or sharded on
     ``mesh`` (parameters by ``param_pspecs`` with FSDP, batches by
     ``batch_pspecs``).  Returns (losses, the weights after, as full
@@ -207,7 +215,7 @@ def _run_steps(model, opt, params, batches, mesh=None, microbatches=1):
         sds, axes = model.abstract_params()
         p = trainable(distribute_tree(params, param_pspecs(sds, axes, mesh, mode="train",
                                                            fsdp=True), mesh))
-        step = make_sharded_train_step(model, opt, mesh, microbatches)
+        step = make_sharded_train_step(model, opt, mesh, microbatches, rules)
         bspecs = batch_pspecs(model.cfg, "train", BATCH, mesh)
         place = lambda b: distribute_tree(b, bspecs, mesh)
     state = opt.init(p)
@@ -350,6 +358,9 @@ def placements_of(spec, mesh):
 # (heads, KV heads, mesh): 4 KV heads on "model" = 4; KV heads that do not
 # divide "model" (2 on 4: repeated; 3 on 2: taken whole)
 ATTN_CASES = ((8, 4, "mesh14"), (8, 2, "mesh14"), (6, 3, "mesh22"))
+# unmasked attention (an encoder's) whose 3 heads do not divide "model" = 2:
+# each rank attends its block of query rows against every key
+ATTN_UNMASKED_CASES = ((3, 3, "mesh22"),)
 
 
 def _attention_cases(rank, meshes, out):
@@ -359,8 +370,10 @@ def _attention_cases(rank, meshes, out):
     from repro_torch.sharding import distribute_tree, param_pspecs
 
     d, hd, b, s = 32, 8, 4, 64
-    for heads, kvh, mesh_name in ATTN_CASES:
+    for heads, kvh, mesh_name, causal in ([c + (True,) for c in ATTN_CASES]
+                                          + [c + (False,) for c in ATTN_UNMASKED_CASES]):
         mesh = meshes[mesh_name]
+        kw = {} if causal else dict(causal=False, use_rope=False)
         p = attention.init_attention(ParamFactory(torch.Generator().manual_seed(4),
                                                   torch.float32), d, heads, kvh, hd)
         axes = attention.init_attention(AxesFactory(), d, heads, kvh, hd)
@@ -375,18 +388,132 @@ def _attention_cases(rank, meshes, out):
             wanted = [xx] + [weights[k] for k in sorted(weights)]
             if sharded:  # backward too under the rules, as the sharded step runs it
                 with activation_rules(mesh):
-                    y = attention.attention_train(map_dict(fsdp_gather, weights), xx, pos)[0]
+                    y = attention.attention_train(map_dict(fsdp_gather, weights), xx, pos,
+                                                  **kw)[0]
                     loss = (y * distribute_tree(w, ("data",), mesh)).sum().full_tensor()
                     gs = torch.autograd.grad(loss, wanted)
             else:
-                y = attention.attention_train(weights, xx, pos)[0]
+                y = attention.attention_train(weights, xx, pos, **kw)[0]
                 gs = torch.autograd.grad((y * w).sum(), wanted)
             full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
             return [full(y).detach()] + [full(t) for t in gs]
 
         specs = param_pspecs(p, axes, mesh, mode="train", fsdp=True)
         got = grads(distribute_tree(p, specs, mesh), distribute_tree(x, ("data",), mesh), True)
-        out[f"attn_{heads}_{kvh}_{mesh_name}"] = dict(want=grads(p, x, False), got=got)
+        tag = "" if causal else "_unmasked"
+        out[f"attn_{heads}_{kvh}_{mesh_name}{tag}"] = dict(want=grads(p, x, False), got=got)
+
+
+VOCAB_CASES = [(tied, seq) for tied in (True, False) for seq in ("split", "whole")]
+
+
+def _vocab_cases(rank, mesh22, out):
+    """The lookup and the loss head of a (V, d) table (tied) or a (d, V)
+    ``unembed``, on one process and on (2, 2) with x's sequence split over
+    "model" or whole, placed as ``param_pspecs`` and the residual stream
+    place them."""
+    from types import SimpleNamespace
+
+    from repro_torch.act_sharding import activation_rules, fsdp_gather
+    from repro_torch.models import transformer, vocab
+    from repro_torch.sharding import distribute_tree
+
+    v, d, b, s = 64, 16, 4, 32
+    g = torch.Generator().manual_seed(9)
+    embed = torch.randn(v, d, generator=g)
+    unembed = torch.randn(d, v, generator=g)
+    tokens = torch.randint(0, v, (b, s), generator=g)
+    targets = torch.randint(0, v, (b, s), generator=g)
+    mask = (torch.rand(b, s, generator=g) < 0.7).float()
+    x = torch.randn(b, s, d, generator=g)
+    w = torch.randn(b, s, d, generator=g)
+    for tied, seq in VOCAB_CASES:
+        cfg = SimpleNamespace(tie_embeddings=tied)
+        rules = {"seq": None} if seq == "whole" else None
+
+        def run(emb, tab, xx, tok, tg, mk, sharded):
+            emb, xx = emb.detach().requires_grad_(True), xx.detach().requires_grad_(True)
+            tab = emb if tied else tab.detach().requires_grad_(True)
+            params = {"embed": emb} if tied else {"embed": emb, "unembed": tab}
+            looked = transformer.lookup(emb, tok)
+            loss = transformer.chunked_ce_loss(params, xx, tg, mk, cfg)
+            if sharded:
+                ww = distribute_tree(w, ("data", "model" if seq == "split" else None), mesh22)
+                looked, loss = (looked * ww).sum().full_tensor(), loss.full_tensor()
+            else:
+                looked = (looked * w).sum()
+            (ge,) = torch.autograd.grad(looked, [emb])
+            gx, gt = torch.autograd.grad(loss, [xx, tab])
+            full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+            return [loss.detach(), full(gx), full(gt), full(ge)]
+
+        want = run(embed, unembed, x, tokens, targets, mask, False)
+        with activation_rules(mesh22, rules):
+            demb = distribute_tree(embed, ("model", "data"), mesh22)
+            dun = distribute_tree(unembed, ("data", "model"), mesh22)
+            dx = distribute_tree(x, ("data", "model" if seq == "split" else None, None), mesh22)
+            dtok, dtg, dmk = (distribute_tree(t, ("data", None), mesh22)
+                              for t in (tokens, targets, mask))
+            plan = vocab.plan_ce(fsdp_gather(demb if tied else dun), dx, dtg, dmk, tied, s)
+            lookup_axis = vocab.plan_lookup(fsdp_gather(demb), dtok)
+            got = run(demb, dun, dx, dtok, dtg, dmk, True)
+        out[f"vocab_{tied}_{seq}"] = dict(want=want, got=got, plan=plan, lookup_axis=lookup_axis)
+    # a vocabulary that "model" does not divide: the loss head on each rank's
+    # rows and sequence block, the table whole
+    odd = torch.randn(d, v - 1, generator=g)
+    tg = targets % (v - 1)
+    cfg = SimpleNamespace(tie_embeddings=False)
+
+    def odd_loss(tab, xx, tgt, mk, sharded):
+        tab, xx = tab.detach().requires_grad_(True), xx.detach().requires_grad_(True)
+        loss = transformer.chunked_ce_loss({"unembed": tab}, xx, tgt, mk, cfg)
+        loss = loss.full_tensor() if sharded else loss
+        full = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+        return [loss.detach()] + [full(t) for t in torch.autograd.grad(loss, [xx, tab])]
+
+    want = odd_loss(odd, x, tg, mask, False)
+    with activation_rules(mesh22):
+        dodd = distribute_tree(odd, ("data", "model"), mesh22)
+        dx = distribute_tree(x, ("data", "model", None), mesh22)
+        dtg, dmk = (distribute_tree(t, ("data", None), mesh22) for t in (tg, mask))
+        plan = vocab.plan_ce(fsdp_gather(dodd), dx, dtg, dmk, False, s)
+        got = odd_loss(dodd, dx, dtg, dmk, True)
+    out["vocab_odd"] = dict(want=want, got=got, plan=plan)
+
+
+def _residual_cases(rank, mesh22, out):
+    """The placements of the residual stream entering each block's norm in
+    the sharded TinyLlama smoke step, under the default rules and with
+    ``{"seq": None}``; and the sharded step under ``{"seq": None}``
+    against the one-process step."""
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import AdamW
+
+    cfg = _smoke_f32("tinyllama-1.1b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    batches = _batches(cfg, 1)
+    opt = AdamW(learning_rate=1e-3, warmup_steps=1, schedule="constant")
+    norm_in = transformer.rms_norm_in
+    for name, rules in (("default", None), ("seq_off", {"seq": None})):
+        seen = []
+
+        def spy(x, scale, eps):
+            seen.append(str(x.placements))
+            return norm_in(x, scale, eps)
+
+        transformer.rms_norm_in = spy
+        try:
+            dlosses, sharded = _run_steps(model, opt, params, batches[:1], mesh22, rules=rules)
+        finally:
+            transformer.rms_norm_in = norm_in
+        out[f"residual_{name}"] = sorted(set(seen))
+        if rules:
+            losses, plain = _run_steps(model, opt, params, batches)
+            dlosses, sharded = _run_steps(model, opt, params, batches, mesh22, rules=rules)
+            out["steps_seqoff_1"] = dict(losses=losses, dlosses=dlosses, plain=plain,
+                                         sharded=sharded)
 
 
 def _worker(rank, store_path, out_dir, inputs):
@@ -410,6 +537,8 @@ def _worker(rank, store_path, out_dir, inputs):
         _remat_cases(rank, mesh22, out)
         _serve_cases(rank, mesh22, out)
         _attention_cases(rank, {"mesh22": mesh22, "mesh14": mesh14}, out)
+        _vocab_cases(rank, mesh22, out)
+        _residual_cases(rank, mesh22, out)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -665,12 +794,13 @@ def test_ranks_agree(ranks):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", ["dots_1", "full_1", "none_2", "mask_2", "moe_2"],
+@pytest.mark.parametrize("case", ["dots_1", "full_1", "none_2", "mask_2", "moe_2", "seqoff_1"],
                          ids=["remat-dots", "remat-full", "microbatches-2",
-                              "microbatches-2-uneven-mask", "microbatches-2-moe"])
+                              "microbatches-2-uneven-mask", "microbatches-2-moe", "seq-off"])
 def test_sharded_step_policies_match_one_process(ranks, case):
     """The sharded step under remat "dots" and "full" (the local regions
-    recomputed in backward) and the sharded gradient-accumulation step
+    recomputed in backward), under ``{"seq": None}`` (the residual stream
+    whole on "model") and the sharded gradient-accumulation step
     (microbatch i the global rows i B / n to (i + 1) B / n, also with mask
     sums that differ between microbatches), each against the one-process
     step with the same policy; Mixtral's accumulation against the same
@@ -721,3 +851,62 @@ def test_attention_heads_on_model_axis(ranks, heads, kvh, mesh):
         for a, b in zip(got["got"], got["want"]):
             assert a.shape == b.shape
             assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The vocabulary-parallel lookup and loss head; the residual stream.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tied,seq", VOCAB_CASES,
+                         ids=[f"{'tied' if t else 'untied'}-seq-{q}" for t, q in VOCAB_CASES])
+def test_vocab_parallel_lookup_and_loss_head(ranks, tied, seq):
+    """The loss head with the table's vocabulary split over "model" (x's
+    sequence split there too, or whole) and the lookup of the split
+    ``embed`` against one process: the loss within 1e-4, the gradients of
+    x and of the table (from the loss) and of ``embed`` (from the lookup)
+    within 1e-5 of each one's largest."""
+    for out in ranks["out"]:
+        got = out[f"vocab_{tied}_{seq}"]
+        assert got["plan"] == ("model", 32 // 2 if seq == "split" else 32, seq == "split")
+        assert got["lookup_axis"] == "model"
+        (loss, *grads), (want_loss, *want) = got["got"], got["want"]
+        assert abs(float(loss) - float(want_loss)) < 1e-4
+        for a, b in zip(grads, want):
+            assert a.shape == b.shape
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_loss_head_of_a_vocabulary_model_does_not_divide(ranks):
+    """63 columns on "model" = 2: the table stays whole and each rank takes
+    the loss of its rows and sequence block; the loss within 1e-4, the
+    gradients of x and the table within 1e-5 of each one's largest."""
+    for out in ranks["out"]:
+        got = out["vocab_odd"]
+        assert got["plan"] is None
+        (loss, *grads), (want_loss, *want) = got["got"], got["want"]
+        assert abs(float(loss) - float(want_loss)) < 1e-4
+        for a, b in zip(grads, want):
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("heads,kvh,mesh", ATTN_UNMASKED_CASES, ids=["3kv-unmasked-on-model2"])
+def test_unmasked_attention_split_on_query_rows(ranks, heads, kvh, mesh):
+    """Unmasked attention whose heads do not divide "model" (each rank's
+    query rows against every key): its output and the gradients of x and
+    the four weights within 1e-5 of each one's largest, against one
+    process."""
+    for out in ranks["out"]:
+        got = out[f"attn_{heads}_{kvh}_{mesh}_unmasked"]
+        for a, b in zip(got["got"], got["want"]):
+            assert a.shape == b.shape
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_residual_stream_split_on_sequence(ranks):
+    """The residual stream entering each block's norm: its sequence split
+    over "model" (``Shard(dim=1)``) and its rows over "data" by the default
+    rules; whole on "model" with ``{"seq": None}``."""
+    for out in ranks["out"]:
+        assert out["residual_default"] == ["(Shard(dim=0), Shard(dim=1))"]
+        assert out["residual_seq_off"] == ["(Shard(dim=0), Replicate())"]

@@ -8,7 +8,8 @@ Run: PYTHONPATH=src python -m pytest -q tests/test_torch_dryrun_trace.py
   list.
 * On a fake 4 x 4 mesh, ``StepTrace`` counts known redistributions exactly
   (an all-gather, an all-reduce, a reduce-scatter), a storage shared by
-  views once, and a sharded product's FLOPs per device.
+  views once (and names it at the peak: ``keep_peak``), and a sharded
+  product's FLOPs per device.
 * At smoke widths, the straight-line extrapolation from one and two periods
   of ``block_pattern`` (and the remainder) equals a trace at the full
   depth: collective counts and bytes and FLOPs exactly, the peak within
@@ -24,12 +25,23 @@ Run: PYTHONPATH=src python -m pytest -q tests/test_torch_dryrun_trace.py
   matrix-product FLOPs of the reference's compiled SPMD module
   (``_hlo_dot_flops``: 2 x result elements x contracted size over its
   ``dot`` instructions, what ``FlopCounterMode`` counts; XLA's
-  ``cost_analysis`` adds every elementwise operation), but for one cell
-  pinned in ``FLOPS_APART``; every collective kind the reference's module
-  issues, the trace issues.  The train cells are not compared: the smoke
-  batch of 4 rows does not split over 16 "data" ranks, and there the
-  reference's partitioner splits the sequence where the port's rules
-  replicate the rows.
+  ``cost_analysis`` adds every elementwise operation); every collective
+  kind the reference's module issues, the trace issues.
+* The train cells, at a smoke batch that splits over the batch axes (32
+  rows: ``TRAIN_SMOKE``), against the reference's compiled module with its
+  loss head chunked under ``jax.checkpoint`` as it runs (its unrolled cost
+  mode takes the head whole and without recompute): the loss head's FLOPs
+  a device (the port's ``loss_head/`` products, the reference's dots with
+  an operand as wide as the vocabulary) are equal; the totals part where
+  ``FLOPS_APART`` pins them; every collective kind of the reference's but
+  all-to-all and collective-permute (which a CPU mesh cannot issue) is in
+  the trace.
+* Full size, the two steps measured here: the port's traced peak of
+  TinyLlama's and Phi-3-medium's ``train_4k`` on 16 x 16 at most
+  ``PEAK_OVER_REFERENCE`` times the reference's compiled peak
+  (``memory_analysis``); TinyLlama's loss head traces
+  ``TINYLLAMA_LOSS_HEAD_FLOPS`` a device (the vocabulary split over 16
+  "model" ranks) and its step at most ``TINYLLAMA_MAX_FLOPS``.
 * ``act_rules`` reaches the traced step as it reaches ``analytic_terms``.
 
 A process has one default process group, so every part that makes the fake
@@ -100,29 +112,35 @@ class _Child:
 REF_ARCHS = ("tinyllama-1.1b", "mixtral-8x7b")
 REF_SHAPES = ("prefill_32k", "decode_32k")
 
-_REF_CELLS = r"""
+_HLO = r"""
 import json, math, re
 import repro.launch.dryrun as R  # first: it fakes 512 host devices
-from repro.configs import SMOKE_SHAPES, get_config
+from repro.configs import SMOKE_SHAPES, ShapeSpec, get_config
 from repro.models import scan_mode
-R.SHAPES = SMOKE_SHAPES
-R.get_config = lambda arch: get_config(arch, smoke=True)
 texts = []
 _collective_bytes = R.collective_bytes
 R.collective_bytes = lambda text: (texts.append(text), _collective_bytes(text))[1]
 DEF = re.compile(r"^\s*(?:ROOT\s+)?%?([\w.\-]+) = \w+\[([0-9,]*)\]")
 DOT = re.compile(r"^\s*(?:ROOT\s+)?%?([\w.\-]+) = \w+\[([0-9,]*)\]\S* "
-                 r"dot\(%?([\w.\-]+), %?[\w.\-]+\).*?lhs_contracting_dims=\{([0-9,]*)\}")
+                 r"dot\(%?([\w.\-]+), %?([\w.\-]+)\).*?lhs_contracting_dims=\{([0-9,]*)\}")
 dims = lambda s: [int(d) for d in s.split(",") if d]
 
-def hlo_dot_flops(text):
+def hlo_dots(text):  # (operand and result dimensions, FLOPs) of each dot
     shapes = {m.group(1): dims(m.group(2)) for m in map(DEF.match, text.splitlines()) if m}
-    total = 0
+    out = []
     for m in filter(None, map(DOT.match, text.splitlines())):
-        lhs = shapes[m.group(3)]
-        total += 2 * math.prod(dims(m.group(2))) * math.prod(lhs[c] for c in dims(m.group(4)))
-    return total
+        lhs, rhs, res = shapes[m.group(3)], shapes[m.group(4)], dims(m.group(2))
+        flops = 2 * math.prod(res) * math.prod(lhs[c] for c in dims(m.group(5)))
+        out.append((lhs + rhs + res, flops))
+    return out
 
+def hlo_dot_flops(text):
+    return sum(f for _, f in hlo_dots(text))
+"""
+
+_REF_CELLS = _HLO + r"""
+R.SHAPES = SMOKE_SHAPES
+R.get_config = lambda arch: get_config(arch, smoke=True)
 out = []
 for multi_pod in (False, True):
     for arch in ARCHS:
@@ -142,6 +160,62 @@ cells = dryrun.run_all((False, True), ARCHS, SHAPES, verbose=False, smoke=True)
 print(json.dumps(cells))
 """
 
+# The train cells held against the reference's compiled module: the smoke
+# configs at a batch of 32 rows, which split over 16 "data" or 2 x 16
+# ("pod", "data") ranks (the smoke shape's 4 rows do not).
+TRAIN_SMOKE = ("train_4k", "train", 128, 32)
+# The full-size train cells whose peaks are held to the reference's.
+PEAK_ARCHS = ("tinyllama-1.1b", "phi3-medium-14b")
+
+_REF_TRAIN = _HLO + r"""
+import repro.configs as RC
+import repro.models.transformer as T
+
+def chunked_ce_loss(*args, _ce=T.chunked_ce_loss):
+    # the loss head as the reference's step runs it, in checkpointed chunks:
+    # its unrolled cost mode takes it whole, without the recompute
+    unroll = T.scan_unroll
+    T.scan_unroll = lambda: False
+    try:
+        return _ce(*args)
+    finally:
+        T.scan_unroll = unroll
+
+T.chunked_ce_loss = chunked_ce_loss
+R.SHAPES = dict(SMOKE_SHAPES, train_4k=ShapeSpec(*TRAIN_SMOKE))
+R.get_config = lambda arch: get_config(arch, smoke=True)
+smoke = []
+for multi_pod in (False, True):
+    for arch in ARCHS:
+        with scan_mode.unrolled():
+            rec = R.run_cell(arch, "train_4k", multi_pod=multi_pod, verbose=False)
+        vocab = get_config(arch, smoke=True).vocab_size
+        dots = hlo_dots(texts[-1])
+        smoke.append(dict(arch=arch, shape="train_4k", mesh=rec["mesh"],
+                          dot_flops=sum(f for _, f in dots), cost_flops=rec["hlo_body_flops"],
+                          vocab_flops=sum(f for d, f in dots if vocab in d),
+                          loops=texts[-1].count(" while("), counts=rec["collectives"]["counts"]))
+R.SHAPES, R.get_config = RC.SHAPES, RC.get_config
+peaks = {arch: R.run_cell(arch, "train_4k", verbose=False)["bytes_per_device"]["peak"]
+         for arch in PEAK_ARCHS}
+print(json.dumps(dict(smoke=smoke, peaks=peaks)))
+"""
+
+_PORT_TRAIN = r"""
+import json
+from repro_torch.configs import SMOKE_SHAPES, ShapeSpec
+from repro_torch.launch import dryrun
+dryrun.SMOKE_SHAPES = dict(SMOKE_SHAPES, train_4k=ShapeSpec(*TRAIN_SMOKE))
+smoke = dryrun.run_all((False, True), ARCHS, ["train_4k"], verbose=False, smoke=True)
+full = {}
+for arch in PEAK_ARCHS:
+    rec = dryrun.run_cell(arch, "train_4k", verbose=False)
+    full[arch] = dict(peak=rec["bytes_per_device"]["peak"], flops=rec["traced_flops_per_device"],
+                      by_op=rec["traced_flops_by_op"])
+dryrun.close_fake_mesh()
+print(json.dumps(dict(smoke=smoke, full=full)))
+"""
+
 _ACT_RULES = r"""
 import json
 from repro_torch.launch import dryrun
@@ -159,15 +233,20 @@ print(json.dumps(out))
 def children(tmp_path_factory):
     """The file's slower subprocesses, started together: the CLI on
     TinyLlama's smoke cells on both meshes, the port's and the reference's
-    prefill and decode cells of REF_ARCHS, and the ``act_rules`` pair."""
+    prefill and decode cells of REF_ARCHS, their train cells and full-size
+    peaks, and the ``act_rules`` pair."""
     cli_out = tmp_path_factory.mktemp("cli") / "dry.json"
     consts = f"ARCHS = {list(REF_ARCHS)!r}\nSHAPES = {list(REF_SHAPES)!r}\n"
+    train = f"ARCHS = {list(REF_ARCHS)!r}\nTRAIN_SMOKE = {TRAIN_SMOKE!r}\n" \
+            f"PEAK_ARCHS = {list(PEAK_ARCHS)!r}\n"
     kids = {
         "cli": _Child([sys.executable, "-m", "repro_torch.launch.dryrun", "--smoke", "--arch",
                        "tinyllama-1.1b", "--mesh", "both", "--out", str(cli_out)], 240),
         "ref": _Child([sys.executable, "-c", consts + _REF_CELLS], 240),
         "port": _Child([sys.executable, "-c", consts + _PORT_CELLS], 240),
         "act_rules": _Child([sys.executable, "-c", _ACT_RULES], 240),
+        "ref_train": _Child([sys.executable, "-c", train + _REF_TRAIN], 240),
+        "port_train": _Child([sys.executable, "-c", train + _PORT_TRAIN], 240),
     }
     kids["cli_out"] = cli_out
     yield kids
@@ -224,7 +303,7 @@ with FakeTensorMode(allow_non_fake_inputs=True):
     with StepTrace() as tr:
         y = a @ w                                           # (4, 8) @ (8, 16) on each rank
         out["flops"] = tr.flops
-    with StepTrace() as tr:
+    with StepTrace(keep_peak=True) as tr:
         base = torch.empty(1024)
         views = [base[:10], base.view(32, 32), base[512:]]
         out["live_views"] = tr.live_bytes
@@ -233,6 +312,7 @@ with FakeTensorMode(allow_non_fake_inputs=True):
         del views
         out["live_after_views"] = tr.live_bytes
         out["peak"] = tr.peak
+        out["peak_live"] = tr.peak_live()
 print(json.dumps(out))
 """
 
@@ -250,6 +330,7 @@ def test_known_redistributions_views_and_products(children):
     assert got["flops"] == 2 * 4 * 8 * 16
     assert got["live_views"] == got["live_after_base"] == got["peak"] == 4096
     assert got["live_after_views"] == 0
+    assert got["peak_live"] == {"empty -> (1024,) float32": 4096}
 
 
 # ---------------------------------------------------------------------------
@@ -351,11 +432,25 @@ def test_cli_records_a_failing_cell_and_exits_1(tmp_path):
 # ---------------------------------------------------------------------------
 
 # (arch, shape, mesh): (the port's FLOPs a device, the reference's matrix-
-# product FLOPs a device) where they part.  TinyLlama's decode on 2 x 16 x 16:
-# with its 2 rows split over "pod", DTensor gathers the smoke MLP's weights
-# over "data" and multiplies them whole where GSPMD keeps them split
-# (ROADMAP section 3).
-FLOPS_APART = {("tinyllama-1.1b", "decode_32k", "2x16x16"): (124_928, 63_488)}
+# product FLOPs a device) where they part.  The smoke train cells
+# (TRAIN_SMOKE): at these widths
+# GSPMD splits every product and the attention by sequence over "model"
+# (8 or 16 query rows a rank, the weights gathered), where the port's
+# rules split the heads and the MLP's width over "model" and, as TinyLlama's
+# 4 heads (Mixtral's 4) do not divide 16, compute each rank's attention
+# whole, with its recompute; the loss heads' FLOPs are equal.
+FLOPS_APART = {("tinyllama-1.1b", "train_4k", "16x16"): (103_546_880, 15_466_496),
+               ("tinyllama-1.1b", "train_4k", "2x16x16"): (51_773_440, 7_733_248),
+               ("mixtral-8x7b", "train_4k", "16x16"): (73_400_320, 31_457_280),
+               ("mixtral-8x7b", "train_4k", "2x16x16"): (36_700_160, 15_728_640)}
+# The full-size train cells: the port's traced peak at most this many times
+# the reference's compiled peak; TinyLlama's loss head (4 products, the
+# forward, its recompute and two backward, over 16 x 512-token chunks a
+# rank: 4 x 2 x 16 x 4,096 x 2,048 x 32,000 / 16) and its step's FLOPs a
+# device.
+PEAK_OVER_REFERENCE = 1.3
+TINYLLAMA_LOSS_HEAD_FLOPS = 2_147_483_648_000
+TINYLLAMA_MAX_FLOPS = 45.0e12
 
 
 def test_flops_and_collective_kinds_against_reference_compiled_module(children):
@@ -385,3 +480,55 @@ def test_act_rules_reach_the_traced_step(children):
     assert off["collectives"]["counts"]["all-gather"] < base["collectives"]["counts"]["all-gather"]
     assert off["collectives"]["total_bytes"] < base["collectives"]["total_bytes"]
     assert off["wire"] < base["wire"]
+
+
+def _loss_head_flops(by_op: dict) -> int:
+    return sum(n for key, n in by_op.items() if key.startswith("loss_head/"))
+
+
+# a CPU mesh has no all-to-all (DTensor moves shard to shard as an
+# all-gather and a chunk), nor a collective-permute
+_CPU_MESH_LACKS = {"all-to-all", "collective-permute"}
+
+
+def test_train_cells_against_reference_compiled_module(children):
+    """The smoke train cells at a batch that splits: the loss head's FLOPs
+    a device equal the reference's (its dots with an operand as wide as the
+    vocabulary), the totals as ``FLOPS_APART`` pins them, and the
+    reference's collective kinds (but those a CPU mesh lacks) in the
+    trace."""
+    ref = children["ref_train"].json()["smoke"]
+    port = {(c["arch"], c["shape"], c["mesh"]): c for c in children["port_train"].json()["smoke"]}
+    assert len(ref) == len(port) == 2 * len(REF_ARCHS)
+    for r in ref:
+        key = (r["arch"], r["shape"], r["mesh"])
+        c = port[key]
+        assert c["status"] == "ok", c
+        assert r["loops"] == 0 and 0 < r["dot_flops"] <= r["cost_flops"], r
+        assert _loss_head_flops(c["traced_flops_by_op"]) == r["vocab_flops"] > 0, key
+        want = FLOPS_APART.get(key, (r["dot_flops"], r["dot_flops"]))
+        assert (c["traced_flops_per_device"], r["dot_flops"]) == want, key
+        kinds = lambda counts: {k for k, n in counts.items() if n}
+        assert kinds(r["counts"]) - _CPU_MESH_LACKS <= kinds(c["collectives"]["counts"]), key
+
+
+@pytest.mark.parametrize("arch", PEAK_ARCHS)
+def test_train_peak_against_reference_compiled_peak(children, arch):
+    """Full-size ``train_4k`` on 16 x 16 under remat "dots": the port's
+    traced peak per device at most PEAK_OVER_REFERENCE times the
+    reference's compiled peak (its ``memory_analysis``), both measured
+    here."""
+    peak = children["port_train"].json()["full"][arch]["peak"]
+    ref = children["ref_train"].json()["peaks"][arch]
+    assert 0 < peak <= PEAK_OVER_REFERENCE * ref, (arch, peak, ref)
+
+
+def test_tinyllama_loss_head_split_over_the_vocabulary(children):
+    """TinyLlama ``train_4k`` on 16 x 16: each rank multiplies its rows by
+    its 2,000 of the 32,000 columns, so the loss head traces 1 / 16 of the
+    whole head's FLOPs a device, and the step at most
+    TINYLLAMA_MAX_FLOPS."""
+    full = children["port_train"].json()["full"]["tinyllama-1.1b"]
+    assert _loss_head_flops(full["by_op"]) == TINYLLAMA_LOSS_HEAD_FLOPS
+    assert all("32000" not in key for key in full["by_op"])
+    assert full["flops"] <= TINYLLAMA_MAX_FLOPS
