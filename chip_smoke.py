@@ -2929,6 +2929,9 @@ LONG_FLASH = (2, 4096, 32, 4, 64)        # batch, S, heads, KV heads, head dim
 LONG_BANDED = (1, 8192, 32, 4, 64)
 LONG_WINDOWS = (4096, 2048)
 LONG_TOL, LONG_GRAD_TOL = 3e-5, 1e-4     # tests/test_attention_equivalence.py's
+# flash_attend(q_offset=): LONG_FLASH's causal sequence in this many blocks of
+# query rows, each at its offset against the whole K and V (float32)
+LONG_Q_BLOCKS = 4
 # bf16, per element: one bf16 step (2^-7 of the value) plus the float32 limit
 LONG_BF16_RTOL = 2.0 ** -7
 LONG_TRAIN_SEQ = 4096                    # train_4k
@@ -3009,16 +3012,69 @@ def _schedule_case(dev, fn, plain, shape, dtype, seed: int, float64: bool = Fals
     return row
 
 
+def _q_offset_case(dev, seed: int) -> dict:
+    """``flash_attend(q_offset=)`` in float32 at LONG_FLASH: the causal
+    sequence in LONG_Q_BLOCKS blocks of query rows, each at its offset
+    against the whole K and V (as a rank of a sharded step whose heads do
+    not split attends), against the matching rows of ``attend_plain`` over
+    the whole sequence: the output's and dq's rows, and dK and dV summed
+    over the blocks (of ``sum(out * w)``); the blocks' forward ms beside
+    one whole run's, and under ``over`` what passed its limit."""
+    from repro_torch.models import attention
+
+    b, s, h, kvh, d = LONG_FLASH
+    gen = torch.Generator(dev).manual_seed(seed)
+    q, w = (torch.randn(b, s, h, d, device=dev, generator=gen) for _ in range(2))
+    k, v = (torch.randn(b, s, kvh, d, device=dev, generator=gen) for _ in range(2))
+    _free()
+    ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = attention.attend_plain(*ins, causal=True, window=0)
+    (out * w).sum().backward()
+    want = [out.detach()] + [t.grad for t in ins]
+    del out, ins
+    _free()
+    n = s // LONG_Q_BLOCKS
+    blocks = [(i * n, slice(i * n, (i + 1) * n)) for i in range(LONG_Q_BLOCKS)]
+    kk, vv = k.detach().requires_grad_(True), v.detach().requires_grad_(True)
+    outs, dqs = [], []
+    for off, rows in blocks:
+        qb = q[:, rows].detach().requires_grad_(True)
+        out = attention.flash_attend(qb, kk, vv, causal=True, window=0, q_offset=off)
+        (out * w[:, rows]).sum().backward()
+        outs.append(out.detach())
+        dqs.append(qb.grad)
+    got = [torch.cat(outs, 1), torch.cat(dqs, 1), kk.grad, vv.grad]
+    gaps = [float((a - b_).abs().max()) for a, b_ in zip(got, want)]
+    del got, want, outs, dqs, kk, vv
+    _free()
+    with torch.no_grad():
+        blocks_ms = cuda_ms(lambda: [attention.flash_attend(q[:, rows], k, v, causal=True,
+                                                            window=0, q_offset=off)
+                                     for off, rows in blocks], reps=3, warm=1)
+        whole_ms = cuda_ms(lambda: attention.flash_attend(q, k, v, causal=True, window=0),
+                           reps=3, warm=1)
+    atols = [LONG_TOL] + [LONG_GRAD_TOL] * 3
+    return {"dtype": "float32", "blocks": LONG_Q_BLOCKS, "block_rows": n,
+            "out_gap": gaps[0], "dq_gap": gaps[1], "dk_gap": gaps[2], "dv_gap": gaps[3],
+            "atols": atols, "blocks_ms": blocks_ms, "whole_ms": whole_ms,
+            "over": [f"long: flash_attend(q_offset=) {what} is {gap} from the plain version's "
+                     f"rows (limit {atol})"
+                     for what, gap, atol in zip(("out", "dq", "dk", "dv"), gaps, atols)
+                     if gap > atol]}
+
+
 def _long_schedules(dev, smi: str, seed: int) -> None:
     """(a) ``flash_attend`` (causal and not) at 2 x 4,096 tokens and
     ``banded_attend`` at 8,192 tokens under windows of 4,096 and 2,048,
     TinyLlama's heads (32 query, 4 KV, head dim 64), against the plain
     version in float32 and bf16; flash and the plain version in float32
-    also against the plain version in float64."""
+    also against the plain version in float64; ``flash_attend(q_offset=)``
+    over blocks of query rows against the plain version's rows
+    (``_q_offset_case``)."""
     from repro_torch.models import attention
 
     t0 = time.perf_counter()
-    rows = {}
+    rows = {"flash_q_offset": _q_offset_case(dev, seed)}
     for i, dtype in enumerate((torch.float32, torch.bfloat16)):
         for causal in (True, False):
             fn = functools.partial(attention.flash_attend, causal=causal, window=0)
@@ -3685,7 +3741,8 @@ def _dry_cli(proc, out: str, smi: str) -> None:
     of the loss head and of operations with an operand as wide as the
     vocabulary), and which cells the traced peak puts over the card's
     memory.  A train cell's loss head must trace its vocabulary split over
-    "model" (``_split_loss_head_flops``)."""
+    "model" (``_split_loss_head_flops``), and its moves between split
+    dimensions must trace as all-to-alls."""
     from repro_torch.configs import SHAPES, get_config
 
     text, _ = proc.communicate()
@@ -3705,6 +3762,11 @@ def _dry_cli(proc, out: str, smi: str) -> None:
             got = _vocab_wide_flops(c["traced_flops_by_op"], get_config(c["arch"]).vocab_size)
             check(got == want, f"sharding: {c['mesh']} {c['arch']} {c['shape']}: the loss head "
                                f"traces {got} FLOPs a device, split over the vocabulary {want}")
+            # K and V move from the sequence split to the heads split: on the
+            # fake group an all-to-all (``launch.mesh``), not an all-gather
+            check(c["collectives"]["counts"]["all-to-all"] > 0,
+                  f"sharding: {c['mesh']} {c['arch']} {c['shape']}: no all-to-all traced "
+                  f"({c['collectives']['counts']})")
     emit("sharding", part="dry_run_cli", card=smi, args=list(SHARD_DRY_ARGS),
          cells=[{"arch": c["arch"], "shape": c["shape"], "mesh": c["mesh"], "status": c["status"],
                  **({"collective_bytes": c["collectives"]["total_bytes"],

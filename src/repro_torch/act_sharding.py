@@ -253,6 +253,23 @@ def active_spec(x, names: Sequence[Optional[str]]) -> Optional[Spec]:
     return None if ctx is None else act_spec(x.shape, names, ctx[0], ctx[1])
 
 
+def block_start(x, names: Sequence[Optional[str]], dim: int) -> int:
+    """The first index along dimension ``dim`` of this rank's block of x
+    under ``shard_act(x, names)`` (0 outside ``activation_rules``): its
+    coordinate over the mesh axes that split the dimension, major first,
+    times the block's length."""
+    ctx = getattr(_state, "ctx", None)
+    if ctx is None or isinstance(ctx[0], dict):
+        return 0
+    mesh, rules = ctx
+    axes = entry_axes(act_spec(x.shape, names, mesh, rules)[dim])
+    index = 0
+    for i, axis in enumerate(mesh_shape(mesh)):
+        if axis in axes:
+            index = index * mesh.size(i) + mesh.get_local_rank(axis)
+    return index * (x.shape[dim] // axes_size(mesh, axes))
+
+
 def _grad_placements(dts: Sequence) -> List[list]:
     """Each DTensor's gradient placements for one local computation over
     all of them: partial (summed over the ranks) on the mesh dimensions
@@ -582,6 +599,117 @@ class _SeqLocal(torch.autograd.Function):
         dw = hl.reshape(b * s, -1).T @ g2
         return (DTensor.from_local(dh, ctx.mesh, ctx.h_plc, run_check=False),
                 DTensor.from_local(dw, ctx.mesh, ctx.w_plc, run_check=False), None, None)
+
+
+def seq_split_axis(x) -> Optional[str]:
+    """In a train step under a mesh (``_training``), the one mesh axis, of
+    more than one rank, that splits DTensor x (B, S, d) along its sequence
+    as it splits the residual stream; None elsewhere (x whole there, or a
+    plain tensor)."""
+    from torch.distributed.tensor import Shard
+
+    ctx = getattr(_state, "ctx", None)
+    if not _training(ctx) or not is_dtensor(x) or x.ndim != 3:
+        return None
+    axis = _seq_axis(ctx[0], ctx[1], tuple(x.shape))
+    if axis is None or x.placements[list(mesh_shape(ctx[0])).index(axis)] != Shard(1):
+        return None
+    return axis
+
+
+def seq_matmul(x, w, axis: str):
+    """x (B, S, K), split along its sequence over mesh axis ``axis``, @ w
+    (K, N): w gathered whole over ``axis`` where it is split there, then
+    each rank multiplies its own sequence block (``_SeqLocal``), the output
+    split as x.  GSPMD's choice where the weight moves fewer bytes than
+    the sequence would (RWKV6's products: 8 to 29 MB against 268 MB at
+    train_4k); the gathered weight's gradient comes back reduce-scattered."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = x.device_mesh
+    plc = [Replicate() if n == axis else p for n, p in zip(mesh_shape(mesh), w.placements)]
+    if plc != list(w.placements):
+        w = w.redistribute(mesh, plc)
+    return _SeqLocal.apply(x, w, axis, list(x.placements))
+
+
+@torch.library.custom_op("repro_torch::shift_ranks", mutates_args=())
+def shift_ranks(x: torch.Tensor, step: int, group_name: str) -> torch.Tensor:
+    """Rank r's x sent to rank r + step of the process group named
+    ``group_name``, one send and one receive a rank (the reference's
+    collective-permute; gloo and NCCL carry them); a rank that nothing is
+    sent to gets zeros.  A custom operation, so that a tracer sees it whole
+    (``launch.step_trace`` counts it as a collective-permute)."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    group = _resolve_process_group(group_name)
+    rank, m = dist.get_rank(group), dist.get_world_size(group)
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    ops = []
+    if 0 <= rank + step < m:
+        ops.append(dist.P2POp(dist.isend, x, dist.get_global_rank(group, rank + step), group))
+    if 0 <= rank - step < m:
+        ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(group, rank - step), group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return out
+
+
+@shift_ranks.register_fake
+def _(x, step, group_name):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+class _ShiftTokens(torch.autograd.Function):
+    """x (B, S, d), split along its sequence over mesh axis ``axis``,
+    shifted one token later: the first token of each rank's block is the
+    previous rank's last (one collective-permute of (B, d)), rank 0's is
+    zeros.  Backward sends each block's first-row gradient back to the
+    previous rank, where it adds to its last token's (the last rank gets
+    zeros)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        from torch.distributed.tensor import DTensor
+
+        mesh, xl = x.device_mesh, x._local_tensor
+        ctx.name, ctx.mesh, ctx.plc = axis_group(mesh, axis)[0], mesh, x.placements
+        prev = shift_ranks(xl[:, -1], 1, ctx.name)
+        return DTensor.from_local(torch.cat([prev[:, None], xl[:, :-1]], dim=1), mesh,
+                                  x.placements, run_check=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+
+        gl = g.redistribute(ctx.mesh, ctx.plc).to_local()
+        nxt = shift_ranks(gl[:, 0], -1, ctx.name)
+        dx = torch.cat([gl[:, 1:], nxt[:, None]], dim=1)
+        return DTensor.from_local(dx, ctx.mesh, ctx.plc, run_check=False), None
+
+
+def shift_tokens(x, axis: str):
+    """x (B, S, d) split along its sequence over ``axis``, one token later
+    with zeros first, each rank on its own block (``_ShiftTokens``)."""
+    return _ShiftTokens.apply(x, axis)
+
+
+def last_token(x, axis: str):
+    """The last token (B, d) of x (B, S, d) split along its sequence over
+    ``axis``: the last rank's, on every rank (an all-reduce of it and the
+    other ranks' zeros), outside autograd."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = x.device_mesh
+    group = axis_group(mesh, axis)
+    last = x._local_tensor[:, -1].detach()
+    if mesh.get_local_rank(axis) != group[1] - 1:
+        last = torch.zeros_like(last)
+    plc = [Replicate() if n == axis else p for n, p in zip(mesh_shape(mesh), x.placements)]
+    return DTensor.from_local(reduce_all(last, group), mesh, plc, run_check=False)
 
 
 def _seq_axis(mesh, rules, dims) -> Optional[str]:

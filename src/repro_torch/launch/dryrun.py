@@ -58,6 +58,7 @@ from ..models.model import build_model
 from ..pytree import tree_map
 from ..sharding import batch_pspecs, param_pspecs, cache_pspecs
 from .analytic import analytic_terms
+from .mesh import close_fake_mesh as destroy_fake_mesh
 from .mesh import make_fake_mesh, make_production_mesh
 
 # long_500k runs only for bounded-state decoders (DESIGN.md §4).
@@ -175,11 +176,9 @@ def fake_mesh(shape: Dict[str, int]):
 
 
 def close_fake_mesh() -> None:
-    import torch.distributed as dist
-
     if _FAKE["mesh"] is not None:
         _FAKE["mesh"] = None
-        dist.destroy_process_group()
+        destroy_fake_mesh()
 
 
 def depth_cut(cfg: C.ModelConfig, layers: int) -> C.ModelConfig:

@@ -8,7 +8,8 @@ the partition rules and the dry run read: no process group is made.
 starts that group for one process without opening a port.
 ``make_fake_mesh`` builds a production-sized ``DeviceMesh`` inside one
 process over ``torch.distributed``'s "fake" backend, whose collectives move
-nothing: the dry run traces each rank's step on it (``launch/dryrun.py``).
+nothing: the dry run traces each rank's step on it (``launch/dryrun.py``),
+and ``close_fake_mesh`` ends it.
 """
 
 from __future__ import annotations
@@ -83,4 +84,66 @@ def make_fake_mesh(shape: Dict[str, int]):
     for size in shape.values():
         chips *= size
     dist.init_process_group("fake", store=dist.HashStore(), rank=0, world_size=chips)
+    _install_fake_alltoall()
     return init_device_mesh("cpu", tuple(shape.values()), mesh_dim_names=tuple(shape))
+
+
+def close_fake_mesh() -> None:
+    """Destroy the fake group of ``make_fake_mesh`` and put DTensor's own
+    shard-to-shard move back."""
+    import torch.distributed as dist
+
+    _uninstall_fake_alltoall()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+# DTensor moves a tensor from one split dimension to another (``Shard(a)`` to
+# ``Shard(b)`` on one mesh dimension) with ``shard_dim_alltoall``, which on a
+# mesh of device type "cpu" takes a fallback for gloo, which has no
+# all-to-all: it all-gathers the whole tensor and keeps this rank's chunk.
+# The fake mesh is a "cpu" mesh, so a trace on it would count that move as
+# an all-gather of the whole result (group-size times the bytes) and hold a
+# whole-size transient that no card allocates, where NCCL on a card group
+# makes it one all-to-all.  While a fake mesh is up, this module's
+# replacement sends a move on a "fake" group to DTensor's all-to-all
+# operation itself (``torch.ops._dtensor.shard_dim_alltoall``, whose fake
+# implementation gives the rank's result shape); a move on any other group
+# (gloo, NCCL) takes DTensor's own function.
+_MODULES = ("torch.distributed.tensor._collective_utils",
+            "torch.distributed.tensor.placement_types")
+_ORIGINAL: Dict[str, object] = {}
+
+
+def _fake_alltoall(original):
+    def shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        import torch.distributed as dist
+
+        group = mesh.get_group(mesh_dim)
+        if dist.get_backend(group) != "fake":
+            return original(input, gather_dim, shard_dim, mesh, mesh_dim)
+        return torch.ops._dtensor.shard_dim_alltoall(input, gather_dim, shard_dim,
+                                                     group.group_name)
+
+    return shard_dim_alltoall
+
+
+def _install_fake_alltoall() -> None:
+    import importlib
+
+    for name in _MODULES:
+        module = importlib.import_module(name)
+        fn = getattr(module, "shard_dim_alltoall", None)
+        if fn is not None and name not in _ORIGINAL:
+            _ORIGINAL[name] = fn
+            module.shard_dim_alltoall = _fake_alltoall(fn)
+    if not _ORIGINAL:
+        raise RuntimeError("make_fake_mesh: DTensor has no shard_dim_alltoall to route")
+
+
+def _uninstall_fake_alltoall() -> None:
+    import importlib
+
+    for name, fn in list(_ORIGINAL.items()):
+        importlib.import_module(name).shard_dim_alltoall = fn
+        del _ORIGINAL[name]

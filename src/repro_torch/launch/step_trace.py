@@ -10,9 +10,12 @@ operation on DTensors back to DTensor's dispatch (``NotImplemented``), which
 then runs the local operations and collectives beneath it.  So every number
 it keeps is per device:
 
-* ``collectives``: each ``c10d_functional`` collective the step makes, by
-  the reference's five kinds, its bytes under the reference's wire model
-  (all-reduce 2 x the result's bytes, the others the result's bytes);
+* ``collectives``: each ``c10d_functional`` collective the step makes,
+  DTensor's all-to-all (``launch.mesh`` routes a move between split
+  dimensions on the fake group to it) and the port's collective-permute
+  (``act_sharding.shift_ranks``), by the reference's five kinds, its bytes
+  under the reference's wire model (all-reduce 2 x the result's bytes,
+  the others the result's bytes);
 * ``peak``: the most bytes of distinct storages alive at once (a storage
   shared by views counts once; it is freed when its last tensor goes; a
   collective's ``wait_tensor`` returns its input's storage, as it does on
@@ -42,8 +45,10 @@ from ..act_sharding import current_label
 # The reference's collective kinds (``collective_bytes``), in its order.
 KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute")
 
-# Functional collectives by name (``torch.ops._c10d_functional``, and
-# DTensor's own all-to-all), each to its kind; ``wait_tensor`` moves nothing.
+# Functional collectives by name (``torch.ops._c10d_functional``, DTensor's
+# own all-to-all, and the port's shift of a block to the next rank,
+# ``act_sharding.shift_ranks``), each to its kind; ``wait_tensor`` moves
+# nothing.
 _KIND_OF = {
     "all_reduce": "all-reduce",
     "all_reduce_": "all-reduce",
@@ -56,8 +61,9 @@ _KIND_OF = {
     "reduce_scatter_tensor_coalesced": "reduce-scatter",
     "all_to_all_single": "all-to-all",
     "shard_dim_alltoall": "all-to-all",
+    "shift_ranks": "collective-permute",
 }
-_NAMESPACES = ("_c10d_functional", "c10d_functional", "_dtensor")
+_NAMESPACES = ("_c10d_functional", "c10d_functional", "_dtensor", "repro_torch")
 
 
 def wire_bytes(kind: str, result_bytes: int) -> int:

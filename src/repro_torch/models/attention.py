@@ -32,9 +32,9 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..act_sharding import (active_mesh, active_spec, flatten_heads, is_dtensor, local_call,
-                            mesh_shape, row_parallel, sequence_parallel, split_ranks, unflatten,
-                            view_heads)
+from ..act_sharding import (active_mesh, active_spec, block_start, flatten_heads, is_dtensor,
+                            local_call, mesh_shape, row_parallel, sequence_parallel, split_ranks,
+                            unflatten, view_heads)
 from .layers import ParamFactory, apply_rope, rotate
 
 NEG_INF = -1e30
@@ -156,15 +156,16 @@ def _check_flash(sk: int) -> int:
     return ck
 
 
-def _flash_chunks(sq: int, sk: int, ck: int, causal: bool):
-    """(first row, first key) of each key chunk.  Causal, the rows before a
+def _flash_chunks(sq: int, sk: int, ck: int, causal: bool, q_offset: int = 0):
+    """(first row, first key) of each key chunk that queries at positions
+    ``q_offset`` to ``q_offset + sq - 1`` attend.  Causal, the rows before a
     chunk's first key see none of it and attended a key in an earlier chunk
     (their own position's, which is inside any window), so the reference's
     update of them there is exactly the identity (``m`` unchanged,
     ``exp(NEG_INF - m) = 0``): the chunk starts at the first row that sees
-    one of its keys."""
+    one of its keys, and a chunk wholly after the last query is skipped."""
     for j in range(0, sk, ck):
-        r0 = min(j, sq) if causal else 0
+        r0 = min(max(j - q_offset, 0), sq) if causal else 0
         if r0 < sq:
             yield r0, j
 
@@ -176,74 +177,76 @@ class _Flash(torch.autograd.Function):
     recomputes each chunk's probabilities from it (the reference's
     ``jax.checkpoint`` of the scan body), with ``delta = rowsum(dO * O)``
     taken from the float32 output, as the reference's gradient of its
-    float32 scan takes it, not from the output rounded to q's dtype."""
+    float32 scan takes it, not from the output rounded to q's dtype.  K and
+    V are taken to float32 one chunk at a time, and each chunk's dK and dV
+    (visited once) are rounded to K's dtype in its iteration, so that no
+    float32 copy of the whole K, V or their gradients is alive."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int):
         b, sq, h, d = q.shape
         sk, kvh = k.shape[1], k.shape[2]
         ck = _check_flash(sk)
         qf = _rows(q.float() * d ** -0.5, kvh)
-        kf, vf = _heads(k), _heads(v)
-        qi = torch.arange(sq, device=q.device)
+        qi = torch.arange(q_offset, q_offset + sq, device=q.device)
         m = torch.full(qf.shape[:-1], -float("inf"), dtype=torch.float32, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros_like(qf)
-        for r0, j in _flash_chunks(sq, sk, ck, causal):
+        for r0, j in _flash_chunks(sq, sk, ck, causal, q_offset):
             kj = torch.arange(j, j + ck, device=q.device)
-            logits = _logits(qf[:, :, r0:], kf[:, :, j:j + ck],
+            logits = _logits(qf[:, :, r0:], _heads(k[:, j:j + ck]),
                              _masked(qi[r0:], kj, causal, window))
             m_old = m[:, :, r0:]
             m_new = torch.maximum(m_old, logits.amax(dim=-1))
             p = logits.sub_(m_new[..., None]).exp_()
             corr = torch.exp(m_old - m_new)
             l[:, :, r0:] = l[:, :, r0:] * corr + p.sum(dim=-1)
-            acc[:, :, r0:] = acc[:, :, r0:] * corr[..., None] + _pv(p, vf[:, :, j:j + ck])
+            acc[:, :, r0:] = acc[:, :, r0:] * corr[..., None] + _pv(p, _heads(v[:, j:j + ck]))
             m[:, :, r0:] = m_new
         o = acc.div_(l.clamp(min=1e-30)[..., None])
         ctx.save_for_backward(q, k, v, o, m + torch.log(l))
-        ctx.args = (causal, window)
+        ctx.args = (causal, window, q_offset)
         return _unrows(o, q.dtype)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, window = ctx.args
+        causal, window, q_offset = ctx.args
         b, sq, h, d = q.shape
         sk, kvh = k.shape[1], k.shape[2]
         ck, scale = min(KV_CHUNK, sk), d ** -0.5
         qf = _rows(q.float() * scale, kvh)
-        kf, vf = _heads(k), _heads(v)
         do = _rows(dout, kvh)
         delta = (do * o).sum(dim=-1, keepdim=True)
-        qi = torch.arange(sq, device=q.device)
-        dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
-        for r0, j in _flash_chunks(sq, sk, ck, causal):
-            kc, vc, doc = kf[:, :, j:j + ck], vf[:, :, j:j + ck], do[:, :, r0:]
+        qi = torch.arange(q_offset, q_offset + sq, device=q.device)
+        # a chunk after the last query is skipped: its dK and dV stay zero
+        dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(k), torch.zeros_like(v)
+        for r0, j in _flash_chunks(sq, sk, ck, causal, q_offset):
+            kc, vc, doc = _heads(k[:, j:j + ck]), _heads(v[:, j:j + ck]), do[:, :, r0:]
             kj = torch.arange(j, j + ck, device=q.device)
             p = _logits(qf[:, :, r0:], kc, _masked(qi[r0:], kj, causal, window))
             p = p.sub_(lse[:, :, r0:, :, None]).exp_()
-            dv[:, :, j:j + ck] = _tp(p, doc)
+            dv[:, j:j + ck] = _tp(p, doc).transpose(1, 2)
             ds = _pv(doc, vc.transpose(-1, -2)).sub_(delta[:, :, r0:]).mul_(p)
             dq[:, :, r0:] += _pv(ds, kc)
-            dk[:, :, j:j + ck] = _tp(ds, qf[:, :, r0:])
-        return (_unrows(dq * scale, q.dtype), dk.transpose(1, 2).to(k.dtype),
-                dv.transpose(1, 2).to(v.dtype), None, None)
+            dk[:, j:j + ck] = _tp(ds, qf[:, :, r0:]).transpose(1, 2)
+        return _unrows(dq * scale, q.dtype), dk, dv, None, None, None
 
 
 def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
-                 window: int) -> torch.Tensor:
-    """Attention of q (B, Sq, H, D) at positions 0..Sq-1 over k, v (B, Sk,
-    KVH, D) at 0..Sk-1, the reference's ``_flash_attend``: q scaled in
-    float32, 512-key chunks (all of Sk if shorter) with the running max,
-    sum and accumulator in float32, masked entries at ``NEG_INF`` (a row
-    whose first chunks are all masked is wiped by the ``exp(m - m_new)``
+                 window: int, q_offset: int = 0) -> torch.Tensor:
+    """Attention of q (B, Sq, H, D) at positions ``q_offset`` to ``q_offset
+    + Sq - 1`` (for the causal and window masks) over k, v (B, Sk, KVH, D)
+    at 0..Sk-1, the reference's ``_flash_attend``: q scaled in float32,
+    512-key chunks (all of Sk if shorter) with the running max, sum and
+    accumulator in float32, masked entries at ``NEG_INF`` (a row whose
+    first chunks are all masked is wiped by the ``exp(m - m_new)``
     correction, as there), the output ``acc / max(l, 1e-30)`` in q's dtype.
-    Causal, a chunk skips the rows that see none of its keys
-    (``_flash_chunks``).  Nothing of Sq x Sk is kept for the backward pass.
-    Raises ``ValueError`` where the reference asserts: Sk over 512 and not a
-    multiple of it."""
-    return _Flash.apply(q, k, v, causal, window)
+    Causal, a chunk skips the rows that see none of its keys, and a chunk
+    wholly after the last query is skipped (``_flash_chunks``).  Nothing of
+    Sq x Sk is kept for the backward pass.  Raises ``ValueError`` where the
+    reference asserts: Sk over 512 and not a multiple of it."""
+    return _Flash.apply(q, k, v, causal, window, q_offset)
 
 
 def _band(x: torch.Tensor, i: int, c: int, p: int) -> torch.Tensor:
@@ -445,19 +448,22 @@ def _schedule(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw) -
     "model" ranks but the query heads split over them (TinyLlama's 4 and 32
     on 16), each KV head is repeated until they split too (``_repeat_kv``),
     so that each rank attends its own query heads, as GSPMD splits them.
-    Where the heads do not split, unmasked attention in a train step
-    (Whisper's encoder and cross attention: 12 heads on 16 ranks) takes
-    each rank's block of the residual stream's query rows against every
-    key, as GSPMD splits it, instead of every query on every rank."""
+    Where the heads do not split, flash attention in a train step
+    (Whisper's: 12 heads on 16 ranks) takes each rank's block of the
+    residual stream's query rows, at its offset in the sequence for the
+    causal and window masks (``q_offset``), against every key, as GSPMD
+    splits it, instead of every query on every rank."""
     spec = active_spec(k, ("batch", "attn_seq", "kv_heads", None))
     if spec is not None and spec[2] is None and is_dtensor(k):
         k, v = _repeat_kv(q, k), _repeat_kv(q, v)
         spec = active_spec(k, ("batch", "attn_seq", "kv_heads", None))
     heads = "heads" if spec is not None and spec[2] is not None else None
-    if (spec is not None and heads is None and is_dtensor(q) and kw.get("causal") is False
-            and not kw.get("window") and sequence_parallel()):
-        return local_call(functools.partial(attend, **kw), (q, ("batch", "seq", None, None)),
-                          (k, ("batch", None, None, None)), (v, ("batch", None, None, None)))
+    if (spec is not None and heads is None and is_dtensor(q) and attend is flash_attend
+            and sequence_parallel()):
+        rows = ("batch", "seq", None, None)
+        attend = functools.partial(attend, q_offset=block_start(q, rows, 1), **kw)
+        return local_call(attend, (q, rows), (k, ("batch", None, None, None)),
+                          (v, ("batch", None, None, None)))
     return local_call(functools.partial(attend, **kw),
                       (q, ("batch", "attn_seq", heads, None)),
                       (k, ("batch", "attn_seq", heads and "kv_heads", None)),

@@ -28,7 +28,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ..act_sharding import RESIDUAL, fsdp_gather, local_sum, shard_act
+from ..act_sharding import (RESIDUAL, block_input, fsdp_gather, local_sum, sequence_parallel,
+                            shard_act)
 from . import config as C
 from .attention import (attention_decode, attention_train, cross_attention_decode,
                         init_attention, project_kv, valid_slots)
@@ -105,15 +106,19 @@ def _enc_layer(lp: Dict, cfg: C.ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def encode(params: Dict, embeds: torch.Tensor, cfg: C.ModelConfig,
            remat: str = "none") -> torch.Tensor:
     """Frame embeddings (B, S_enc, d) -> encoder states (B, S_enc, d) in the
-    compute dtype."""
+    compute dtype: in a train step under a mesh split along the sequence as
+    the residual stream is, else with their sequence whole."""
     policy = _layer_remat(remat)
     b, s, d = embeds.shape
     x = embeds.to(getattr(torch, cfg.compute_dtype))
     x = x + sinusoidal_positions(s, d, device=x.device).to(x.dtype)[None]
     for lp in _layers(params["enc_scan"], cfg.encoder_layers, cfg):
         x = remat_call(functools.partial(_enc_layer, lp, cfg), policy, x)
-    # the decoder's cross-attention takes the states with their sequence whole
-    return sequence_whole(rms_norm(x, fsdp_gather(params["enc_final_ln"]), cfg.norm_eps))
+    x = rms_norm(x, fsdp_gather(params["enc_final_ln"]), cfg.norm_eps)
+    # a train step under a mesh keeps the states split along the sequence
+    # (each decoder layer projects its cross K/V on each rank's block, then
+    # gathers them); else the cross-attention takes them whole
+    return x if sequence_parallel() else sequence_whole(x)
 
 
 def _embed(params: Dict, tokens: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
@@ -131,8 +136,9 @@ def _dec_layer(lp: Dict, positions: torch.Tensor, cfg: C.ModelConfig, x: torch.T
     x = x + shard_act(attention_train(lp["self_attn"], h, positions, causal=True,
                                       rope_theta=cfg.rope_theta)[0], RESIDUAL)
     h = rms_norm_in(x, lp["ln_x"], cfg.norm_eps)
-    x = x + shard_act(attention_train(lp["cross_attn"], h, positions,
-                                      kv_override=project_kv(lp["cross_attn"], enc))[0], RESIDUAL)
+    kv = project_kv(lp["cross_attn"], block_input(enc))
+    x = x + shard_act(attention_train(lp["cross_attn"], h, positions, kv_override=kv)[0],
+                      RESIDUAL)
     h = rms_norm_in(x, lp["ln2"], cfg.norm_eps)
     return x + shard_act(_mlp(lp["mlp"], h, cfg), RESIDUAL)
 

@@ -19,12 +19,15 @@ parameters and the decay keeps its data-dependent low-rank form.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..act_sharding import flatten_heads, local_call, row_parallel, view_heads
+from ..act_sharding import (BlockInput, flatten_heads, last_token, local_call, row_parallel,
+                            seq_matmul, seq_split_axis, shard_act, shift_tokens, view_heads,
+                            whole_of)
 from .layers import ParamFactory, sigmoid, silu
 
 CHUNK = 32
@@ -82,16 +85,53 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
 
 
+def _sequence(x) -> Tuple[torch.Tensor, Optional[str]]:
+    """(x, the mesh axis splitting its sequence): a block input
+    (``act_sharding.BlockInput``) of a train step whose sequence is split
+    keeps the split, so that the token shift, the mixes and the products
+    run on each rank's block (``seq_split_axis``); anything else is taken
+    with its sequence whole (``whole_of``, axis None)."""
+    if isinstance(x, BlockInput):
+        axis = seq_split_axis(x.x)
+        if axis is not None:
+            return x.x, axis
+    return whole_of(x), None
+
+
+def _shifted(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
+    """x one token later, zeros first: on a split sequence each rank's block
+    takes the previous rank's last token (``act_sharding.shift_tokens``)."""
+    if axis is not None:
+        return shift_tokens(x, axis)
+    return _token_shift(x, torch.zeros((x.shape[0], x.shape[2]), dtype=x.dtype, device=x.device))
+
+
+def _matmul(axis: Optional[str]):
+    """The products' function: on a split sequence, each rank's block
+    against the weight gathered whole (``act_sharding.seq_matmul``)."""
+    return torch.matmul if axis is None else functools.partial(seq_matmul, axis=axis)
+
+
 def _mix(x, xs, mu):
     return x * mu + xs * (1.0 - mu)
 
 
-def _projections(p: dict, x: torch.Tensor, xs: torch.Tensor, heads: int):
-    r = view_heads(_mix(x, xs, p["mu_r"]) @ p["w_r"], heads)
-    k = view_heads(_mix(x, xs, p["mu_k"]) @ p["w_k"], heads)
-    v = view_heads(_mix(x, xs, p["mu_v"]) @ p["w_v"], heads)
-    g = view_heads(_mix(x, xs, p["mu_g"]) @ p["w_g"], heads)
-    dec = view_heads((_mix(x, xs, p["mu_w"]) @ p["decay_lora_a"]) @ p["decay_lora_b"], heads)
+def _projections(p: dict, x: torch.Tensor, xs: torch.Tensor, heads: int,
+                 axis: Optional[str] = None):
+    """r, k, v, g (B, S, H, hd) and the clamped float32 log decays.  On a
+    split sequence the products run on each rank's block and each result
+    moves to the heads split (``_SEQ_HEADS``: an all-to-all)."""
+    mm = _matmul(axis)
+
+    def head(t):
+        t = view_heads(t, heads)
+        return t if axis is None else shard_act(t, _SEQ_HEADS)
+
+    r = head(mm(_mix(x, xs, p["mu_r"]), p["w_r"]))
+    k = head(mm(_mix(x, xs, p["mu_k"]), p["w_k"]))
+    v = head(mm(_mix(x, xs, p["mu_v"]), p["w_v"]))
+    g = head(mm(_mix(x, xs, p["mu_g"]), p["w_g"]))
+    dec = head(mm(mm(_mix(x, xs, p["mu_w"]), p["decay_lora_a"]), p["decay_lora_b"]))
     logw = -torch.exp(p["decay_base"].float() + dec.float())
     return r, k, v, g, torch.clamp(logw, _LOGW_MIN, _LOGW_MAX)   # logw (b, s, h, k)
 
@@ -147,23 +187,26 @@ _SEQ_HEADS = ("batch", "attn_seq", "heads", None)
 _STATE = ("batch", "heads", None, None)
 
 
-def rwkv_tm_train(p: dict, x: torch.Tensor, heads: int,
-                  hd: int) -> Tuple[torch.Tensor, RWKVState]:
+def rwkv_tm_train(p: dict, x, heads: int, hd: int) -> Tuple[torch.Tensor, RWKVState]:
     """(B, S, d) -> (B, S, d), S a multiple of 32 (``ValueError`` else, where
     the reference asserts), and the state after the sequence (prefill's
     cache, with both shifts at the last input token: the reference
     recomputes it in ``_rwkv_tail_state``).  Under a mesh the recurrence
     runs on each rank's rows and heads (``local_call``; the reference's
-    state sites are ("batch", "heads", None, None))."""
+    state sites are ("batch", "heads", None, None)).  In a train step whose
+    block input (``BlockInput``) is split along the sequence, the token
+    shift, the five mixes and their products run on each rank's sequence
+    block (``_sequence``), as GSPMD runs them, and the state's shifts are
+    the last rank's last token."""
+    x, axis = _sequence(x)
     b, s, d = x.shape
     if s % CHUNK:
         raise ValueError(f"seq {s} not a multiple of {CHUNK}")
-    xs = _token_shift(x, torch.zeros((b, d), dtype=x.dtype, device=x.device))
-    r, k, v, g, logw = _projections(p, x, xs, heads)
+    r, k, v, g, logw = _projections(p, x, _shifted(x, axis), heads, axis)
     o, state = local_call(_wkv_chunked, (r, _SEQ_HEADS), (k, _SEQ_HEADS), (v, _SEQ_HEADS),
                           (logw, _SEQ_HEADS), (p["bonus_u"], ("heads", None)),
                           outs=(_SEQ_HEADS, _STATE))
-    last = x[:, -1, :]
+    last = x[:, -1, :] if axis is None else last_token(x, axis)
     return _output(p, o, g, x.dtype), RWKVState(state, last, last)
 
 
@@ -190,14 +233,19 @@ def rwkv_tm_decode(p: dict, x: torch.Tensor, state_s: torch.Tensor, shift: torch
     return _output(p, o, g, x.dtype), s_new, x[:, 0, :]
 
 
-def _channel_mix(p: dict, x: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
-    r = sigmoid(_mix(x, xs, p["mu_r"]) @ p["w_r"])
-    k = torch.relu(_mix(x, xs, p["mu_k"]) @ p["w_k"]).square()
-    return r * (k @ p["w_v"])
+def _channel_mix(p: dict, x: torch.Tensor, xs: torch.Tensor,
+                 axis: Optional[str] = None) -> torch.Tensor:
+    mm = _matmul(axis)
+    r = sigmoid(mm(_mix(x, xs, p["mu_r"]), p["w_r"]))
+    k = torch.relu(mm(_mix(x, xs, p["mu_k"]), p["w_k"])).square()
+    return r * mm(k, p["w_v"])
 
 
-def rwkv_cm_train(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return _channel_mix(p, x, _token_shift(x, torch.zeros_like(x[:, 0])))
+def rwkv_cm_train(p: dict, x) -> torch.Tensor:
+    """(B, S, d) -> (B, S, d); a split block input runs on each rank's
+    sequence block, as ``rwkv_tm_train``."""
+    x, axis = _sequence(x)
+    return _channel_mix(p, x, _shifted(x, axis), axis)
 
 
 def rwkv_cm_decode(p: dict, x: torch.Tensor,

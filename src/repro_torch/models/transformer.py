@@ -241,7 +241,7 @@ def _mixer_train(p: Dict, h: torch.Tensor, positions: torch.Tensor, cfg: C.Model
     if mixer == C.RGLRU:
         return rglru_train(p, h)
     if mixer == C.RWKV:
-        return rwkv_tm_train(p, whole_of(h), cfg.num_heads, cfg.head_dim)
+        return rwkv_tm_train(p, h, cfg.num_heads, cfg.head_dim)
     raise ValueError(mixer)
 
 
@@ -253,7 +253,7 @@ def _mlp_train(p: Dict, h: torch.Tensor, cfg: C.ModelConfig, mlp: str,
         return moe_apply(p, whole_of(h), top_k=cfg.top_k, capacity_factor=capacity_factor,
                          act=cfg.act)
     if mlp == C.RWKV_CM:
-        return rwkv_cm_train(p, whole_of(h)), None
+        return rwkv_cm_train(p, h), None
     raise ValueError(mlp)
 
 

@@ -11,6 +11,10 @@ and ``_banded_attend``, on the CPU.
   case) within 5e-2.
 * Gradients of ``sum(out * w)`` against ``jax.grad`` through the reference
   (whose scans recompute each chunk, ``jax.checkpoint``) within 1e-4.
+* ``flash_attend(q_offset=)``: a block of query rows at its offset, causal
+  with and without a window, against the reference's
+  ``_flash_attend(q_offset=)`` (3e-5, gradients 1e-4); four blocks give a
+  whole run's rows, and their dK and dV sum to its.
 * bf16 gradients within one bf16 step (2^-7 of the value) plus 1e-4: dq
   against ``jax.grad`` of the reference in bf16; dK and dV, which the
   reference rounds to bf16 for each repeated head and each band before it
@@ -88,6 +92,68 @@ def test_schedule_and_gradients_match_reference(kind, s, kw, groups):
     for name, t, g in zip("qkv", ts, want_grads):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=GRAD_TOL,
                                    err_msg=f"d{name}")
+
+
+# flash_attend(q_offset=): (Sk, query rows, offset, window), causal; the
+# schedules' limits (the card's too): output 3e-5, gradients 1e-4
+OFFSET_CASES = [(2048, 512, 1024, 0), (2048, 512, 700, 0), (2048, 1024, 1024, 512),
+                (1024, 256, 0, 0)]
+OFFSET_TOL, OFFSET_GRAD_TOL = 3e-5, 1e-4
+
+
+@pytest.mark.parametrize("sk,sq,offset,window", OFFSET_CASES,
+                         ids=[f"sk{a}-sq{b}-off{c}-w{d}" for a, b, c, d in OFFSET_CASES])
+def test_flash_q_offset_matches_reference(sk, sq, offset, window):
+    """A block of query rows at ``q_offset`` against the whole K and V,
+    causal (with and without a window), forward and gradients, against the
+    reference's ``_flash_attend(q_offset=)`` in float32; a chunk after the
+    block's last query is skipped (its dK and dV zero), as are the rows
+    before a chunk's first key."""
+    (q, k, v), w = _qkv(sk, 2, seed=sk + sq + offset)
+    q, w = q[:, offset:offset + sq], w[:, offset:offset + sq]
+    kw = dict(causal=True, window=window, q_offset=offset)
+    ref = _ref_fn("flash", q.shape[2], **kw)
+    want_out = np.asarray(jax.jit(ref)(q, k, v))
+    want_grads = jax.jit(jax.grad(lambda *a: jnp.sum(ref(*a) * w), argnums=(0, 1, 2)))(q, k, v)
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = attention.flash_attend(*ts, **kw)
+    assert out.shape == q.shape
+    np.testing.assert_allclose(out.detach().numpy(), want_out, atol=OFFSET_TOL)
+    (out * torch.from_numpy(w)).sum().backward()
+    for name, t, g in zip("qkv", ts, want_grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=OFFSET_GRAD_TOL,
+                                   err_msg=f"d{name}")
+    after = (offset + sq + attention.KV_CHUNK - 1) // attention.KV_CHUNK * attention.KV_CHUNK
+    assert not ts[1].grad[:, after:].any() and not ts[2].grad[:, after:].any()
+
+
+@pytest.mark.parametrize("window", [0, 512])
+def test_flash_q_offset_blocks_equal_whole_run(window):
+    """Four blocks of 512 query rows of a 2,048-token causal sequence, each
+    at its offset against the whole K and V, give the whole run's rows (the
+    output and dq) and, summed, its dK and dV, within the schedules' limits
+    (3e-5, 1e-4)."""
+    (q, k, v), w = _qkv(2048, 4, seed=11 + window)
+    qt, kt, vt, wt = (torch.from_numpy(x) for x in (q, k, v, w))
+
+    def run(qq, off, ww):
+        ts = [qq.clone().requires_grad_(True), kt.clone().requires_grad_(True),
+              vt.clone().requires_grad_(True)]
+        out = attention.flash_attend(*ts, causal=True, window=window, q_offset=off)
+        (out * ww).sum().backward()
+        return out.detach(), [t.grad for t in ts]
+
+    whole, (dq, dk, dv) = run(qt, 0, wt)
+    rows, dqs, dk_sum, dv_sum = [], [], torch.zeros_like(dk), torch.zeros_like(dv)
+    for off in range(0, 2048, 512):
+        out, (gq, gk, gv) = run(qt[:, off:off + 512], off, wt[:, off:off + 512])
+        rows.append(out)
+        dqs.append(gq)
+        dk_sum += gk
+        dv_sum += gv
+    np.testing.assert_allclose(torch.cat(rows, 1).numpy(), whole.numpy(), atol=OFFSET_TOL)
+    for name, got, want in (("dq", torch.cat(dqs, 1), dq), ("dk", dk_sum, dk), ("dv", dv_sum, dv)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=OFFSET_GRAD_TOL, err_msg=name)
 
 
 @pytest.mark.parametrize("kind,s,kw", CASES[::2], ids=IDS[::2])

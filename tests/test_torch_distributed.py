@@ -43,7 +43,13 @@ reference, run here in this process:
   process; the sharded step with ``{"seq": None}`` against the
   one-process step at the sharded step's tolerances; and the residual
   stream entering each block placed ``Shard`` on the sequence over
-  "model" by the default rules, whole with ``{"seq": None}``.
+  "model" by the default rules, whole with ``{"seq": None}``;
+* RWKV6's and Whisper's sharded train steps (Whisper also with 3 heads,
+  whose causal self-attention takes each rank's query rows at their
+  offset) against one process at the sharded step's tolerances; the
+  residual stream entering RWKV6's blocks split on the sequence; and the
+  split token shift on (1, 4): each rank's first row the previous rank's
+  last token (rank 0 zeros), its gradient sent back.
 """
 
 import datetime
@@ -516,6 +522,67 @@ def _residual_cases(rank, mesh22, out):
                                          sharded=sharded)
 
 
+# The block kinds whose sharded train step keeps the sequence split (RWKV6's
+# token shift on each rank's block; Whisper's query rows at their offset):
+# (name, arch, config changes); "whisper-3h": 3 heads, which "model" = 2
+# does not divide, so its causal self-attention takes each rank's query rows
+# at their offset (``flash_attend(q_offset=)``)
+BLOCK_STEP_CASES = (("rwkv6", "rwkv6-1.6b", {}), ("whisper", "whisper-small", {}),
+                    ("whisper-3h", "whisper-small", {"num_heads": 3, "num_kv_heads": 3}))
+
+
+def _encdec_batches(cfg, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [{"encoder_embeds": torch.randn(BATCH, SEQ, cfg.d_model, generator=g),
+             "decoder_tokens": torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=g),
+             "targets": torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=g),
+             "mask": torch.ones(BATCH, SEQ)} for _ in range(2)]
+
+
+def _block_step_cases(rank, mesh22, mesh14, out):
+    """RWKV6's and Whisper's sharded train steps against one process; the
+    placements of the residual stream entering RWKV6's blocks; the split
+    token shift on (1, 4), forward and gradient."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch import act_sharding
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import AdamW
+
+    opt = AdamW(learning_rate=1e-3, warmup_steps=1, schedule="constant")
+    for name, arch, changes in BLOCK_STEP_CASES:
+        cfg = _smoke_f32(arch).replace(**changes)
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(10))
+        batches = _encdec_batches(cfg, 11) if cfg.is_encdec else _batches(cfg, 11)
+        losses, plain = _run_steps(model, opt, params, batches)
+        norm_in, seen = transformer.rms_norm_in, []
+
+        def spy(x, scale, eps):
+            seen.append(str(x.placements))
+            return norm_in(x, scale, eps)
+
+        transformer.rms_norm_in = spy
+        try:
+            dlosses, sharded = _run_steps(model, opt, params, batches, mesh22)
+        finally:
+            transformer.rms_norm_in = norm_in
+        out[f"steps_{name}"] = dict(losses=losses, dlosses=dlosses, plain=plain, sharded=sharded)
+        if name == "rwkv6":
+            out["residual_rwkv6"] = sorted(set(seen))
+    # the token shift of x (2, 8, 3) split over "model" = 4
+    x = torch.arange(2 * 8 * 3, dtype=torch.float32).reshape(2, 8, 3)
+    w = torch.randn(2, 8, 3, generator=torch.Generator().manual_seed(12))
+    plc = [Replicate(), Shard(1)]
+    dx = distribute_tensor(x, mesh14, plc).requires_grad_(True)
+    with act_sharding.activation_rules(mesh14):
+        y = act_sharding.shift_tokens(dx, "model")
+        (y * distribute_tensor(w, mesh14, plc)).sum().full_tensor().backward()
+    out["shift"] = dict(x=x, w=w, local=y.to_local().detach().clone(), whole=y.full_tensor(),
+                        grad=dx.grad.full_tensor())
+
+
 def _worker(rank, store_path, out_dir, inputs):
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -539,6 +606,7 @@ def _worker(rank, store_path, out_dir, inputs):
         _attention_cases(rank, {"mesh22": mesh22, "mesh14": mesh14}, out)
         _vocab_cases(rank, mesh22, out)
         _residual_cases(rank, mesh22, out)
+        _block_step_cases(rank, mesh22, mesh14, out)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -910,3 +978,46 @@ def test_residual_stream_split_on_sequence(ranks):
     for out in ranks["out"]:
         assert out["residual_default"] == ["(Shard(dim=0), Shard(dim=1))"]
         assert out["residual_seq_off"] == ["(Shard(dim=0), Replicate())"]
+
+
+# ---------------------------------------------------------------------------
+# RWKV6's and Whisper's sharded train steps; the split token shift.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", [c[0] for c in BLOCK_STEP_CASES])
+def test_block_sharded_step_matches_one_process(ranks, name):
+    """RWKV6 (its token shift, mixes and products on each rank's sequence
+    block) and Whisper (4 heads, split over "model"; and 3 heads, whose
+    causal self-attention takes each rank's query rows at their offset):
+    two sharded steps on (2, 2) against one process, float32: losses
+    within 1e-4, weights within ROADMAP section 3's AdamW tolerance."""
+    for out in ranks["out"]:
+        got = out[f"steps_{name}"]
+        assert float((got["dlosses"] - got["losses"]).abs().max()) < 1e-4, got["dlosses"]
+        diffs = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(got["sharded"],
+                                                                      got["plain"])])
+        assert float(diffs.max()) <= 2 * 2.5e-3
+        assert float((diffs <= 1e-5).float().mean()) >= 0.999
+
+
+def test_rwkv6_residual_stream_split_on_sequence(ranks):
+    """The residual stream entering each RWKV6 block's norm keeps its
+    sequence split over "model" and its rows over "data"."""
+    for out in ranks["out"]:
+        assert out["residual_rwkv6"] == ["(Shard(dim=0), Shard(dim=1))"]
+
+
+def test_split_token_shift_takes_the_previous_ranks_last_token(ranks):
+    """x (2, 8, 3) split over "model" = 4: on ranks 1-3 the shift's first
+    row is the previous rank's last token, on rank 0 zeros; the whole is
+    x one token later, and the gradient is the cotangent one token
+    earlier, zeros last."""
+    for r, out in enumerate(ranks["out"]):
+        got = out["shift"]
+        x, w = got["x"], got["w"]
+        want_first = x[:, 2 * r - 1] if r else torch.zeros(2, 3)
+        assert torch.equal(got["local"][:, 0], want_first)
+        assert torch.equal(got["local"][:, 1], x[:, 2 * r])
+        assert torch.equal(got["whole"], torch.cat([torch.zeros(2, 1, 3), x[:, :-1]], 1))
+        assert torch.equal(got["grad"], torch.cat([w[:, 1:], torch.zeros(2, 1, 3)], 1))

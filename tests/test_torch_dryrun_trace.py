@@ -7,9 +7,11 @@ Run: PYTHONPATH=src python -m pytest -q tests/test_torch_dryrun_trace.py
   ``collective_bytes`` on HLO lines made from the same (kind, shape, dtype)
   list.
 * On a fake 4 x 4 mesh, ``StepTrace`` counts known redistributions exactly
-  (an all-gather, an all-reduce, a reduce-scatter), a storage shared by
-  views once (and names it at the peak: ``keep_peak``), and a sharded
-  product's FLOPs per device.
+  (an all-gather, an all-reduce, a reduce-scatter; a move between split
+  dimensions as one all-to-all of the rank's result, and the split token
+  shift as one collective-permute), a storage shared by views once (and
+  names it at the peak: ``keep_peak``), and a sharded product's FLOPs per
+  device.
 * At smoke widths, the straight-line extrapolation from one and two periods
   of ``block_pattern`` (and the remainder) equals a trace at the full
   depth: collective counts and bytes and FLOPs exactly, the peak within
@@ -27,19 +29,22 @@ Run: PYTHONPATH=src python -m pytest -q tests/test_torch_dryrun_trace.py
   ``dot`` instructions, what ``FlopCounterMode`` counts; XLA's
   ``cost_analysis`` adds every elementwise operation); every collective
   kind the reference's module issues, the trace issues.
-* The train cells, at a smoke batch that splits over the batch axes (32
-  rows: ``TRAIN_SMOKE``), against the reference's compiled module with its
-  loss head chunked under ``jax.checkpoint`` as it runs (its unrolled cost
-  mode takes the head whole and without recompute): the loss head's FLOPs
-  a device (the port's ``loss_head/`` products, the reference's dots with
-  an operand as wide as the vocabulary) are equal; the totals part where
-  ``FLOPS_APART`` pins them; every collective kind of the reference's but
-  all-to-all and collective-permute (which a CPU mesh cannot issue) is in
-  the trace.
-* Full size, the two steps measured here: the port's traced peak of
-  TinyLlama's and Phi-3-medium's ``train_4k`` on 16 x 16 at most
+* The train cells (TinyLlama's, Mixtral's and RWKV6's), at a smoke batch
+  that splits over the batch axes (32 rows: ``TRAIN_SMOKE``), against the
+  reference's compiled module with its loss head chunked under
+  ``jax.checkpoint`` as it runs (its unrolled cost mode takes the head
+  whole and without recompute): the loss head's FLOPs a device (the port's
+  ``loss_head/`` products, the reference's dots with an operand as wide as
+  the vocabulary) are equal; the totals part where ``FLOPS_APART`` pins
+  them; every collective kind of the reference's is in the trace but
+  exactly those ``SMOKE_KINDS_APART`` pins (RWKV6's collective-permute is
+  in it).
+* Full size: the port's traced peak of TinyLlama's, Phi-3-medium's,
+  RWKV6's and Whisper's ``train_4k`` on both meshes at most
   ``PEAK_OVER_REFERENCE`` times the reference's compiled peak
-  (``memory_analysis``); TinyLlama's loss head traces
+  (``memory_analysis``: compiled here, or ``REFERENCE_PEAKS``);
+  TinyLlama's and RWKV6's moves between splits are all-to-alls (RWKV6's
+  token shift a collective-permute); TinyLlama's loss head traces
   ``TINYLLAMA_LOSS_HEAD_FLOPS`` a device (the vocabulary split over 16
   "model" ranks) and its step at most ``TINYLLAMA_MAX_FLOPS``.
 * ``act_rules`` reaches the traced step as it reaches ``analytic_terms``.
@@ -162,10 +167,24 @@ print(json.dumps(cells))
 
 # The train cells held against the reference's compiled module: the smoke
 # configs at a batch of 32 rows, which split over 16 "data" or 2 x 16
-# ("pod", "data") ranks (the smoke shape's 4 rows do not).
+# ("pod", "data") ranks (the smoke shape's 4 rows do not); RWKV6's too (its
+# token shift on the split sequence).
 TRAIN_SMOKE = ("train_4k", "train", 128, 32)
-# The full-size train cells whose peaks are held to the reference's.
-PEAK_ARCHS = ("tinyllama-1.1b", "phi3-medium-14b")
+TRAIN_ARCHS = REF_ARCHS + ("rwkv6-1.6b",)
+# The full-size train cells whose peaks are held to the reference's, on both
+# meshes; the reference compiles the first two on 16 x 16 here (each
+# full-size compile takes a minute or more of a child's 240 s) and the
+# others' peaks are pinned: its ``memory_analysis`` by
+# ``PYTHONPATH=src python tools/reference_buffers.py --arch all --mesh both``
+# (jax 0.9.0, XLA:CPU, 512 forced host devices).
+PEAK_ARCHS = ("tinyllama-1.1b", "phi3-medium-14b", "rwkv6-1.6b", "whisper-small")
+LIVE_PEAK_ARCHS = ("tinyllama-1.1b", "phi3-medium-14b")
+REFERENCE_PEAKS = {("tinyllama-1.1b", "2x16x16"): 5_387_409_328,
+                   ("phi3-medium-14b", "2x16x16"): 32_431_071_952,
+                   ("rwkv6-1.6b", "16x16"): 15_633_660_072,
+                   ("rwkv6-1.6b", "2x16x16"): 9_056_553_800,
+                   ("whisper-small", "16x16"): 1_797_998_032,
+                   ("whisper-small", "2x16x16"): 1_071_332_000}
 
 _REF_TRAIN = _HLO + r"""
 import repro.configs as RC
@@ -197,7 +216,7 @@ for multi_pod in (False, True):
                           loops=texts[-1].count(" while("), counts=rec["collectives"]["counts"]))
 R.SHAPES, R.get_config = RC.SHAPES, RC.get_config
 peaks = {arch: R.run_cell(arch, "train_4k", verbose=False)["bytes_per_device"]["peak"]
-         for arch in PEAK_ARCHS}
+         for arch in LIVE_PEAK_ARCHS}
 print(json.dumps(dict(smoke=smoke, peaks=peaks)))
 """
 
@@ -207,14 +226,19 @@ from repro_torch.configs import SMOKE_SHAPES, ShapeSpec
 from repro_torch.launch import dryrun
 dryrun.SMOKE_SHAPES = dict(SMOKE_SHAPES, train_4k=ShapeSpec(*TRAIN_SMOKE))
 smoke = dryrun.run_all((False, True), ARCHS, ["train_4k"], verbose=False, smoke=True)
-full = {}
-for arch in PEAK_ARCHS:
-    rec = dryrun.run_cell(arch, "train_4k", verbose=False)
-    full[arch] = dict(peak=rec["bytes_per_device"]["peak"], flops=rec["traced_flops_per_device"],
-                      by_op=rec["traced_flops_by_op"])
-dryrun.close_fake_mesh()
-print(json.dumps(dict(smoke=smoke, full=full)))
+print(json.dumps(dict(smoke=smoke)))
 """
+
+# one full-size train cell (ARCH, on 2 x 16 x 16 if MULTI_POD)
+_PORT_FULL = r"""
+import json
+from repro_torch.launch import dryrun
+rec = dryrun.run_cell(ARCH, "train_4k", multi_pod=MULTI_POD, verbose=False)
+dryrun.close_fake_mesh()
+print(json.dumps(dict(peak=rec["bytes_per_device"]["peak"], flops=rec["traced_flops_per_device"],
+                      by_op=rec["traced_flops_by_op"], counts=rec["collectives"]["counts"])))
+"""
+MESHES = ("16x16", "2x16x16")
 
 _ACT_RULES = r"""
 import json
@@ -234,11 +258,11 @@ def children(tmp_path_factory):
     """The file's slower subprocesses, started together: the CLI on
     TinyLlama's smoke cells on both meshes, the port's and the reference's
     prefill and decode cells of REF_ARCHS, their train cells and full-size
-    peaks, and the ``act_rules`` pair."""
+    peaks (one child a cell), and the ``act_rules`` pair."""
     cli_out = tmp_path_factory.mktemp("cli") / "dry.json"
     consts = f"ARCHS = {list(REF_ARCHS)!r}\nSHAPES = {list(REF_SHAPES)!r}\n"
-    train = f"ARCHS = {list(REF_ARCHS)!r}\nTRAIN_SMOKE = {TRAIN_SMOKE!r}\n" \
-            f"PEAK_ARCHS = {list(PEAK_ARCHS)!r}\n"
+    train = f"ARCHS = {list(TRAIN_ARCHS)!r}\nTRAIN_SMOKE = {TRAIN_SMOKE!r}\n" \
+            f"LIVE_PEAK_ARCHS = {list(LIVE_PEAK_ARCHS)!r}\n"
     kids = {
         "cli": _Child([sys.executable, "-m", "repro_torch.launch.dryrun", "--smoke", "--arch",
                        "tinyllama-1.1b", "--mesh", "both", "--out", str(cli_out)], 240),
@@ -247,6 +271,9 @@ def children(tmp_path_factory):
         "act_rules": _Child([sys.executable, "-c", _ACT_RULES], 240),
         "ref_train": _Child([sys.executable, "-c", train + _REF_TRAIN], 240),
         "port_train": _Child([sys.executable, "-c", train + _PORT_TRAIN], 240),
+        **{f"full_{arch}_{mesh}": _Child([sys.executable, "-c", f"ARCH = {arch!r}\nMULTI_POD = "
+                                          f"{mesh != MESHES[0]}\n" + _PORT_FULL], 240)
+           for arch in PEAK_ARCHS for mesh in MESHES},
     }
     kids["cli_out"] = cli_out
     yield kids
@@ -286,6 +313,7 @@ _KNOWN = r"""
 import json, torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from repro_torch.act_sharding import shift_tokens
 from repro_torch.launch.mesh import make_fake_mesh
 from repro_torch.launch.step_trace import StepTrace
 mesh = make_fake_mesh({"data": 4, "model": 4})
@@ -303,6 +331,15 @@ with FakeTensorMode(allow_non_fake_inputs=True):
     with StepTrace() as tr:
         y = a @ w                                           # (4, 8) @ (8, 16) on each rank
         out["flops"] = tr.flops
+    s = DTensor.from_local(torch.empty(4, 8, 16), mesh, [Replicate(), Shard(1)], run_check=False)
+    with StepTrace() as tr:
+        moved = s.redistribute(mesh, [Replicate(), Shard(2)])  # all-to-all over "model"
+        out["alltoall"] = tr.collectives()
+        out["alltoall_shape"] = list(moved.to_local().shape)
+    x = DTensor.from_local(torch.empty(2, 4, 8), mesh, [Shard(0), Shard(1)], run_check=False)
+    with StepTrace() as tr:
+        shift_tokens(x, "model")                             # collective-permute over "model"
+        out["permute"] = tr.collectives()
     with StepTrace(keep_peak=True) as tr:
         base = torch.empty(1024)
         views = [base[:10], base.view(32, 32), base[512:]]
@@ -328,6 +365,16 @@ def test_known_redistributions_views_and_products(children):
                              "all-to-all": 0, "collective-permute": 0}
     assert coll["total_bytes"] == 1088
     assert got["flops"] == 2 * 4 * 8 * 16
+    # a move between split dimensions on the fake group: one all-to-all of
+    # the rank's (4, 32, 4) float32 result (its middle dimension gathered,
+    # its last split), not an all-gather of the whole (4, 32, 16)
+    assert got["alltoall_shape"] == [4, 32, 4]
+    assert got["alltoall"]["counts"] == {"all-reduce": 0, "all-gather": 0, "reduce-scatter": 0,
+                                         "all-to-all": 1, "collective-permute": 0}
+    assert got["alltoall"]["total_bytes"] == 4 * 32 * 4 * 4
+    # the split token shift: one collective-permute of the (2, 8) last tokens
+    assert got["permute"]["counts"]["collective-permute"] == 1
+    assert got["permute"]["total_bytes"] == 2 * 8 * 4
     assert got["live_views"] == got["live_after_base"] == got["peak"] == 4096
     assert got["live_after_views"] == 0
     assert got["peak_live"] == {"empty -> (1024,) float32": 4096}
@@ -436,13 +483,18 @@ def test_cli_records_a_failing_cell_and_exits_1(tmp_path):
 # (TRAIN_SMOKE): at these widths
 # GSPMD splits every product and the attention by sequence over "model"
 # (8 or 16 query rows a rank, the weights gathered), where the port's
-# rules split the heads and the MLP's width over "model" and, as TinyLlama's
-# 4 heads (Mixtral's 4) do not divide 16, compute each rank's attention
-# whole, with its recompute; the loss heads' FLOPs are equal.
-FLOPS_APART = {("tinyllama-1.1b", "train_4k", "16x16"): (103_546_880, 15_466_496),
-               ("tinyllama-1.1b", "train_4k", "2x16x16"): (51_773_440, 7_733_248),
+# rules split the MLP's width over "model": TinyLlama's 4 heads do not
+# divide 16, so each rank attends its block of query rows at its offset
+# (``flash_attend(q_offset=)``); Mixtral's 4 heads take the banded
+# schedule, whole on each rank, with its recompute; RWKV6's 4 heads run
+# their recurrence whole on each rank (the products on each rank's
+# sequence block); the loss heads' FLOPs are equal.
+FLOPS_APART = {("tinyllama-1.1b", "train_4k", "16x16"): (17_039_360, 15_466_496),
+               ("tinyllama-1.1b", "train_4k", "2x16x16"): (8_519_680, 7_733_248),
                ("mixtral-8x7b", "train_4k", "16x16"): (73_400_320, 31_457_280),
-               ("mixtral-8x7b", "train_4k", "2x16x16"): (36_700_160, 15_728_640)}
+               ("mixtral-8x7b", "train_4k", "2x16x16"): (36_700_160, 15_728_640),
+               ("rwkv6-1.6b", "train_4k", "16x16"): (48_234_496, 14_438_400),
+               ("rwkv6-1.6b", "train_4k", "2x16x16"): (24_117_248, 7_225_344)}
 # The full-size train cells: the port's traced peak at most this many times
 # the reference's compiled peak; TinyLlama's loss head (4 products, the
 # forward, its recompute and two backward, over 16 x 512-token chunks a
@@ -486,20 +538,30 @@ def _loss_head_flops(by_op: dict) -> int:
     return sum(n for key, n in by_op.items() if key.startswith("loss_head/"))
 
 
-# a CPU mesh has no all-to-all (DTensor moves shard to shard as an
-# all-gather and a chunk), nor a collective-permute
-_CPU_MESH_LACKS = {"all-to-all", "collective-permute"}
+# The fake mesh records every kind (``launch.mesh`` routes DTensor's moves
+# between split dimensions to its all-to-all; RWKV6's token shift is a
+# collective-permute), so what a smoke train cell lacks of the reference's
+# kinds is where the strategies part at smoke widths (FLOPS_APART), by the
+# reference's HLO op names: XLA partitions the lookup's gather and its
+# scatter-add into an all-to-all and a collective-permute (the port's
+# vocabulary-parallel lookup reduce-scatters), and moves the sequence- and
+# chunk-split pieces of Mixtral's and RWKV6's blocks between splits with
+# all-to-alls (the port moves nothing shard to shard there: 4 heads do not
+# split 16 ranks).  Each set is exactly what the cell lacks.
+SMOKE_KINDS_APART = {"tinyllama-1.1b": {"all-to-all", "collective-permute"},
+                     "mixtral-8x7b": {"all-to-all", "collective-permute"},
+                     "rwkv6-1.6b": {"all-to-all"}}
 
 
 def test_train_cells_against_reference_compiled_module(children):
     """The smoke train cells at a batch that splits: the loss head's FLOPs
     a device equal the reference's (its dots with an operand as wide as the
     vocabulary), the totals as ``FLOPS_APART`` pins them, and the
-    reference's collective kinds (but those a CPU mesh lacks) in the
-    trace."""
+    reference's collective kinds in the trace but exactly those
+    ``SMOKE_KINDS_APART`` lists (RWKV6's collective-permute included)."""
     ref = children["ref_train"].json()["smoke"]
     port = {(c["arch"], c["shape"], c["mesh"]): c for c in children["port_train"].json()["smoke"]}
-    assert len(ref) == len(port) == 2 * len(REF_ARCHS)
+    assert len(ref) == len(port) == 2 * len(TRAIN_ARCHS)
     for r in ref:
         key = (r["arch"], r["shape"], r["mesh"])
         c = port[key]
@@ -509,18 +571,35 @@ def test_train_cells_against_reference_compiled_module(children):
         want = FLOPS_APART.get(key, (r["dot_flops"], r["dot_flops"]))
         assert (c["traced_flops_per_device"], r["dot_flops"]) == want, key
         kinds = lambda counts: {k for k, n in counts.items() if n}
-        assert kinds(r["counts"]) - _CPU_MESH_LACKS <= kinds(c["collectives"]["counts"]), key
+        assert kinds(r["counts"]) - kinds(c["collectives"]["counts"]) == \
+            SMOKE_KINDS_APART[r["arch"]], key
+    assert "collective-permute" in {k for c in port.values() if c["arch"] == "rwkv6-1.6b"
+                                    for k, n in c["collectives"]["counts"].items() if n}
 
 
 @pytest.mark.parametrize("arch", PEAK_ARCHS)
 def test_train_peak_against_reference_compiled_peak(children, arch):
-    """Full-size ``train_4k`` on 16 x 16 under remat "dots": the port's
-    traced peak per device at most PEAK_OVER_REFERENCE times the
-    reference's compiled peak (its ``memory_analysis``), both measured
-    here."""
-    peak = children["port_train"].json()["full"][arch]["peak"]
-    ref = children["ref_train"].json()["peaks"][arch]
-    assert 0 < peak <= PEAK_OVER_REFERENCE * ref, (arch, peak, ref)
+    """Full-size ``train_4k`` on 16 x 16 and 2 x 16 x 16 under remat
+    "dots": the port's traced peak per device at most PEAK_OVER_REFERENCE
+    times the reference's compiled peak (its ``memory_analysis``; compiled
+    here for LIVE_PEAK_ARCHS on 16 x 16, else REFERENCE_PEAKS)."""
+    live = children["ref_train"].json()["peaks"]
+    for mesh in MESHES:
+        ref = live[arch] if mesh == MESHES[0] and arch in live else REFERENCE_PEAKS[(arch, mesh)]
+        peak = children[f"full_{arch}_{mesh}"].json()["peak"]
+        assert 0 < peak <= PEAK_OVER_REFERENCE * ref, (arch, mesh, peak, ref)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-1.6b"])
+def test_full_size_moves_between_splits_are_all_to_alls(children, arch):
+    """At full size the heads split over "model", so K and V (TinyLlama) and
+    r, k, v, g and the decays (RWKV6) move from the sequence split to the
+    heads split: the fake mesh records all-to-alls there, and RWKV6's
+    token shift collective-permutes, on both meshes."""
+    for mesh in MESHES:
+        rec = children[f"full_{arch}_{mesh}"].json()
+        assert rec["counts"]["all-to-all"] > 0, (mesh, rec["counts"])
+        assert (rec["counts"]["collective-permute"] > 0) == (arch == "rwkv6-1.6b"), mesh
 
 
 def test_tinyllama_loss_head_split_over_the_vocabulary(children):
@@ -528,7 +607,7 @@ def test_tinyllama_loss_head_split_over_the_vocabulary(children):
     its 2,000 of the 32,000 columns, so the loss head traces 1 / 16 of the
     whole head's FLOPs a device, and the step at most
     TINYLLAMA_MAX_FLOPS."""
-    full = children["port_train"].json()["full"]["tinyllama-1.1b"]
+    full = children["full_tinyllama-1.1b_16x16"].json()
     assert _loss_head_flops(full["by_op"]) == TINYLLAMA_LOSS_HEAD_FLOPS
     assert all("32000" not in key for key in full["by_op"])
     assert full["flops"] <= TINYLLAMA_MAX_FLOPS

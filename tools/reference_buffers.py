@@ -25,9 +25,14 @@ import tempfile
 
 
 def _largest_values(dump: str, top: int) -> None:
-    (path,) = glob.glob(os.path.join(dump, "*jit_*after_optimizations-buffer-assignment.txt"))
-    with open(path) as f:
-        text = f.read()
+    # the step's module is the one with the most bytes (a cell may also
+    # compile small helpers, e.g. RWKV6's)
+    texts = []
+    for path in glob.glob(os.path.join(dump, "*jit_*after_optimizations-buffer-assignment.txt")):
+        with open(path) as f:
+            texts.append(f.read())
+    text = max(texts, key=lambda t: sum(int(n) for n in re.findall(
+        r"^allocation \d+: size (\d+)", t, re.M)))
     allocs = sorted(((int(size), i, rest.strip(" ,:")) for i, size, rest in
                      re.findall(r"^allocation (\d+): size (\d+)(.*)$", text, re.M)), reverse=True)
     print(f"{len(allocs)} allocations, {sum(a[0] for a in allocs):,d} bytes; the largest:")
