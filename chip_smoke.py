@@ -2,6 +2,10 @@
 """Drive the PyTorch/CUDA port of HPDedup on one CUDA card, end to end.
 
     python3 chip_smoke.py [--requests N] [--seed S]
+    python3 chip_smoke.py --band [SRC]   # (e) of ``long`` and RecurrentGemma's
+                                         # ``blocks`` step alone, the port
+                                         # imported from SRC (e.g. a parent
+                                         # commit's checkout's src) if given
 
 Phases, one JSON line each (any failure exits non-zero; nothing is caught):
 
@@ -213,7 +217,14 @@ Phases, one JSON line each (any failure exits non-zero; nothing is caught):
                   RecurrentGemma-2B at 5 (local window 2,048) prefill 8,192
                   tokens, every attention layer through ``banded_attend``;
                   one Mixtral attention layer against the plain version in
-                  float32 (1e-4).  Launch counts are zeroed before each run
+                  float32 (1e-4).  (e) RecurrentGemma-2B's band (10 heads,
+                  1 KV head of 256, window 2,048) at 2 x 4,096 tokens
+                  against the plain version in float32 (3e-5, gradients
+                  1e-4; ms forward and forward + backward); 5 layers under
+                  remat "none", "dots" and "full" on one batch: loss and
+                  gradients within 1e-5 relative of "none"'s, ms, peak GB,
+                  and the band's products by call, as many under "dots" as
+                  under "none".  Launch counts are zeroed before each run
                   of (b) and read after.
 * ``sharding``    the port's sharding on the card, under a one-process NCCL
                   group (in-memory store, no port) and its 1 x 1 ("data",
@@ -2945,6 +2956,16 @@ LONG_HELD_LAYERS, LONG_HELD_DECODE = 2, 512
 LONG_BANDED_SEQ = 8192
 LONG_BANDED_MODELS = (("mixtral-8x7b", 2), ("recurrentgemma-2b", 5))
 LONG_LAYER_TOL = 1e-4
+# (e) RecurrentGemma-2B's local attention (10 heads, 1 KV head, head dim 256,
+# window 2,048) at train_4k's 4,096 tokens, batch 2: the banded schedule
+# against the plain version in float32 (LONG_TOL, LONG_GRAD_TOL); then 5
+# layers (one block_pattern group, its attention layer inside a remat unit,
+# and the two remainder layers) under each remat policy against "none"
+# (LONG_LOSS_RTOL), with the band's products counted by call
+LONG_RG = "recurrentgemma-2b"
+LONG_RG_BATCH, LONG_RG_LAYERS = 2, 5
+LONG_RG_REMATS = ("none", "dots", "full")
+LONG_RG_PRODUCTS = ("_logits", "_pv", "_tp")
 
 
 def _gb(n: int) -> float:
@@ -3315,16 +3336,102 @@ def _banded_layer_check(dev, cfg, p: dict, seed: int) -> dict:
     return {"float32_gap": gap, "tol": LONG_LAYER_TOL, "max_abs_out": float(want.abs().max())}
 
 
+def _long_rg(dev, smi: str, seed: int) -> None:
+    """(e) RecurrentGemma-2B's banded attention at train_4k's 4,096 tokens:
+    ``banded_attend`` against the plain version in float32 at its shapes
+    (``_schedule_case``: the gaps, the ms forward and forward + backward);
+    then LONG_RG_LAYERS layers at batch LONG_RG_BATCH, one forward and
+    backward of ``train_loss`` under each of LONG_RG_REMATS on one batch:
+    the loss and every gradient against "none"'s (LONG_LOSS_RTOL relative),
+    the ms and peak GB of each, and the band's products counted by call
+    (``attention``'s LONG_RG_PRODUCTS; no other layer makes them): "dots"
+    makes as many as "none" (the remat unit keeps the band's output, so its
+    rerun in the backward pass makes none), "full" more (it reruns the
+    band's forward)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, build_model
+    from repro_torch.pytree import leaves
+    from repro_torch.train.train_step import trainable
+
+    t0 = time.perf_counter()
+    cfg = get_config(LONG_RG)
+    b, s = LONG_RG_BATCH, LONG_TRAIN_SEQ
+    fn = functools.partial(attention.banded_attend, window=cfg.local_window)
+    fn.__name__ = "banded_attend"
+    schedule = _schedule_case(
+        dev, fn, functools.partial(attention.attend_plain, causal=True, window=cfg.local_window),
+        (b, s, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim), torch.float32, seed)
+    cut = cfg.replace(num_layers=LONG_RG_LAYERS)
+    gen = torch.Generator(dev).manual_seed(seed)
+    tokens = torch.randint(0, cut.vocab_size, (b, s + 1), device=dev, generator=gen)
+    batch = {"inputs": tokens[:, :-1], "targets": tokens[:, 1:],
+             "mask": torch.ones(b, s, device=dev)}
+    params = trainable(build_model(cut).init(torch.Generator(dev).manual_seed(seed)))
+    calls = {}
+    originals = {name: getattr(attention, name) for name in LONG_RG_PRODUCTS}
+
+    def counted(name, f):
+        def call(*a, **kw):
+            calls[name] += 1
+            return f(*a, **kw)
+        return call
+
+    losses, grads, rows = {}, {}, {}
+    for remat in LONG_RG_REMATS:
+        model = build_model(cut, remat=remat)
+
+        def step():
+            loss, _ = model.train_loss(params, batch)
+            return loss, torch.autograd.grad(loss, leaves(params))
+
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        calls.update(dict.fromkeys(LONG_RG_PRODUCTS, 0))
+        for name, f in originals.items():
+            setattr(attention, name, counted(name, f))
+        try:
+            loss, grads[remat] = step()
+        finally:
+            for name, f in originals.items():
+                setattr(attention, name, f)
+        torch.cuda.synchronize()
+        losses[remat] = float(loss.detach())
+        rows[remat] = {"products_by_call": dict(calls),
+                       "fwd_bwd_peak_gb": _gb(torch.cuda.max_memory_allocated())}
+        del loss
+        rows[remat]["fwd_bwd_ms"] = cuda_ms(step, reps=3, warm=1)
+    gaps = {remat: max(float((g - n).abs().max() / n.abs().max().clamp(min=1e-30))
+                       for n, g in zip(grads["none"], grads[remat]))
+            for remat in LONG_RG_REMATS[1:]}
+    del params, batch, grads
+    _free()
+    emit("long", part="rg_banded", card=smi, model=cut.name, layers=cut.num_layers,
+         batch=[b, s], window=cfg.local_window, schedule=schedule, first_loss=losses,
+         grad_max_rel_gap=gaps, rtol=LONG_LOSS_RTOL, remats=rows,
+         part_s=time.perf_counter() - t0)
+    check(not schedule["over"], "; ".join(schedule["over"]))
+    for remat, gap in gaps.items():
+        check(abs(losses[remat] - losses["none"]) <= LONG_LOSS_RTOL * abs(losses["none"])
+              and gap <= LONG_LOSS_RTOL,
+              f"long rg: remat {remat}'s loss {losses[remat]} (none {losses['none']}) or a "
+              f"gradient ({gap} relative) is off none's")
+    made = {r: sum(row["products_by_call"].values()) for r, row in rows.items()}
+    check(made["dots"] == made["none"] < made["full"],
+          f"long rg: the band's products by remat {made}: \"dots\" replays them")
+
+
 def phase_long(dev, results: dict, smi: str, seed: int) -> None:
     """The long-sequence schedules and remat: (a) against the plain version,
     (b) TinyLlama training at 4,096 tokens, (c) its 32,768-token prefill,
-    (d) banded prefills.  Launch counts are zeroed just before each trainer
+    (d) banded prefills, (e) RecurrentGemma's band at 4,096 tokens and under
+    each remat policy.  Launch counts are zeroed just before each trainer
     run of (b) and read just after; ``launches_by_path["long"]`` sums them."""
     t0 = time.perf_counter()
     _long_schedules(dev, smi, seed)
     total = _long_train(dev, smi, seed, results)
     _long_prefill(dev, smi, seed)
     _long_banded(dev, smi, seed)
+    _long_rg(dev, smi, seed)
     for name in KERNELS:
         results.setdefault(name, {}).setdefault("launches_by_path", {})["long"] = \
             total.get(name, 0)
@@ -3757,6 +3864,11 @@ def _dry_cli(proc, out: str, smi: str) -> None:
                                                        for m in ("16x16", "2x16x16")},
           f"sharding: dry-run CLI cells {[(c['shape'], c['mesh'], c['status']) for c in cells]}")
     for c in ok:
+        # TinyLlama's heads split "model": no block at a rank's offset, so
+        # the last rank's work is rank 0's
+        check(c["traced_flops_rank0"] == c["traced_flops_last_rank"],
+              f"sharding: {c['mesh']} {c['arch']} {c['shape']}: rank 0 traces "
+              f"{c['traced_flops_rank0']} FLOPs, the last rank {c['traced_flops_last_rank']}")
         if c["kind"] == "train":
             want = _split_loss_head_flops(get_config(c["arch"]), SHAPES[c["shape"]], c["mesh"])
             got = _vocab_wide_flops(c["traced_flops_by_op"], get_config(c["arch"]).vocab_size)
@@ -3772,7 +3884,10 @@ def _dry_cli(proc, out: str, smi: str) -> None:
                  **({"collective_bytes": c["collectives"]["total_bytes"],
                      "collective_counts": c["collectives"]["counts"],
                      "peak": c["bytes_per_device"]["peak"], "args": c["bytes_per_device"]["args"],
-                     "traced_flops": c["traced_flops_per_device"], "trace_s": c["trace_s"],
+                     "traced_flops": c["traced_flops_per_device"],
+                     "traced_flops_rank0": c["traced_flops_rank0"],
+                     "traced_flops_last_rank": c["traced_flops_last_rank"],
+                     "last_rank_traced": c["last_rank_traced"], "trace_s": c["trace_s"],
                      "fits_hbm": c["fits_hbm"],
                      "flops_by_op": dict(list(c["traced_flops_by_op"].items())
                                          [:SHARD_DRY_OPS_SHOWN]),
@@ -4113,15 +4228,26 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--requests", type=int, default=1_000_000)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--band", metavar="SRC", nargs="?", const="", default=None,
+                        help="only RecurrentGemma's banded attention: the long phase's (e) and "
+                             "the blocks phase's RecurrentGemma step, the port imported from "
+                             "SRC (another checkout's src directory) if given")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.band:
+        sys.path.insert(0, os.path.abspath(args.band))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     dev = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()
+    if args.band is not None:
+        emit("band", src=os.path.dirname(os.path.abspath(repro_torch.__file__)))
+        _blocks_train(dev, smi, args.seed, LONG_RG, dict(BLOCKS_TRAIN)[LONG_RG])
+        _long_rg(dev, smi, args.seed)
+        return 0
     results: dict = {}
     phase_fingerprint(dev, results)
     phase_fp_index(dev, results)

@@ -263,11 +263,26 @@ def block_start(x, names: Sequence[Optional[str]], dim: int) -> int:
         return 0
     mesh, rules = ctx
     axes = entry_axes(act_spec(x.shape, names, mesh, rules)[dim])
+    if axes_size(mesh, axes) > 1:
+        _RANK_OFFSETS[0] += 1
     index = 0
     for i, axis in enumerate(mesh_shape(mesh)):
         if axis in axes:
             index = index * mesh.size(i) + mesh.get_local_rank(axis)
     return index * (x.shape[dim] // axes_size(mesh, axes))
+
+
+# How many blocks ``block_start`` placed at an offset that depends on the
+# rank's coordinates (a split of more than one rank).  A step that places
+# none does the same local work on every rank of its mesh
+# (``launch.dryrun`` traces a second rank only where it places some).
+_RANK_OFFSETS = [0]
+
+
+def rank_offsets() -> int:
+    """The blocks ``block_start`` has placed at a rank-dependent offset so
+    far in this process."""
+    return _RANK_OFFSETS[0]
 
 
 def _grad_placements(dts: Sequence) -> List[list]:
@@ -293,7 +308,11 @@ class _Local(torch.autograd.Function):
     the forward pass; inside a remat unit (``remat_unit``) only the inputs
     are kept and the graph is made again in the backward pass, so that the
     unit's checkpoint never meets it from inside another backward pass
-    (one there would recompute the whole unit a second time)."""
+    (one there would recompute the whole unit a second time).  That rerun
+    is made under ``rebuilding_graph``: there a function whose output no
+    operation of the region reads, and whose own backward pass needs only
+    its inputs (the banded schedule, which ``attention._schedule`` runs
+    alone in its region), may skip computing it."""
 
     @staticmethod
     def forward(ctx, fn, mesh, out_placements, recompute, *dts):
@@ -318,7 +337,14 @@ class _Local(torch.autograd.Function):
     def backward(ctx, *grads):
         from torch.distributed.tensor import DTensor, Partial, Replicate
 
-        ins, outs = _local_graph(ctx.fn, ctx.saved_tensors) if ctx.recompute else ctx.graph
+        if ctx.recompute:
+            prev, _state.graph_only = getattr(_state, "graph_only", False), True
+            try:
+                ins, outs = _local_graph(ctx.fn, ctx.saved_tensors)
+            finally:
+                _state.graph_only = prev
+        else:
+            ins, outs = ctx.graph
         # a partial output's gradient is whole on every rank (d sum / d part = 1)
         pairs = [(o, g.redistribute(ctx.mesh, [Replicate() if isinstance(p, Partial) else p
                                                for p in pl]).to_local())
@@ -494,14 +520,30 @@ def _keep_result():
 
 
 def keeping_result() -> bool:
-    """Inside ``row_parallel``'s product, whose kept result for remat "dots"
-    is the scattered tensor (``aten.alias`` of it), not the product."""
+    """Inside ``keep``: the ``aten.alias`` there is what remat "dots" keeps
+    (``row_parallel``'s scattered result, not its product; the banded
+    schedule's output)."""
     return getattr(_state, "keep", False)
 
 
 def replaying() -> bool:
     """Inside the backward pass's rerun of a remat "dots" unit."""
     return getattr(_state, "replay", False)
+
+
+def rebuilding_graph() -> bool:
+    """Inside ``_Local``'s backward pass, which runs its function again on
+    the kept inputs only to make the graph that its gradients go through."""
+    return getattr(_state, "graph_only", False)
+
+
+def keep(x: torch.Tensor) -> torch.Tensor:
+    """x through ``aten.alias`` inside ``_keep_result``: a remat "dots"
+    unit keeps it (``transformer._dots_policy``), and in the unit's rerun
+    (``replaying``) ``keep`` of a tensor of its shape (``new_empty``) returns
+    the kept one.  Elsewhere an alias of x."""
+    with _keep_result():
+        return torch.ops.aten.alias(x)
 
 
 class _RowParallel(torch.autograd.Function):
@@ -514,7 +556,7 @@ class _RowParallel(torch.autograd.Function):
 
     Under remat "dots" the unit keeps the scattered result, as GSPMD keeps
     the dot's output after its reduce-scatter: the result passes through
-    ``aten.alias``, which the policy saves (``keeping_result``), and in the
+    ``aten.alias``, which the policy saves (``keep``), and in the
     backward pass's rerun of the unit (``replaying``) the product and its
     collective are skipped and the alias returns the kept tensor.  The
     product writes through ``out=`` (``aten.mm.out``), an overload no other
@@ -530,13 +572,12 @@ class _RowParallel(torch.autograd.Function):
         b, s, k = hl.shape
         group = axis_group(mesh, axis)
         rows = s // group[1] * b
-        with _keep_result():
-            if replay:
-                out = torch.ops.aten.alias(hl.new_empty((rows, wl.shape[1])))
-            else:
-                y = hl.new_empty((s * b, wl.shape[1]))
-                torch.mm(hl.transpose(0, 1).reshape(s * b, k), wl, out=y)
-                out = torch.ops.aten.alias(scatter_rows(y, group))
+        if replay:
+            out = keep(hl.new_empty((rows, wl.shape[1])))
+        else:
+            y = hl.new_empty((s * b, wl.shape[1]))
+            torch.mm(hl.transpose(0, 1).reshape(s * b, k), wl, out=y)
+            out = keep(scatter_rows(y, group))
         ctx.save_for_backward(hl, wl)
         ctx.group, ctx.mesh, ctx.out_plc = group, mesh, out_plc
         ctx.grad_plc = _grad_placements([h, w])

@@ -11,16 +11,24 @@ into a cache placed by ``cache_pspecs``, or one decode step against such a
 cache, on DTensors of ``FakeTensorMode`` tensors placed by the partition
 rules on a fake ``DeviceMesh`` (``mesh.make_fake_mesh``: 256 or 512 ranks in
 one process, collectives that move nothing).  ``step_trace.StepTrace``
-reads rank 0's view of it:
+reads one rank's view of it: rank 0's, and the last rank's where a step
+places a block at an offset that depends on the rank (causal attention on
+each rank's block of query rows, ``act_sharding.rank_offsets``), since
+there the last rank, which holds the last block on every axis, visits the
+most key chunks:
 
   * ``collectives``: ``{"bytes", "counts", "total_bytes"}`` over the
-    reference's five kinds and its wire model, per device;
-  * ``bytes_per_device["peak"]``: the most bytes of live storages on the
-    rank over the step (the counterpart of args + out + temp - alias),
-    which decides ``fits_hbm`` against one card's memory
-    (``torch.cuda.get_device_properties(0)`` when a card is present, else
-    ``H100_80GB_HBM3_BYTES``);
-  * ``traced_flops_per_device``: the step's FLOPs on the rank.
+    reference's five kinds and its wire model, per device (rank 0's);
+  * ``bytes_per_device["peak"]``: the most bytes of live storages on a
+    rank over the step (the counterpart of args + out + temp - alias), of
+    the rank with the larger (``peak_rank``), which decides ``fits_hbm``
+    against one card's memory (``torch.cuda.get_device_properties(0)``
+    when a card is present, else ``H100_80GB_HBM3_BYTES``);
+  * ``traced_flops_per_device``: the step's FLOPs on the heavier rank,
+    ``traced_flops_rank0`` and ``traced_flops_last_rank`` each rank's
+    (``last_rank_traced`` false: the step placed nothing at a
+    rank-dependent offset, so every rank's local work is rank 0's, and the
+    last rank's figures are rank 0's).
 
 Each cell is traced at one and two periods of its ``block_pattern`` (and one
 plus the remainder layers where the depth leaves some), and every count,
@@ -158,20 +166,20 @@ def _meta_cache(cfg: C.ModelConfig, batch: int, slots: int, enc_slots: int):
 # The traced step: each cell's sharded step on fake tensors over a fake mesh.
 # ---------------------------------------------------------------------------
 
-_FAKE = {"mesh": None}
+_FAKE = {"mesh": None, "rank": 0}
 
 
-def fake_mesh(shape: Dict[str, int]):
-    """The fake ``DeviceMesh`` of ``shape`` (``mesh.make_fake_mesh``), kept
-    for the cells that follow; a mesh of another shape replaces it (its
-    process group destroyed first)."""
+def fake_mesh(shape: Dict[str, int], rank: int = 0):
+    """The fake ``DeviceMesh`` of ``shape`` (``mesh.make_fake_mesh``) with
+    this process playing ``rank``, kept for the cells that follow; a mesh of
+    another shape or rank replaces it (its process group destroyed first)."""
     from ..act_sharding import mesh_shape
 
     mesh = _FAKE["mesh"]
-    if mesh is not None and mesh_shape(mesh) == dict(shape):
+    if mesh is not None and mesh_shape(mesh) == dict(shape) and _FAKE["rank"] == rank:
         return mesh
     close_fake_mesh()
-    _FAKE["mesh"] = make_fake_mesh(dict(shape))
+    _FAKE["mesh"], _FAKE["rank"] = make_fake_mesh(dict(shape), rank), rank
     return _FAKE["mesh"]
 
 
@@ -230,12 +238,15 @@ def trace_step(cfg: C.ModelConfig, shape: ShapeSpec, mesh, *, remat: str = "dots
     ``remat``, ``microbatches``), the prefill into a placed cache, or one
     decode step against a placed cache, under ``activation_rules(mesh,
     act_rules)``, as the reference's ``run_cell`` lowers them.  Returns
-    ``{"collectives", "peak", "flops", "flops_by_op", "args_live"}``
-    (``args_live``: the bytes alive when the step starts), and with
+    ``{"collectives", "peak", "flops", "flops_by_op", "args_live",
+    "rank_offsets"}`` (``args_live``: the bytes alive when the step
+    starts; ``rank_offsets``: the blocks the step placed at a
+    rank-dependent offset, ``act_sharding.rank_offsets``), and with
     ``keep_peak`` ``"peak_live"``: the bytes alive at the peak by the
     operation and shape that made them (``StepTrace.peak_live``)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
+    from ..act_sharding import rank_offsets
     from ..sharding import batch_pspecs, cache_pspecs
     from ..train import train_step as TS
     from ..train.optimizer import AdamW
@@ -274,11 +285,12 @@ def trace_step(cfg: C.ModelConfig, shape: ShapeSpec, mesh, *, remat: str = "dots
                 step = TS.make_sharded_serve_step(model, mesh, act_rules)
                 args = (params, cache, tokens, shape.seq_len - 1)
         tr.reset_peak()
-        args_live = tr.live_bytes
+        args_live, offsets = tr.live_bytes, rank_offsets()
         out = step(*args)
         del out, args
     out = {"collectives": tr.collectives(), "peak": tr.peak, "flops": tr.flops,
-           "flops_by_op": tr.flops_by_op, "args_live": args_live}
+           "flops_by_op": tr.flops_by_op, "args_live": args_live,
+           "rank_offsets": rank_offsets() - offsets}
     if keep_peak:
         out["peak_live"] = tr.peak_live()
     return out
@@ -287,14 +299,17 @@ def trace_step(cfg: C.ModelConfig, shape: ShapeSpec, mesh, *, remat: str = "dots
 def trace_cell(cfg: C.ModelConfig, shape: ShapeSpec, mesh_dims: Dict[str, int],
                **kw) -> Dict[str, Any]:
     """``trace_step`` at each of ``traced_depths(cfg)`` on the fake mesh of
-    ``mesh_dims``, extrapolated to the config's depth (``extrapolate``):
-    the collective record, ``peak``, ``flops`` and ``flops_by_op`` (each
-    operation's, by ``StepTrace``'s key, largest first) per device, and the
-    seconds the traces took."""
+    ``mesh_dims`` as rank 0, extrapolated to the config's depth
+    (``extrapolate``): the collective record, ``peak``, ``flops`` and
+    ``flops_by_op`` (each operation's, by ``StepTrace``'s key, largest
+    first) per device, and the seconds the traces took.  Where a trace
+    placed a block at a rank-dependent offset, the last rank's step is
+    traced too: ``flops_last_rank`` and ``peak_last_rank`` (else rank 0's
+    figures, ``last_rank_traced`` false)."""
     t0 = time.perf_counter()
     mesh = fake_mesh(mesh_dims)
     runs = {n: trace_step(depth_cut(cfg, n), shape, mesh, **kw) for n in traced_depths(cfg)}
-    at = lambda fn: extrapolate(cfg, {n: fn(r) for n, r in runs.items()})
+    at = lambda fn, runs=runs: extrapolate(cfg, {n: fn(r) for n, r in runs.items()})
     from .step_trace import KINDS
 
     coll = {
@@ -304,13 +319,22 @@ def trace_cell(cfg: C.ModelConfig, shape: ShapeSpec, mesh_dims: Dict[str, int],
     coll["total_bytes"] = sum(coll["bytes"].values())
     keys = {k for r in runs.values() for k in r["flops_by_op"]}
     by_op = {k: at(lambda r, k=k: r["flops_by_op"].get(k, 0)) for k in keys}
-    return {"collectives": coll, "peak": at(lambda r: r["peak"]),
-            "flops_by_op": dict(sorted(by_op.items(), key=lambda kv: -kv[1])),
-            "flops": at(lambda r: r["flops"]), "args_live": at(lambda r: r["args_live"]),
-            "trace_s": time.perf_counter() - t0, "depths": list(runs),
-            "per_depth": {n: {"peak": r["peak"], "flops": r["flops"],
-                              "total_bytes": r["collectives"]["total_bytes"]}
-                          for n, r in runs.items()}}
+    out = {"collectives": coll, "peak": at(lambda r: r["peak"]),
+           "flops_by_op": dict(sorted(by_op.items(), key=lambda kv: -kv[1])),
+           "flops": at(lambda r: r["flops"]), "args_live": at(lambda r: r["args_live"]),
+           "depths": list(runs),
+           "per_depth": {n: {"peak": r["peak"], "flops": r["flops"],
+                             "total_bytes": r["collectives"]["total_bytes"]}
+                         for n, r in runs.items()}}
+    out["last_rank_traced"] = any(r["rank_offsets"] for r in runs.values())
+    out["flops_last_rank"], out["peak_last_rank"] = out["flops"], out["peak"]
+    if out["last_rank_traced"]:
+        last = fake_mesh(mesh_dims, axes_size(mesh_dims, mesh_dims) - 1)
+        lasts = {n: trace_step(depth_cut(cfg, n), shape, last, **kw) for n in runs}
+        out["flops_last_rank"] = at(lambda r: r["flops"], lasts)
+        out["peak_last_rank"] = at(lambda r: r["peak"], lasts)
+    out["trace_s"] = time.perf_counter() - t0
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -338,8 +362,9 @@ def run_cell(
     """One cell's record: the accounting of its step's arguments and, with
     ``trace``, its step traced on the fake production mesh (``trace_cell``)
     under ``act_rules``: the collectives, the peak bytes (which decide
-    ``fits_hbm``; None without ``trace``) and the FLOPs per device, also
-    by operation (``traced_flops_by_op``).  ``smoke``: the smoke configs
+    ``fits_hbm``; None without ``trace``) and the FLOPs per device of the
+    heavier of rank 0 and the last rank (each rank's, and rank 0's by
+    operation, ``traced_flops_by_op``).  ``smoke``: the smoke configs
     and shapes.  ``peak_live``: also trace the step once at full depth
     and record the bytes alive at its peak by the operation and shape that
     made them (``peak_live``, the largest ``PEAK_LIVE_SHOWN``)."""
@@ -398,7 +423,7 @@ def run_cell(
                             act_rules=act_rules)
         if traced["peak"] < args:  # the arguments are alive through the step
             raise RuntimeError(f"traced peak {traced['peak']} below the arguments' {args} bytes")
-        bytes_per_device["peak"] = traced["peak"]
+        bytes_per_device["peak"] = max(traced["peak"], traced["peak_last_rank"])
 
     terms = analytic_terms(
         cfg, shape.kind, shape.seq_len, shape.global_batch, dict(mesh), remat=remat, fsdp=fsdp,
@@ -420,7 +445,7 @@ def run_cell(
         device=device,
         device_memory_bytes=memory,
         # only the traced peak decides it: ``args`` is a lower bound
-        fits_hbm=bool(traced["peak"] <= memory) if trace else None,
+        fits_hbm=bool(bytes_per_device["peak"] <= memory) if trace else None,
         flops_per_device=terms.flops,
         bytes_accessed_per_device=terms.hbm_bytes,
         collective_wire_bytes_per_device=terms.wire_bytes,
@@ -438,14 +463,21 @@ def run_cell(
         rec["peak_live"] = {"peak": whole["peak"],
                             "by_origin": dict(list(whole["peak_live"].items())[:PEAK_LIVE_SHOWN])}
     if trace:
-        rec.update(collectives=traced["collectives"], traced_flops_per_device=traced["flops"],
+        heavier = traced["peak_last_rank"] > traced["peak"]
+        rec.update(collectives=traced["collectives"],
+                   traced_flops_per_device=max(traced["flops"], traced["flops_last_rank"]),
+                   traced_flops_rank0=traced["flops"],
+                   traced_flops_last_rank=traced["flops_last_rank"],
+                   last_rank_traced=traced["last_rank_traced"],
+                   peak_rank=chips - 1 if heavier else 0,
                    trace_s=round(traced["trace_s"], 2), traced_depths=traced["depths"],
                    traced_per_depth=traced["per_depth"], args_live=traced["args_live"],
                    traced_flops_by_op=traced["flops_by_op"])
     if verbose:
-        extra = (f" peak/dev={traced['peak'] / 2**30:8.2f}GiB"
+        extra = (f" peak/dev={bytes_per_device['peak'] / 2**30:8.2f}GiB"
                  f" coll/dev={traced['collectives']['total_bytes']:.3e}"
-                 f" traced_flops/dev={traced['flops']:.3e} trace={traced['trace_s']:6.1f}s"
+                 f" traced_flops/dev={rec['traced_flops_per_device']:.3e}"
+                 f" (rank 0 {traced['flops']:.3e}) trace={traced['trace_s']:6.1f}s"
                  if trace else "")
         print(f"[{rec['mesh']}] {arch:28s} {shape_name:12s} args/dev={args / 2**30:8.2f}GiB"
               f"{extra} fits={rec['fits_hbm']} ({device}) analytic_flops/dev={terms.flops:.3e}",

@@ -65,12 +65,14 @@ def init_single_process(device: str = "cuda") -> None:
                             timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
 
 
-def make_fake_mesh(shape: Dict[str, int]):
+def make_fake_mesh(shape: Dict[str, int], rank: int = 0):
     """A ``DeviceMesh`` of ``shape`` (ordered ``{axis: size}``, e.g.
     ``make_production_mesh()``) on CPU over a "fake" process group of that
-    many ranks, this process rank 0: collectives return tensors of the
-    right shapes and move nothing.  A process has one default group, so
-    this raises if one is already up: the dry run owns its process."""
+    many ranks, this process playing ``rank`` (its coordinates on the mesh,
+    major axis first; the last rank holds the last block on every axis):
+    collectives return tensors of the right shapes and move nothing.  A
+    process has one default group, so this raises if one is already up:
+    the dry run owns its process."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -83,19 +85,40 @@ def make_fake_mesh(shape: Dict[str, int]):
     chips = 1
     for size in shape.values():
         chips *= size
-    dist.init_process_group("fake", store=dist.HashStore(), rank=0, world_size=chips)
+    if not 0 <= rank < chips:
+        raise ValueError(f"make_fake_mesh: rank {rank} is not on a mesh of {chips} ranks")
+    dist.init_process_group("fake", store=dist.HashStore(), rank=rank, world_size=chips)
     _install_fake_alltoall()
     return init_device_mesh("cpu", tuple(shape.values()), mesh_dim_names=tuple(shape))
 
 
 def close_fake_mesh() -> None:
-    """Destroy the fake group of ``make_fake_mesh`` and put DTensor's own
-    shard-to-shard move back."""
+    """Destroy the fake group of ``make_fake_mesh``, put DTensor's own
+    shard-to-shard move back and empty DTensor's caches: a ``DeviceMesh``
+    equals any other of its layout whatever rank it was made for, so a
+    plan cached for a mesh that is gone would name its process groups."""
     import torch.distributed as dist
 
     _uninstall_fake_alltoall()
     if dist.is_initialized():
         dist.destroy_process_group()
+    _clear_dtensor_caches()
+
+
+def _clear_dtensor_caches() -> None:
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import _collective_utils, _redistribute
+
+    prop = DTensor._op_dispatcher.sharding_propagator
+    native = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache", None)
+    if native is not None:  # the dispatch's own cache in C++
+        native()
+    for fn in (getattr(prop, "propagate_op_sharding", None),
+               getattr(prop, "_propagate_tensor_meta_cached", None),
+               getattr(_redistribute, "_gen_transform_infos", None),
+               getattr(getattr(_collective_utils, "MeshTopoInfo", None), "build_from_mesh", None)):
+        if hasattr(fn, "cache_clear"):
+            fn.cache_clear()
 
 
 # DTensor moves a tensor from one split dimension to another (``Shard(a)`` to

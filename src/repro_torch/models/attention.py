@@ -33,8 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from ..act_sharding import (active_mesh, active_spec, block_start, flatten_heads, is_dtensor,
-                            local_call, mesh_shape, row_parallel, sequence_parallel, split_ranks,
-                            unflatten, view_heads)
+                            keep, local_call, mesh_shape, rebuilding_graph, replaying,
+                            row_parallel, sequence_parallel, split_ranks, unflatten, view_heads,
+                            work_label)
 from .layers import ParamFactory, apply_rope, rotate
 
 NEG_INF = -1e30
@@ -192,17 +193,18 @@ class _Flash(torch.autograd.Function):
         m = torch.full(qf.shape[:-1], -float("inf"), dtype=torch.float32, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros_like(qf)
-        for r0, j in _flash_chunks(sq, sk, ck, causal, q_offset):
-            kj = torch.arange(j, j + ck, device=q.device)
-            logits = _logits(qf[:, :, r0:], _heads(k[:, j:j + ck]),
-                             _masked(qi[r0:], kj, causal, window))
-            m_old = m[:, :, r0:]
-            m_new = torch.maximum(m_old, logits.amax(dim=-1))
-            p = logits.sub_(m_new[..., None]).exp_()
-            corr = torch.exp(m_old - m_new)
-            l[:, :, r0:] = l[:, :, r0:] * corr + p.sum(dim=-1)
-            acc[:, :, r0:] = acc[:, :, r0:] * corr[..., None] + _pv(p, _heads(v[:, j:j + ck]))
-            m[:, :, r0:] = m_new
+        with work_label("attention"):
+            for r0, j in _flash_chunks(sq, sk, ck, causal, q_offset):
+                kj = torch.arange(j, j + ck, device=q.device)
+                logits = _logits(qf[:, :, r0:], _heads(k[:, j:j + ck]),
+                                 _masked(qi[r0:], kj, causal, window))
+                m_old = m[:, :, r0:]
+                m_new = torch.maximum(m_old, logits.amax(dim=-1))
+                p = logits.sub_(m_new[..., None]).exp_()
+                corr = torch.exp(m_old - m_new)
+                l[:, :, r0:] = l[:, :, r0:] * corr + p.sum(dim=-1)
+                acc[:, :, r0:] = acc[:, :, r0:] * corr[..., None] + _pv(p, _heads(v[:, j:j + ck]))
+                m[:, :, r0:] = m_new
         o = acc.div_(l.clamp(min=1e-30)[..., None])
         ctx.save_for_backward(q, k, v, o, m + torch.log(l))
         ctx.args = (causal, window, q_offset)
@@ -221,15 +223,16 @@ class _Flash(torch.autograd.Function):
         qi = torch.arange(q_offset, q_offset + sq, device=q.device)
         # a chunk after the last query is skipped: its dK and dV stay zero
         dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(k), torch.zeros_like(v)
-        for r0, j in _flash_chunks(sq, sk, ck, causal, q_offset):
-            kc, vc, doc = _heads(k[:, j:j + ck]), _heads(v[:, j:j + ck]), do[:, :, r0:]
-            kj = torch.arange(j, j + ck, device=q.device)
-            p = _logits(qf[:, :, r0:], kc, _masked(qi[r0:], kj, causal, window))
-            p = p.sub_(lse[:, :, r0:, :, None]).exp_()
-            dv[:, j:j + ck] = _tp(p, doc).transpose(1, 2)
-            ds = _pv(doc, vc.transpose(-1, -2)).sub_(delta[:, :, r0:]).mul_(p)
-            dq[:, :, r0:] += _pv(ds, kc)
-            dk[:, j:j + ck] = _tp(ds, qf[:, :, r0:]).transpose(1, 2)
+        with work_label("attention"):
+            for r0, j in _flash_chunks(sq, sk, ck, causal, q_offset):
+                kc, vc, doc = _heads(k[:, j:j + ck]), _heads(v[:, j:j + ck]), do[:, :, r0:]
+                kj = torch.arange(j, j + ck, device=q.device)
+                p = _logits(qf[:, :, r0:], kc, _masked(qi[r0:], kj, causal, window))
+                p = p.sub_(lse[:, :, r0:, :, None]).exp_()
+                dv[:, j:j + ck] = _tp(p, doc).transpose(1, 2)
+                ds = _pv(doc, vc.transpose(-1, -2)).sub_(delta[:, :, r0:]).mul_(p)
+                dq[:, :, r0:] += _pv(ds, kc)
+                dk[:, j:j + ck] = _tp(ds, qf[:, :, r0:]).transpose(1, 2)
         return _unrows(dq * scale, q.dtype), dk, dv, None, None, None
 
 
@@ -250,18 +253,12 @@ def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: b
 
 
 def _band(x: torch.Tensor, i: int, c: int, p: int) -> torch.Tensor:
-    """Keys or values (B, KVH, S, D) of query chunk i's band: chunks i - p to
-    i, oldest first, those before position 0 zeros -> (B, KVH, (p+1) c, D)."""
-    lo = (i - p) * c
-    band = x[:, :, max(lo, 0):(i + 1) * c]
-    return F.pad(band, (0, 0, -lo, 0)) if lo < 0 else band
-
-
-def _band_scatter(acc: torch.Tensor, grad: torch.Tensor, i: int, c: int, p: int) -> None:
-    """Add a band's gradient (B, KVH, (p+1) c, D) into acc (B, KVH, S, D),
-    dropping the zero chunks before position 0."""
-    lo = (i - p) * c
-    acc[:, :, max(lo, 0):(i + 1) * c] += grad[:, :, max(-lo, 0):]
+    """Keys or values (B, KVH, S, D) of query chunk i's band: chunks
+    ``max(i - p, 0)`` to i, oldest first -> (B, KVH, (min(i, p) + 1) c, D).
+    The reference's band also holds the chunks before position 0, as zeros
+    that its mask leaves out; they add nothing to the softmax or the
+    output, and are not made here."""
+    return x[:, :, max(i - p, 0) * c:(i + 1) * c]
 
 
 def _check_banded(s: int, window: int) -> Tuple[int, int]:
@@ -275,15 +272,12 @@ def _check_banded(s: int, window: int) -> Tuple[int, int]:
 
 def _band_probs(qc: torch.Tensor, kb: torch.Tensor, i: int, c: int, p: int,
                 window: int) -> torch.Tensor:
-    """Query chunk i's softmax (B, KVH, c, G, (p+1) c) over its band: the
-    reference's ``valid`` mask (causal, inside the window, not before
-    position 0), ``exp(x - max) / sum`` as ``jax.nn.softmax``."""
-    kj = torch.arange((p + 1) * c, device=qc.device)
-    qi = torch.arange(c, device=qc.device)
-    bad = ((kj[None, :] > qi[:, None] + p * c)
-           | (kj[None, :] <= qi[:, None] + p * c - window)
-           | (kj[None, :] + (i - p) * c < 0))
-    logits = _logits(qc, kb, bad[:, None, :])
+    """Query chunk i's softmax (B, KVH, c, G, keys) over its band (``_band``):
+    the reference's ``valid`` mask (causal, inside the window),
+    ``exp(x - max) / sum`` as ``jax.nn.softmax``."""
+    qi = torch.arange(i * c, (i + 1) * c, device=qc.device)
+    kj = torch.arange(max(i - p, 0) * c, (i + 1) * c, device=qc.device)
+    logits = _logits(qc, kb, _masked(qi, kj, True, window))
     probs = logits.sub_(logits.amax(dim=-1, keepdim=True)).exp_()
     return probs.div_(probs.sum(dim=-1, keepdim=True))
 
@@ -291,21 +285,32 @@ def _band_probs(qc: torch.Tensor, kb: torch.Tensor, i: int, c: int, p: int,
 class _Banded(torch.autograd.Function):
     """The reference's ``_banded_attend``: query chunk i (of ``c = min(window,
     512, S)`` tokens) against key chunks i - window/c to i, a softmax over
-    the band; backward recomputes each query chunk's softmax."""
+    the band; backward recomputes each query chunk's softmax from q, k and
+    v alone.  So the forward pass runs its products once a step: in a
+    remat "dots" unit its output is kept (``act_sharding.keep``) and the
+    backward pass's rerun of the unit (``replaying``) takes it back without
+    a product, and where ``act_sharding``'s local region makes its graph
+    again (``rebuilding_graph``) the output's values are not needed."""
 
     @staticmethod
     def forward(ctx, q, k, v, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.window = window
+        if rebuilding_graph():
+            return torch.empty_like(q)
+        if replaying():
+            return keep(torch.empty_like(q))
         b, s, h, d = q.shape
         c, p = _check_banded(s, window)
         qf = _rows(q.float() * d ** -0.5, k.shape[2])
         kf, vf = _heads(k), _heads(v)
         out = torch.empty_like(qf)
-        for i in range(s // c):
-            probs = _band_probs(qf[:, :, i * c:(i + 1) * c], _band(kf, i, c, p), i, c, p, window)
-            out[:, :, i * c:(i + 1) * c] = _pv(probs, _band(vf, i, c, p))
-        ctx.save_for_backward(q, k, v)
-        ctx.window = window
-        return _unrows(out, q.dtype)
+        with work_label("attention"):
+            for i in range(s // c):
+                probs = _band_probs(qf[:, :, i * c:(i + 1) * c], _band(kf, i, c, p), i, c, p,
+                                    window)
+                out[:, :, i * c:(i + 1) * c] = _pv(probs, _band(vf, i, c, p))
+        return keep(_unrows(out, q.dtype))
 
     @staticmethod
     def backward(ctx, dout):
@@ -318,16 +323,17 @@ class _Banded(torch.autograd.Function):
         kf, vf = _heads(k), _heads(v)
         do = _rows(dout, k.shape[2])
         dq, dk, dv = torch.empty_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
-        for i in range(s // c):
-            rows = slice(i * c, (i + 1) * c)
-            qc, doc = qf[:, :, rows], do[:, :, rows]
-            kb, vb = _band(kf, i, c, p), _band(vf, i, c, p)
-            probs = _band_probs(qc, kb, i, c, p, window)
-            _band_scatter(dv, _tp(probs, doc), i, c, p)
-            dp = _pv(doc, vb.transpose(-1, -2))
-            ds = dp.sub_((dp * probs).sum(dim=-1, keepdim=True)).mul_(probs)
-            dq[:, :, rows] = _pv(ds, kb) * scale
-            _band_scatter(dk, _tp(ds, qc), i, c, p)
+        with work_label("attention"):
+            for i in range(s // c):
+                rows, keys = slice(i * c, (i + 1) * c), slice(max(i - p, 0) * c, (i + 1) * c)
+                qc, doc = qf[:, :, rows], do[:, :, rows]
+                kb, vb = kf[:, :, keys], vf[:, :, keys]
+                probs = _band_probs(qc, kb, i, c, p, window)
+                dv[:, :, keys] += _tp(probs, doc)
+                dp = _pv(doc, vb.transpose(-1, -2))
+                ds = dp.sub_((dp * probs).sum(dim=-1, keepdim=True)).mul_(probs)
+                dq[:, :, rows] = _pv(ds, kb) * scale
+                dk[:, :, keys] += _tp(ds, qc)
         return (_unrows(dq, q.dtype), dk.transpose(1, 2).to(k.dtype),
                 dv.transpose(1, 2).to(v.dtype), None)
 
@@ -337,9 +343,10 @@ def banded_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal attention of q (B, S, H, D) over k, v (B, S, KVH, D) keeping
     the keys less than ``window`` positions behind each query, the
     reference's ``_banded_attend``: O(S x window) work in float32, chunks
-    of ``c = min(window, 512, S)``, each query chunk against ``window // c
-    + 1`` key chunks (those before position 0 zeros, masked), a softmax
-    over the band, the output in q's dtype.  Raises ``ValueError`` unless
+    of ``c = min(window, 512, S)``, each query chunk against the ``window
+    // c + 1`` key chunks that end with its own (fewer near position 0,
+    where the reference's are zeros, masked), a softmax over the band, the
+    output in q's dtype.  Raises ``ValueError`` unless
     ``c`` divides S and the window, as the reference asserts."""
     return _Banded.apply(q, k, v, window)
 

@@ -263,7 +263,7 @@ def check_remat(remat: str) -> None:
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
-    if keeping_result():  # a row-parallel product keeps its scattered result
+    if keeping_result():  # a result kept through ``act_sharding.keep``
         return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.alias.default
                 else CheckpointPolicy.PREFER_RECOMPUTE)
     return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS

@@ -28,6 +28,16 @@ and ``_banded_attend``, on the CPU.
 * ``_tp``'s row blocks add up to the whole product.
 * Clock-free memory: no tensor saved for the backward pass of an attention
   layer at S = 2,048 has Sq x Sk elements (the plain version's do).
+* A banded layer over 8 chunks with a window of 4 chunks (so the first
+  four query chunks' bands start before position 0) under remat "none",
+  "dots" and "full" (``transformer.remat_call``) equals the plain version
+  within 3e-5, its gradients within 1e-4, and "dots" and "full" equal
+  "none" within 1e-5 relative.  ``FlopCounterMode`` over one forward and
+  backward of it counts the band's products at ``BAND_PASSES`` (the
+  forward's two, the backward's recompute and four) over each chunk's
+  keys from position 0 on: none against a chunk before position 0, and
+  under "dots" none replayed (the unit keeps the band's output); "full"
+  replays the forward's two.
 """
 
 import jax
@@ -35,6 +45,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from torch.utils.flop_counter import FlopCounterMode
 
 import repro.models.attention as RA
 from repro.models.layers import ParamFactory as RefFactory
@@ -326,3 +338,71 @@ def test_encoder_and_cross_attention_reach_flash(monkeypatch):
         del calls[:]
         encdec.decoder_logits(params, enc, toks, cfg)
     assert calls == [("flash_attend", True), ("flash_attend", False)] * cfg.num_layers
+
+
+
+# A banded unit over 8 chunks of 512 with a window of 4 chunks (the
+# reference's RecurrentGemma-2B layer at 4,096 tokens, narrowed): the
+# schedules' limits, and how many products the band takes a query chunk
+# under each remat policy (forward 2, backward 5, and "full" replays the
+# forward).
+BAND_S, BAND_WINDOW, BAND_CHUNK, BAND_GROUPS = 4096, 2048, 512, 2
+BAND_TOL, BAND_GRAD_TOL, REMAT_RTOL = 3e-5, 1e-4, 1e-5
+BAND_PASSES = {"none": 7, "dots": 7, "full": 9}
+
+
+def _banded_unit(remat: str, ts):
+    from repro_torch.models.transformer import remat_call
+
+    return remat_call(lambda *a: attention.banded_attend(*a, window=BAND_WINDOW), remat, *ts)
+
+
+def _grads(fn, ts, w):
+    out = fn()
+    return out.detach(), torch.autograd.grad((out * w).sum(), ts)
+
+
+@pytest.fixture(scope="module")
+def band_inputs():
+    (q, k, v), w = _qkv(BAND_S, BAND_GROUPS, seed=11)
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    w = torch.from_numpy(w)
+    plain = _grads(lambda: attention.attend_plain(*ts, causal=True, window=BAND_WINDOW), ts, w)
+    none = _grads(lambda: _banded_unit("none", ts), ts, w)
+    return ts, w, plain, none
+
+
+@pytest.mark.parametrize("remat", ["none", "dots", "full"])
+def test_banded_under_remat_matches_plain_version(band_inputs, remat):
+    ts, w, (want, want_grads), (_, none_grads) = band_inputs
+    assert attention._banded(BAND_S, BAND_WINDOW)
+    out, grads = _grads(lambda: _banded_unit(remat, ts), ts, w)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=BAND_TOL)
+    for name, g, ref, g0 in zip("qkv", grads, want_grads, none_grads):
+        np.testing.assert_allclose(g.numpy(), ref.numpy(), atol=BAND_GRAD_TOL, err_msg=name)
+        np.testing.assert_allclose(g.numpy(), g0.numpy(), rtol=REMAT_RTOL,
+                                   atol=REMAT_RTOL * float(g0.abs().max()), err_msg=name)
+
+
+def _band_units(s: int, window: int, c: int) -> int:
+    """Query rows x keys over each query chunk's band from position 0 on."""
+    p = window // c
+    return sum(c * (min(i, p) + 1) * c for i in range(s // c))
+
+
+@pytest.mark.parametrize("remat", ["none", "dots", "full"])
+def test_banded_products_under_remat(band_inputs, remat):
+    """The band's products (every ``aten.bmm`` of the unit) over one forward
+    and backward: ``BAND_PASSES[remat]`` products of 2 x H x D x rows x
+    keys over each query chunk's keys from position 0 on, so none against
+    a chunk before position 0 (fewer than the whole bands' count)."""
+    ts, w, _, _ = band_inputs
+    with FlopCounterMode(display=False) as fc:
+        _grads(lambda: _banded_unit(remat, ts), ts, w)
+    flops = sum(n for op, n in fc.get_flop_counts()["Global"].items()
+                if op is torch.ops.aten.bmm)
+    b, s, h, d = ts[0].shape
+    per_pass = 2 * b * h * d * _band_units(BAND_S, BAND_WINDOW, BAND_CHUNK)
+    assert flops == BAND_PASSES[remat] * per_pass, flops / per_pass
+    whole = 2 * b * h * d * (s // BAND_CHUNK) * BAND_CHUNK * (BAND_WINDOW + BAND_CHUNK)
+    assert per_pass < whole

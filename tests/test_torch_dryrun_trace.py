@@ -12,6 +12,11 @@ Run: PYTHONPATH=src python -m pytest -q tests/test_torch_dryrun_trace.py
   shift as one collective-permute), a storage shared by views once (and
   names it at the peak: ``keep_peak``), and a sharded product's FLOPs per
   device.
+* On a fake 4 x 4 mesh, a smoke config whose heads do not split "model":
+  the last rank (15) attends its query rows against their whole causal
+  key range, rank 0 its own shorter one (``FLASH_PASSES_DOTS`` products a
+  key chunk), the rest of their work equal; the record traces both and
+  reports the heavier; where the heads split, it traces rank 0 alone.
 * At smoke widths, the straight-line extrapolation from one and two periods
   of ``block_pattern`` (and the remainder) equals a trace at the full
   depth: collective counts and bytes and FLOPs exactly, the peak within
@@ -25,8 +30,9 @@ Run: PYTHONPATH=src python -m pytest -q tests/test_torch_dryrun_trace.py
   holds the whole step): on TinyLlama's and Mixtral's smoke prefill and
   decode cells on both meshes, the traced FLOPs per device equal the
   matrix-product FLOPs of the reference's compiled SPMD module
-  (``_hlo_dot_flops``: 2 x result elements x contracted size over its
-  ``dot`` instructions, what ``FlopCounterMode`` counts; XLA's
+  (``tools/reference_buffers.py``'s ``hlo_dots``: 2 x result elements x
+  contracted size over its ``dot`` instructions, what
+  ``FlopCounterMode`` counts; XLA's
   ``cost_analysis`` adds every elementwise operation); every collective
   kind the reference's module issues, the trace issues.
 * The train cells (TinyLlama's, Mixtral's and RWKV6's), at a smoke batch
@@ -40,9 +46,11 @@ Run: PYTHONPATH=src python -m pytest -q tests/test_torch_dryrun_trace.py
   exactly those ``SMOKE_KINDS_APART`` pins (RWKV6's collective-permute is
   in it).
 * Full size: the port's traced peak of TinyLlama's, Phi-3-medium's,
-  RWKV6's and Whisper's ``train_4k`` on both meshes at most
-  ``PEAK_OVER_REFERENCE`` times the reference's compiled peak
-  (``memory_analysis``: compiled here, or ``REFERENCE_PEAKS``);
+  RWKV6's, Whisper's and RecurrentGemma's ``train_4k`` on both meshes at
+  most ``PEAK_OVER_REFERENCE`` times the reference's compiled peak
+  (``memory_analysis``: compiled here, or ``REFERENCE_PEAKS``), and their
+  heaviest rank's FLOPs at most ``FLOPS_OVER_REFERENCE`` times the
+  reference's compiled matrix products (``REFERENCE_DOT_FLOPS``);
   TinyLlama's and RWKV6's moves between splits are all-to-alls (RWKV6's
   token shift a collective-permute); TinyLlama's loss head traces
   ``TINYLLAMA_LOSS_HEAD_FLOPS`` a device (the vocabulary split over 16
@@ -117,30 +125,16 @@ class _Child:
 REF_ARCHS = ("tinyllama-1.1b", "mixtral-8x7b")
 REF_SHAPES = ("prefill_32k", "decode_32k")
 
+# The reference's side: ``tools/reference_buffers.py``'s counter of the
+# compiled module's matrix products (``hlo_dots``), run from the repo's root.
 _HLO = r"""
-import json, math, re
+import json, sys
+sys.path.insert(0, "tools")
 import repro.launch.dryrun as R  # first: it fakes 512 host devices
+from reference_buffers import capture_modules, compiled_dots, hlo_dot_flops
 from repro.configs import SMOKE_SHAPES, ShapeSpec, get_config
 from repro.models import scan_mode
-texts = []
-_collective_bytes = R.collective_bytes
-R.collective_bytes = lambda text: (texts.append(text), _collective_bytes(text))[1]
-DEF = re.compile(r"^\s*(?:ROOT\s+)?%?([\w.\-]+) = \w+\[([0-9,]*)\]")
-DOT = re.compile(r"^\s*(?:ROOT\s+)?%?([\w.\-]+) = \w+\[([0-9,]*)\]\S* "
-                 r"dot\(%?([\w.\-]+), %?([\w.\-]+)\).*?lhs_contracting_dims=\{([0-9,]*)\}")
-dims = lambda s: [int(d) for d in s.split(",") if d]
-
-def hlo_dots(text):  # (operand and result dimensions, FLOPs) of each dot
-    shapes = {m.group(1): dims(m.group(2)) for m in map(DEF.match, text.splitlines()) if m}
-    out = []
-    for m in filter(None, map(DOT.match, text.splitlines())):
-        lhs, rhs, res = shapes[m.group(3)], shapes[m.group(4)], dims(m.group(2))
-        flops = 2 * math.prod(res) * math.prod(lhs[c] for c in dims(m.group(5)))
-        out.append((lhs + rhs + res, flops))
-    return out
-
-def hlo_dot_flops(text):
-    return sum(f for _, f in hlo_dots(text))
+texts = capture_modules(R)
 """
 
 _REF_CELLS = _HLO + r"""
@@ -177,9 +171,12 @@ TRAIN_ARCHS = REF_ARCHS + ("rwkv6-1.6b",)
 # others' peaks are pinned: its ``memory_analysis`` by
 # ``PYTHONPATH=src python tools/reference_buffers.py --arch all --mesh both``
 # (jax 0.9.0, XLA:CPU, 512 forced host devices).
-PEAK_ARCHS = ("tinyllama-1.1b", "phi3-medium-14b", "rwkv6-1.6b", "whisper-small")
+PEAK_ARCHS = ("tinyllama-1.1b", "phi3-medium-14b", "rwkv6-1.6b", "whisper-small",
+              "recurrentgemma-2b")
 LIVE_PEAK_ARCHS = ("tinyllama-1.1b", "phi3-medium-14b")
-REFERENCE_PEAKS = {("tinyllama-1.1b", "2x16x16"): 5_387_409_328,
+REFERENCE_PEAKS = {("recurrentgemma-2b", "16x16"): 32_744_027_096,
+                   ("recurrentgemma-2b", "2x16x16"): 20_861_818_928,
+                   ("tinyllama-1.1b", "2x16x16"): 5_387_409_328,
                    ("phi3-medium-14b", "2x16x16"): 32_431_071_952,
                    ("rwkv6-1.6b", "16x16"): 15_633_660_072,
                    ("rwkv6-1.6b", "2x16x16"): 9_056_553_800,
@@ -188,32 +185,18 @@ REFERENCE_PEAKS = {("tinyllama-1.1b", "2x16x16"): 5_387_409_328,
 
 _REF_TRAIN = _HLO + r"""
 import repro.configs as RC
-import repro.models.transformer as T
-
-def chunked_ce_loss(*args, _ce=T.chunked_ce_loss):
-    # the loss head as the reference's step runs it, in checkpointed chunks:
-    # its unrolled cost mode takes it whole, without the recompute
-    unroll = T.scan_unroll
-    T.scan_unroll = lambda: False
-    try:
-        return _ce(*args)
-    finally:
-        T.scan_unroll = unroll
-
-T.chunked_ce_loss = chunked_ce_loss
 R.SHAPES = dict(SMOKE_SHAPES, train_4k=ShapeSpec(*TRAIN_SMOKE))
 R.get_config = lambda arch: get_config(arch, smoke=True)
 smoke = []
 for multi_pod in (False, True):
     for arch in ARCHS:
-        with scan_mode.unrolled():
-            rec = R.run_cell(arch, "train_4k", multi_pod=multi_pod, verbose=False)
+        # the loss head in checkpointed chunks, as the step runs it
+        rec, dots, loops = compiled_dots(R, texts, arch, "train_4k", multi_pod)
         vocab = get_config(arch, smoke=True).vocab_size
-        dots = hlo_dots(texts[-1])
         smoke.append(dict(arch=arch, shape="train_4k", mesh=rec["mesh"],
                           dot_flops=sum(f for _, f in dots), cost_flops=rec["hlo_body_flops"],
                           vocab_flops=sum(f for d, f in dots if vocab in d),
-                          loops=texts[-1].count(" while("), counts=rec["collectives"]["counts"]))
+                          loops=loops, counts=rec["collectives"]["counts"]))
 R.SHAPES, R.get_config = RC.SHAPES, RC.get_config
 peaks = {arch: R.run_cell(arch, "train_4k", verbose=False)["bytes_per_device"]["peak"]
          for arch in LIVE_PEAK_ARCHS}
@@ -239,6 +222,40 @@ print(json.dumps(dict(peak=rec["bytes_per_device"]["peak"], flops=rec["traced_fl
                       by_op=rec["traced_flops_by_op"], counts=rec["collectives"]["counts"])))
 """
 MESHES = ("16x16", "2x16x16")
+
+# Heads that do not split "model": a smoke config of 6 query and 2 KV
+# heads, one layer, at 2,048 tokens (4 blocks of 512 query rows, each one
+# key chunk) on a fake 4 x 4 mesh, traced as rank 0 and as the last rank
+# (15), and its record; and the smoke config itself (4 heads, which split),
+# whose ranks do the same work.
+RANKS_MESH = {"data": 4, "model": 4}
+RANKS_SHAPE = ("train_4k", "train", 2048, 4)
+RANKS_HEADS = (6, 2)
+_RANKS = r"""
+import json
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.launch import dryrun
+smoke = get_config("tinyllama-1.1b", smoke=True)
+configs = {"apart": smoke.replace(num_heads=HEADS[0], num_kv_heads=HEADS[1], num_layers=1),
+           "split": smoke.replace(num_layers=1)}
+shape = ShapeSpec(*SHAPE)
+out = {}
+for name, cfg in configs.items():
+    for rank in (0, 15):
+        r = dryrun.trace_step(cfg, shape, dryrun.fake_mesh(MESH, rank))
+        out[f"{name}_{rank}"] = dict(
+            flops=r["flops"], offsets=r["rank_offsets"],
+            attention=sum(n for k, n in r["flops_by_op"].items() if k.startswith("attention/")))
+    dryrun.get_config = lambda arch, smoke=False, cfg=cfg: cfg
+    dryrun.SMOKE_SHAPES = dict(dryrun.SMOKE_SHAPES, train_4k=shape)
+    dryrun.make_production_mesh = lambda multi_pod=False: dict(MESH)
+    rec = dryrun.run_cell(cfg.name, "train_4k", smoke=True, verbose=False)
+    out[f"{name}_record"] = {k: rec[k] for k in (
+        "traced_flops_per_device", "traced_flops_rank0", "traced_flops_last_rank",
+        "last_rank_traced", "peak_rank", "bytes_per_device")}
+dryrun.close_fake_mesh()
+print(json.dumps(out))
+"""
 
 _ACT_RULES = r"""
 import json
@@ -269,6 +286,8 @@ def children(tmp_path_factory):
         "ref": _Child([sys.executable, "-c", consts + _REF_CELLS], 240),
         "port": _Child([sys.executable, "-c", consts + _PORT_CELLS], 240),
         "act_rules": _Child([sys.executable, "-c", _ACT_RULES], 240),
+        "ranks": _Child([sys.executable, "-c", f"MESH = {RANKS_MESH!r}\nSHAPE = {RANKS_SHAPE!r}\n"
+                         f"HEADS = {RANKS_HEADS!r}\n" + _RANKS], 240),
         "ref_train": _Child([sys.executable, "-c", train + _REF_TRAIN], 240),
         "port_train": _Child([sys.executable, "-c", train + _PORT_TRAIN], 240),
         **{f"full_{arch}_{mesh}": _Child([sys.executable, "-c", f"ARCH = {arch!r}\nMULTI_POD = "
@@ -456,7 +475,9 @@ def test_cli_smoke_cells_on_both_meshes(children, arch):
         assert set(c["collectives"]) == {"bytes", "counts", "total_bytes"}
         assert c["collectives"]["total_bytes"] > 0
         assert c["traced_flops_per_device"] > 0 and c["trace_s"] > 0
-        assert sum(c["traced_flops_by_op"].values()) == c["traced_flops_per_device"]
+        assert sum(c["traced_flops_by_op"].values()) == c["traced_flops_rank0"]
+        assert c["traced_flops_per_device"] == max(c["traced_flops_rank0"],
+                                                   c["traced_flops_last_rank"])
         assert c["traced_depths"][:2] == [1, 2]
     assert f"{len(ok)} ok / {len(cells) - len(ok)} skipped / 0 failed" in run.stdout
 
@@ -485,14 +506,20 @@ def test_cli_records_a_failing_cell_and_exits_1(tmp_path):
 # (8 or 16 query rows a rank, the weights gathered), where the port's
 # rules split the MLP's width over "model": TinyLlama's 4 heads do not
 # divide 16, so each rank attends its block of query rows at its offset
-# (``flash_attend(q_offset=)``); Mixtral's 4 heads take the banded
-# schedule, whole on each rank, with its recompute; RWKV6's 4 heads run
-# their recurrence whole on each rank (the products on each rank's
-# sequence block); the loss heads' FLOPs are equal.
+# (``flash_attend(q_offset=)``; at 128 tokens every rank's rows see the one
+# key chunk, so the last rank's work is rank 0's); Mixtral's 4 heads take
+# the banded schedule, whole on each rank, with its recompute; RWKV6's 4
+# heads run their recurrence whole on each rank (the products on each
+# rank's sequence block); the loss heads' FLOPs are equal.  Mixtral's smoke
+# prefill: the banded schedule makes no product against the chunk before
+# position 0 (window 32, 4 chunks of 32 tokens: 7 of the reference's 8
+# chunk pairs), which the reference's compiled module multiplies as zeros.
 FLOPS_APART = {("tinyllama-1.1b", "train_4k", "16x16"): (17_039_360, 15_466_496),
                ("tinyllama-1.1b", "train_4k", "2x16x16"): (8_519_680, 7_733_248),
-               ("mixtral-8x7b", "train_4k", "16x16"): (73_400_320, 31_457_280),
-               ("mixtral-8x7b", "train_4k", "2x16x16"): (36_700_160, 15_728_640),
+               ("mixtral-8x7b", "train_4k", "16x16"): (52_953_088, 31_457_280),
+               ("mixtral-8x7b", "train_4k", "2x16x16"): (26_476_544, 15_728_640),
+               ("mixtral-8x7b", "prefill_32k", "16x16"): (24_125_440, 25_174_016),
+               ("mixtral-8x7b", "prefill_32k", "2x16x16"): (14_159_872, 14_684_160),
                ("rwkv6-1.6b", "train_4k", "16x16"): (48_234_496, 14_438_400),
                ("rwkv6-1.6b", "train_4k", "2x16x16"): (24_117_248, 7_225_344)}
 # The full-size train cells: the port's traced peak at most this many times
@@ -503,6 +530,37 @@ FLOPS_APART = {("tinyllama-1.1b", "train_4k", "16x16"): (17_039_360, 15_466_496)
 PEAK_OVER_REFERENCE = 1.3
 TINYLLAMA_LOSS_HEAD_FLOPS = 2_147_483_648_000
 TINYLLAMA_MAX_FLOPS = 45.0e12
+# The reference's compiled step a device, every full-size train_4k cell
+# under remat "dots": the FLOPs of its matrix products (``hlo_dots``), its
+# layers unrolled and its loss head in checkpointed chunks as the step
+# runs it, by ``PYTHONPATH=src python tools/reference_buffers.py --arch all
+# --mesh both --measure flops`` (jax 0.9.0, XLA:CPU, 512 forced host
+# devices; a compile takes from a minute to about twenty, so they are
+# pinned).  The heaviest rank of each PEAK_ARCHS cell traces at most
+# FLOPS_OVER_REFERENCE times its figure.
+REFERENCE_DOT_FLOPS = {
+    ("tinyllama-1.1b", "16x16"): 38_053_410_242_560,
+    ("tinyllama-1.1b", "2x16x16"): 19_026_705_121_280,
+    ("mixtral-8x7b", "16x16"): 534_671_888_744_448,
+    ("mixtral-8x7b", "2x16x16"): 267_335_944_372_224,
+    ("deepseek-67b", "16x16"): 1_852_161_696_727_040,
+    ("deepseek-67b", "2x16x16"): 926_080_848_363_520,
+    ("llama4-maverick-400b-a17b", "16x16"): 378_182_607_831_040,
+    ("llama4-maverick-400b-a17b", "2x16x16"): 189_091_303_915_520,
+    ("qwen2-vl-7b", "16x16"): 205_161_997_795_328,
+    ("qwen2-vl-7b", "2x16x16"): 102_580_998_897_664,
+    ("phi3-medium-14b", "16x16"): 406_819_302_277_120,
+    ("phi3-medium-14b", "2x16x16"): 203_409_651_138_560,
+    ("yi-34b", "16x16"): 953_053_242_982_400,
+    ("yi-34b", "2x16x16"): 476_526_621_491_200,
+    ("recurrentgemma-2b", "16x16"): 91_418_378_895_360,
+    ("recurrentgemma-2b", "2x16x16"): 45_709_189_447_680,
+    ("whisper-small", "16x16"): 6_225_988_386_816,
+    ("whisper-small", "2x16x16"): 3_112_994_193_408,
+    ("rwkv6-1.6b", "16x16"): 37_023_826_051_072,
+    ("rwkv6-1.6b", "2x16x16"): 18_511_913_025_536,
+}
+FLOPS_OVER_REFERENCE = 1.3
 
 
 def test_flops_and_collective_kinds_against_reference_compiled_module(children):
@@ -521,6 +579,44 @@ def test_flops_and_collective_kinds_against_reference_compiled_module(children):
         kinds = lambda counts: {k for k, n in counts.items() if n}
         assert kinds(r["counts"]) <= kinds(c["collectives"]["counts"]), (key, r["counts"])
         assert not kinds(c["collectives"]["counts"]) & {"all-to-all", "collective-permute"}
+
+
+# flash attention's products a key chunk under remat "dots" on a mesh:
+# the forward's two (QK^T, PV) in the local region, again in the unit's
+# rerun and again where the region makes its graph in the backward pass,
+# and the backward's five (the probabilities, dV, dP, dQ, dK)
+FLASH_PASSES_DOTS = 11
+
+
+def test_last_rank_attends_its_whole_causal_key_range(children):
+    """Heads that do not split "model": rank r attends its block of R query
+    rows at offset r R, against key chunks 0 to r, so the last rank's
+    attention FLOPs are a whole causal key range over its rows (R x 4 R
+    keys), rank 0's its own R x R; the rest of the step is the same work.
+    The record traces both ranks and reports the heavier.  Where the heads
+    split, no block is placed at a rank's offset and the record traces rank
+    0 alone."""
+    got = children["ranks"].json()
+    _, _, s, b = RANKS_SHAPE
+    rows = s // RANKS_MESH["model"]
+    unit = 2 * (b // RANKS_MESH["data"]) * RANKS_HEADS[0] * 16 * rows  # head_dim 16
+    first, last = got["apart_0"], got["apart_15"]
+    assert first["offsets"] > 0 and last["offsets"] > 0
+    assert first["attention"] == FLASH_PASSES_DOTS * unit * rows
+    assert last["attention"] == FLASH_PASSES_DOTS * unit * s
+    assert last["flops"] - first["flops"] == last["attention"] - first["attention"] > 0
+    rec = got["apart_record"]
+    assert rec["last_rank_traced"] is True
+    assert (rec["traced_flops_rank0"], rec["traced_flops_last_rank"]) == (first["flops"],
+                                                                          last["flops"])
+    assert rec["traced_flops_per_device"] == last["flops"]
+    assert rec["bytes_per_device"]["peak"] >= rec["bytes_per_device"]["args"]
+    split = got["split_record"]
+    assert got["split_0"]["offsets"] == got["split_15"]["offsets"] == 0
+    assert got["split_0"]["flops"] == got["split_15"]["flops"]
+    assert split["last_rank_traced"] is False and split["peak_rank"] == 0
+    assert split["traced_flops_per_device"] == split["traced_flops_rank0"] == \
+        split["traced_flops_last_rank"] == got["split_0"]["flops"]
 
 
 def test_act_rules_reach_the_traced_step(children):
@@ -588,6 +684,20 @@ def test_train_peak_against_reference_compiled_peak(children, arch):
         ref = live[arch] if mesh == MESHES[0] and arch in live else REFERENCE_PEAKS[(arch, mesh)]
         peak = children[f"full_{arch}_{mesh}"].json()["peak"]
         assert 0 < peak <= PEAK_OVER_REFERENCE * ref, (arch, mesh, peak, ref)
+
+
+@pytest.mark.parametrize("arch", PEAK_ARCHS)
+def test_train_flops_against_reference_compiled_dots(children, arch):
+    """Full-size ``train_4k`` on 16 x 16 and 2 x 16 x 16 under remat
+    "dots": the heaviest rank's traced FLOPs a device at most
+    FLOPS_OVER_REFERENCE times the reference's compiled matrix products
+    (REFERENCE_DOT_FLOPS).  RecurrentGemma-2B's band makes 7 products a
+    query chunk over its keys from position 0 on (the reference's step 8,
+    over half of its zero-padded band a device)."""
+    for mesh in MESHES:
+        flops = children[f"full_{arch}_{mesh}"].json()["flops"]
+        ref = REFERENCE_DOT_FLOPS[(arch, mesh)]
+        assert 0 < flops <= FLOPS_OVER_REFERENCE * ref, (arch, mesh, flops, ref, flops / ref)
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-1.6b"])
