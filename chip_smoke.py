@@ -660,7 +660,7 @@ def phase_fp_index(dev, results: dict) -> None:
     t64 = table.cpu().numpy().view(np.uint64)  # after the removes above
     resident = keys[in_table][~np.isin(keys[in_table], gone)]
     times, bounds = _time_index(k, dev, rng, table, plain, cap, t64, resident, absent,
-                                ((8192, 30, 2, 50, 5), (1 << 20, 2, 1, 0, 2)))
+                                ((8192, 30, 2, 50, 5), (1 << 20, 2, 1, 0, 2)), library=True)
     # contention: 8,192 keys made of 64 distinct keys, 128 copies each, into
     # the filled table; the kernel's status counts must equal the plain
     # version's (64 placed or overflowed, the rest PRESENT), and afterwards
@@ -704,7 +704,8 @@ def phase_fp_index(dev, results: dict) -> None:
                              "fp_remove": rem_err}[name], main["err"][name]),
             ms=times[8192][name], plain_ms=times[8192]["plain"][name],
             bound_ms=bounds[8192][name] / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            library_ms=None, keys_per_launch=8192, per_call_ms=times[8192]["per_call"][name],
+            library_ms=times[8192]["isin"] if name == "fp_probe" else None,
+            keys_per_launch=8192, per_call_ms=times[8192]["per_call"][name],
             empty_launch_ms=floor_ms,
             ms_at_1m=times[1 << 20][name], plain_ms_at_1m=times[1 << 20]["plain"][name],
             bound_ms_at_1m=bounds[1 << 20][name] / HBM_BYTES_PER_S * 1e3,
@@ -712,6 +713,7 @@ def phase_fp_index(dev, results: dict) -> None:
         )
     for name in ("fp_probe", "fp_remove"):
         results[name]["ms_host_keys"] = main["host_keys_ms"][name]
+    results["fp_probe"]["library_ms_at_1m"] = times[1 << 20]["isin"]
     for size, tag in ((8192, ""), (1 << 20, "_at_1m")):
         results["fp_probe"]["ms_mixed" + tag] = times[size]["fp_probe_mixed"]
         results["fp_probe"]["bound_ms_mixed" + tag] = (
@@ -732,11 +734,14 @@ def phase_fp_index(dev, results: dict) -> None:
          main_table={kk: v for kk, v in main.items() if kk != "err"})
 
 
-def _time_index(k, dev, rng, table, plain, cap, t64, resident, absent, sizes):
+def _time_index(k, dev, rng, table, plain, cap, t64, resident, absent, sizes,
+                library=False):
     """Device ms per launch of the three kernels (and of a probe batch half
     resident, half absent), their plain versions' and the wrappers'
     back-to-back rate, and the bytes each launch must move, at each of
-    ``sizes``: (keys, reps, warm-up, wrapper reps, plain reps)."""
+    ``sizes``: (keys, reps, warm-up, wrapper reps, plain reps); with
+    ``library``, also the probe's library call, ``torch.isin`` (``isin``),
+    whose flags must equal the kernel's."""
     from repro_torch.kernels.ops import keys_to_device
 
     times, bounds = {}, {}
@@ -765,6 +770,13 @@ def _time_index(k, dev, rng, table, plain, cap, t64, resident, absent, sizes):
             "fp_insert": device_ms(sliced(k.fp_insert, fresh, table.clone()), reps, warm),
             "fp_remove": device_ms(sliced(k.fp_remove, res, table.clone()), reps, warm),
         }
+        if library:
+            # the one PyTorch call of the probe's function: membership of the
+            # packed keys among the table's packed slots (no key here is a
+            # pad key, 0 or TOMB_KEY, which mark empty and removed slots)
+            check(torch.equal(torch.isin(mixed, table), k.fp_probe(mixed, table, cap)),
+                  f"{size} keys: the probe kernel's flags differ from torch.isin's")
+            entry["isin"] = device_ms(lambda: torch.isin(probe_keys, table), 5, 1)
         if call_reps:
             entry["per_call"] = {
                 "fp_probe": cuda_ms(lambda: k.fp_probe(probe_keys, table, cap), call_reps),
@@ -3450,6 +3462,7 @@ SHARD_MEAN_TOL = 0.05             # of each leaf's largest gradient
 SHARD_REMATS = ("dots", "full")   # (f): the sharded step under each, against the plain one
 SHARD_PROMPT = (4, 512)           # (g): TinyLlama's sharded prefill, then SHARD_DECODE steps
 SHARD_DECODE = 4
+SHARD_WHISPER = (2, 4096)         # (g): Whisper-small's sharded prefill, (rows, frames)
 # (h): the dry-run CLI's cells, train, prefill and decode on both meshes
 SHARD_DRY_ARGS = ("--arch", "tinyllama-1.1b", "--mesh", "both")
 SHARD_DRY_OPS_SHOWN = 8  # (h): each cell's largest operations by traced FLOPs
@@ -3681,10 +3694,16 @@ def _remat_steps(dev, mesh, smi: str, seed: int) -> dict:
     weights and batches, losses and every leaf equal (else within
     SHARD_LOSS_RTOL, the gap printed); the first sharded step's peak memory
     above what else the process holds (``torch.cuda.max_memory_allocated``,
-    reset first) for (i).  Returns {remat: that step's bytes}."""
+    reset first) for (i); and flash attention's products by call in the
+    first plain and the first sharded step (``attention``'s
+    LONG_RG_PRODUCTS), those made where a local region rebuilds its graph
+    apart: that rebuild takes flash's output from the unit's rerun and
+    makes none, so the sharded step makes as many as the plain one.
+    Returns {remat: that step's bytes}."""
+    from repro_torch import act_sharding
     from repro_torch.configs import get_config
     from repro_torch.launch import train as launch
-    from repro_torch.models import build_model
+    from repro_torch.models import attention, build_model
     from repro_torch.pytree import leaves, tree_map
     from repro_torch.sharding import batch_pspecs, distribute_tree, param_pspecs
     from repro_torch.train.optimizer import AdamW
@@ -3700,6 +3719,25 @@ def _remat_steps(dev, mesh, smi: str, seed: int) -> dict:
     opt = AdamW(learning_rate=args.lr, warmup_steps=max(args.steps // 20, 5),
                 total_steps=args.steps)
     peaks = {}
+    originals = {name: getattr(attention, name) for name in LONG_RG_PRODUCTS}
+
+    def counted(calls, name, f):
+        def call(*a, **kw):
+            calls["rebuild" if act_sharding.rebuilding_graph() else name] += 1
+            return f(*a, **kw)
+        return call
+
+    def products(run):
+        """(run's result, flash's products by call while it ran)."""
+        calls = dict.fromkeys(LONG_RG_PRODUCTS + ("rebuild",), 0)
+        for name, f in originals.items():
+            setattr(attention, name, counted(calls, name, f))
+        try:
+            return run(), calls
+        finally:
+            for name, f in originals.items():
+                setattr(attention, name, f)
+
     for remat in SHARD_REMATS:
         t0 = time.perf_counter()
         model = build_model(cfg, remat=remat)
@@ -3712,9 +3750,14 @@ def _remat_steps(dev, mesh, smi: str, seed: int) -> dict:
         dstate, state = opt.init(sharded), opt.init(plain)
         sstep, step = make_sharded_train_step(model, opt, mesh), make_train_step(model, opt)
         losses, dlosses, step_s, dstep_s = [], [], [], []
+        flash = {}
         for i, batch in enumerate(batches):
             t1 = time.perf_counter()
-            plain, state, loss, _ = step(plain, state, batch)
+            if i == 0:
+                (plain, state, loss, _), flash["plain"] = products(
+                    lambda: step(plain, state, batch))
+            else:
+                plain, state, loss, _ = step(plain, state, batch)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t1)
             placed = distribute_tree(batch, bspecs, mesh)
@@ -3725,7 +3768,11 @@ def _remat_steps(dev, mesh, smi: str, seed: int) -> dict:
                              leaves(sharded) + leaves(dstate.mu) + leaves(dstate.nu)
                              + leaves(placed))
             t1 = time.perf_counter()
-            sharded, dstate, dloss, _ = sstep(sharded, dstate, placed)
+            if i == 0:
+                (sharded, dstate, dloss, _), flash["sharded"] = products(
+                    lambda: sstep(sharded, dstate, placed))
+            else:
+                sharded, dstate, dloss, _ = sstep(sharded, dstate, placed)
             torch.cuda.synchronize()
             dstep_s.append(time.perf_counter() - t1)
             if i == 0:
@@ -3745,11 +3792,16 @@ def _remat_steps(dev, mesh, smi: str, seed: int) -> dict:
         check(loss_gap <= SHARD_LOSS_RTOL and weight_gap <= SHARD_LOSS_RTOL,
               f"sharding: remat {remat}: losses {dlosses} against {losses}, weights "
               f"{weight_gap} apart")
+        made = {k: sum(v.values()) for k, v in flash.items()}
+        check(flash["sharded"]["rebuild"] == 0 and made["sharded"] == made["plain"] > 0,
+              f"sharding: remat {remat}: flash's products by call {flash}: a local region's "
+              f"graph rebuild makes some")
         emit("sharding", part="remat_step", card=smi, remat=remat, model=cfg.name,
              layers=cfg.num_layers, batch=[args.batch, args.seq], steps=SHARD_STEPS,
              losses=losses, sharded_losses=dlosses, loss_rel_gap=loss_gap,
              max_weight_rel_gap=weight_gap, leaves_equal=equal, leaves=len(leaves(plain)),
              bit_equal=bool(loss_gap == 0 and equal == len(leaves(plain))),
+             flash_products_by_call=flash,
              plain_step_ms=[x * 1e3 for x in step_s], sharded_step_ms=[x * 1e3 for x in dstep_s],
              memory=peaks[remat], part_s=time.perf_counter() - t0)
         del sharded, dstate, state, plain, params, model
@@ -3806,6 +3858,63 @@ def _sharded_serving(dev, mesh, smi: str, seed: int) -> None:
          weights="bfloat16", prompt=list(SHARD_PROMPT), decode_steps=SHARD_DECODE,
          logits_rel_gap=gaps, logits_equal=equal, plain_s=plain_s, sharded_s=sharded_s,
          cache_placements=str(dcache.k.placements), part_s=time.perf_counter() - t0)
+    del params, dparams, dcache, got, want
+
+
+def _sharded_whisper(dev, mesh, smi: str, seed: int) -> None:
+    """(g) Whisper-small at full width and depth, bf16 weights: a sharded
+    prefill of SHARD_WHISPER (rows, frames) of stub frame embeddings, whose
+    encoder runs on the residual stream's sequence split
+    (``act_sharding.split_sequence``; one rank here), into a cache placed by
+    ``cache_pspecs``, and SHARD_DECODE sharded decode steps, against the
+    plain prefill and decode steps: the encoder states and logits."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.act_sharding import placements
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.sharding import batch_pspecs, distribute_tree, param_pspecs
+    from repro_torch.train.train_step import (make_serve_step, make_sharded_prefill_step,
+                                              make_sharded_serve_step)
+
+    t0 = time.perf_counter()
+    cfg = get_config("whisper-small").replace(param_dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(seed))
+    g = torch.Generator(dev).manual_seed(seed + 3)
+    b, s = SHARD_WHISPER
+    frames = torch.randn(b, s, cfg.d_model, device=dev, generator=g)
+    toks = torch.randint(0, cfg.vocab_size, (SHARD_DECODE, b, 1), device=dev, generator=g)
+    t1 = time.perf_counter()
+    enc, cache = model.prefill(params, {"encoder_embeds": frames}, SHARD_DECODE)
+    serve = make_serve_step(model)
+    want = [enc] + [serve(params, cache, toks[i], i)[0] for i in range(SHARD_DECODE)]
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    del cache
+    sds, axes = model.abstract_params()
+    dparams = distribute_tree(params, param_pspecs(sds, axes, mesh, mode="serve", fsdp=False),
+                              mesh)
+    t1 = time.perf_counter()
+    denc, dcache = make_sharded_prefill_step(model, mesh, SHARD_DECODE)(
+        dparams, distribute_tree({"encoder_embeds": frames},
+                                 batch_pspecs(cfg, "prefill", b, mesh), mesh))
+    dserve = make_sharded_serve_step(model, mesh)
+    got = [denc] + [dserve(dparams, dcache, distribute_tensor(toks[i], mesh,
+                                                              placements((), mesh)), i)[0]
+                    for i in range(SHARD_DECODE)]
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t1
+    gaps = [_rel_gap(a.full_tensor(), w) for a, w in zip(got, want)]
+    equal = [bool(torch.equal(a.full_tensor(), w)) for a, w in zip(got, want)]
+    check(max(gaps) <= SHARD_LOSS_RTOL,
+          f"sharding: Whisper's sharded prefill/decode (states, logits) {gaps} off")
+    emit("sharding", part="prefill_decode", card=smi, model=cfg.name,
+         layers=[cfg.encoder_layers, cfg.num_layers], weights="bfloat16",
+         frames=list(SHARD_WHISPER), decode_steps=SHARD_DECODE, states_and_logits_rel_gap=gaps,
+         states_and_logits_equal=equal, plain_s=plain_s, sharded_s=sharded_s,
+         state_placements=str(denc.placements),
+         cache_placements=str(dcache["cross_k"].placements), part_s=time.perf_counter() - t0)
     del params, dparams, dcache, got, want
 
 
@@ -3954,11 +4063,11 @@ def phase_sharding(dev, results: dict, smi: str, seed: int) -> None:
     an in-memory store) and its 1 x 1 ("data", "model") mesh; (a) the
     sharded train step, (b) the MoE's mesh branch, (c) the compressed mean,
     (d) elastic restore, (e) the host arithmetic, (f) the sharded step under
-    remat "dots" and "full", (g) sharded prefill and decode, (h) the traced
-    dry run's CLI and (i) the 1 x 1 trace of (f)'s steps against the card
-    ((h) and (i) in processes of their own on the host, from the phase's
-    start).  Launch counts are zeroed just before the phase and read just
-    after (``launches_by_path``)."""
+    remat "dots" and "full", (g) sharded prefill and decode (TinyLlama,
+    Whisper), (h) the traced dry run's CLI and (i) the 1 x 1 trace of (f)'s
+    steps against the card ((h) and (i) in processes of their own on the
+    host, from the phase's start).  Launch counts are zeroed just before
+    the phase and read just after (``launches_by_path``)."""
     import torch.distributed as dist
 
     from repro_torch.kernels import _build
@@ -3991,6 +4100,8 @@ def phase_sharding(dev, results: dict, smi: str, seed: int) -> None:
         peaks = _remat_steps(dev, mesh, smi, seed)
         _free()
         _sharded_serving(dev, mesh, smi, seed)
+        _free()
+        _sharded_whisper(dev, mesh, smi, seed)
         _free()
         _sharded_moe(dev, mesh, smi, seed)
         _free()

@@ -312,7 +312,13 @@ class _Local(torch.autograd.Function):
     is made under ``rebuilding_graph``: there a function whose output no
     operation of the region reads, and whose own backward pass needs only
     its inputs (the banded schedule, which ``attention._schedule`` runs
-    alone in its region), may skip computing it."""
+    alone in its region), may skip computing it; one whose backward pass
+    needs what its forward made (flash attention's float32 output and
+    log-sum-exp) takes it from the region's run in the unit's rerun, which
+    the checkpoint makes just before, when this backward pass first reads
+    the inputs (``hand_to_rebuild``, ``taken_from_rerun``).  The regions of
+    a unit are told apart by their order in it, the same in each of its
+    runs."""
 
     @staticmethod
     def forward(ctx, fn, mesh, out_placements, recompute, *dts):
@@ -323,8 +329,19 @@ class _Local(torch.autograd.Function):
         ctx.set_materialize_grads(False)  # an unused output's gradient stays None
         ctx.grad_placements = _grad_placements(dts)
         if recompute:
-            with torch.no_grad():
-                outs = fn(*(d._local_tensor for d in dts))
+            run = getattr(_state, "unit_run", None)
+            ctx.handed, ctx.region = (None, None) if run is None else (run.handed, run.next)
+            handed = [] if run is not None and run.rerun else None
+            if run is not None:
+                run.next += 1
+            prev, _state.to_rebuild = getattr(_state, "to_rebuild", None), handed
+            try:
+                with torch.no_grad():
+                    outs = fn(*(d._local_tensor for d in dts))
+            finally:
+                _state.to_rebuild = prev
+            if handed:
+                run.handed[ctx.region] = handed
             ctx.save_for_backward(*dts)
         else:
             ctx.graph = _local_graph(fn, dts)
@@ -338,11 +355,14 @@ class _Local(torch.autograd.Function):
         from torch.distributed.tensor import DTensor, Partial, Replicate
 
         if ctx.recompute:
-            prev, _state.graph_only = getattr(_state, "graph_only", False), True
+            saved = ctx.saved_tensors  # the unit's rerun runs here, if nothing ran it yet
+            handed = ctx.handed.pop(ctx.region, None) if ctx.handed is not None else None
+            prev = getattr(_state, "graph_only", False), getattr(_state, "from_rerun", None)
+            _state.graph_only, _state.from_rerun = True, handed
             try:
-                ins, outs = _local_graph(ctx.fn, ctx.saved_tensors)
+                ins, outs = _local_graph(ctx.fn, saved)
             finally:
-                _state.graph_only = prev
+                _state.graph_only, _state.from_rerun = prev
         else:
             ins, outs = ctx.graph
         # a partial output's gradient is whole on every rank (d sum / d part = 1)
@@ -357,7 +377,7 @@ class _Local(torch.autograd.Function):
         for t, pl in zip(ins, ctx.grad_placements):
             g = next(got) if t.requires_grad else None
             out.append(None if g is None else DTensor.from_local(g, ctx.mesh, pl, run_check=False))
-        ctx.graph = None
+        ctx.graph = ctx.handed = None
         return (None, None, None, None, *out)
 
 
@@ -376,8 +396,20 @@ def current_rules():
     return getattr(_state, "ctx", None)
 
 
+class _UnitRun:
+    """One run of a remat unit: ``handed``, shared by the unit's runs, maps
+    a local region's place in the unit to what its run in the unit's rerun
+    handed to its graph rebuild (``_Local``); ``next``, the place of the
+    run's next region; ``rerun``, whether this is the backward pass's
+    rerun."""
+
+    def __init__(self, handed: dict, rerun: bool):
+        self.handed, self.rerun, self.next = handed, rerun, 0
+
+
 @contextlib.contextmanager
-def remat_unit(rules, replay: bool = False):
+def remat_unit(rules, replay: bool = False, handed: Optional[dict] = None,
+               rerun: bool = False):
     """Inside a remat unit's checkpoint (``transformer.remat_call``): the
     rules captured when the unit first ran (``current_rules``), since its
     recompute runs in the autograd engine's thread for the device (a card's
@@ -385,14 +417,18 @@ def remat_unit(rules, replay: bool = False):
     (DTensor's implicit replication is process-wide and stays on); and local
     regions keep their inputs only and make their graph again in the
     backward pass (``_Local``).  ``replay``: this is the backward pass's
-    rerun of a remat "dots" unit (``replaying``)."""
+    rerun of a remat "dots" unit (``replaying``).  ``handed``: one dictionary
+    a unit, shared by its runs, through which a region's run in the rerun
+    (``rerun``: this run is it, under any policy) hands tensors to its
+    graph rebuild (``hand_to_rebuild``)."""
     prev = (getattr(_state, "ctx", None), getattr(_state, "recompute", False),
-            getattr(_state, "replay", False))
+            getattr(_state, "replay", False), getattr(_state, "unit_run", None))
     _state.ctx, _state.recompute, _state.replay = rules, True, replay
+    _state.unit_run = None if handed is None else _UnitRun(handed, rerun)
     try:
         yield
     finally:
-        _state.ctx, _state.recompute, _state.replay = prev
+        _state.ctx, _state.recompute, _state.replay, _state.unit_run = prev
 
 
 def run_local(fn: Callable, dts: Sequence, out_placements: Sequence[list]) -> tuple:
@@ -537,6 +573,24 @@ def rebuilding_graph() -> bool:
     return getattr(_state, "graph_only", False)
 
 
+def hand_to_rebuild(*tensors: torch.Tensor) -> None:
+    """Inside a local region's run in a remat unit's rerun: ``tensors``
+    handed to the region's graph rebuild, which the backward pass makes just
+    after (``taken_from_rerun``) and which drops them; elsewhere nothing."""
+    handed = getattr(_state, "to_rebuild", None)
+    if handed is not None:
+        handed.append(tensors)
+
+
+def taken_from_rerun() -> Optional[tuple]:
+    """Inside a local region's graph rebuild (``rebuilding_graph``): the
+    next tensors that the region's run in the unit's rerun handed over
+    (``hand_to_rebuild``), in the order it handed them; None where it
+    handed none."""
+    handed = getattr(_state, "from_rerun", None)
+    return handed.pop(0) if handed else None
+
+
 def keep(x: torch.Tensor) -> torch.Tensor:
     """x through ``aten.alias`` inside ``_keep_result``: a remat "dots"
     unit keeps it (``transformer._dots_policy``), and in the unit's rerun
@@ -643,10 +697,10 @@ class _SeqLocal(torch.autograd.Function):
 
 
 def seq_split_axis(x) -> Optional[str]:
-    """In a train step under a mesh (``_training``), the one mesh axis, of
-    more than one rank, that splits DTensor x (B, S, d) along its sequence
-    as it splits the residual stream; None elsewhere (x whole there, or a
-    plain tensor)."""
+    """On the sequence split under a mesh (``_training``), the one mesh
+    axis, of more than one rank, that splits DTensor x (B, S, d) along its
+    sequence as it splits the residual stream; None elsewhere (x whole
+    there, or a plain tensor)."""
     from torch.distributed.tensor import Shard
 
     ctx = getattr(_state, "ctx", None)
@@ -790,10 +844,12 @@ def _product_plan(h, w, mesh, rules, out_dims):
 
 def _training(ctx) -> bool:
     """Whether the sequence-parallel products apply: under a ``DeviceMesh``
-    with autograd recording (a train step).  Without it (prefill, decode)
-    the block's products take their sequence whole and its output is
-    summed whole, as the reference's compiled prefill computes them."""
-    return ctx is not None and not isinstance(ctx[0], dict) and torch.is_grad_enabled()
+    with autograd recording (a train step), or inside ``split_sequence``
+    (a sharded prefill's encoder).  Elsewhere (a decoder-only prefill,
+    decode) the block's products take their sequence whole and its output
+    is summed whole, as the reference's compiled prefill computes them."""
+    return (ctx is not None and not isinstance(ctx[0], dict)
+            and (torch.is_grad_enabled() or getattr(_state, "split_seq", False)))
 
 
 def sequence_parallel() -> bool:
@@ -801,17 +857,33 @@ def sequence_parallel() -> bool:
     return _training(getattr(_state, "ctx", None))
 
 
+@contextlib.contextmanager
+def split_sequence():
+    """Inside, the sequence-parallel products apply under a ``DeviceMesh``
+    without autograd too (``_training``): ``encdec.encode`` and
+    ``encode_prefill`` enter it, so that a sharded prefill encodes on the
+    residual stream's sequence split, as the reference's GSPMD splits its
+    encoder there (its residual constraint names "seq" in prefill too), and
+    each decoder layer's cross K/V is projected on each rank's block."""
+    prev = getattr(_state, "split_seq", False)
+    _state.split_seq = True
+    try:
+        yield
+    finally:
+        _state.split_seq = prev
+
+
 def row_parallel(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``h @ w`` for a block's output product (h (B, S, K) @ w (K, d), K the
-    heads, the MLP's or a recurrence's width).  In a train step under a
-    mesh the result is placed as the residual stream (``RESIDUAL``): where
-    K is split over the axis that splits its sequence, the partial sums are
-    reduce-scattered onto that split (``_RowParallel``); where K and w are
-    whole on it, each rank multiplies its own sequence block
-    (``_SeqLocal``); elsewhere DTensor's product is constrained to it (an
-    all-reduce where "seq" is None, as the reference's
-    non-sequence-parallel step sums).  Without autograd (``_training``) it
-    is summed with its sequence whole."""
+    heads, the MLP's or a recurrence's width).  On the sequence split under
+    a mesh (``_training``) the result is placed as the residual stream
+    (``RESIDUAL``): where K is split over the axis that splits its
+    sequence, the partial sums are reduce-scattered onto that split
+    (``_RowParallel``); where K and w are whole on it, each rank multiplies
+    its own sequence block (``_SeqLocal``); elsewhere DTensor's product is
+    constrained to it (an all-reduce where "seq" is None, as the
+    reference's non-sequence-parallel step sums).  Off the split it is
+    summed with its sequence whole."""
     ctx = getattr(_state, "ctx", None)
     if ctx is None or not (is_dtensor(h) and is_dtensor(w)):
         return h @ w
@@ -861,8 +933,8 @@ class BlockInput:
 
 
 def block_input(x):
-    """x itself outside a mesh (or off DTensors); in a train step under a
-    mesh (``_training``) a ``BlockInput``; else x with its sequence
+    """x itself outside a mesh (or off DTensors); on the sequence split
+    under a mesh (``_training``) a ``BlockInput``; else x with its sequence
     whole."""
     ctx = getattr(_state, "ctx", None)
     if ctx is None or not is_dtensor(x):

@@ -32,10 +32,10 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..act_sharding import (active_mesh, active_spec, block_start, flatten_heads, is_dtensor,
-                            keep, local_call, mesh_shape, rebuilding_graph, replaying,
-                            row_parallel, sequence_parallel, split_ranks, unflatten, view_heads,
-                            work_label)
+from ..act_sharding import (active_mesh, active_spec, block_start, flatten_heads,
+                            hand_to_rebuild, is_dtensor, keep, local_call, mesh_shape,
+                            rebuilding_graph, replaying, row_parallel, sequence_parallel,
+                            split_ranks, taken_from_rerun, unflatten, view_heads, work_label)
 from .layers import ParamFactory, apply_rope, rotate
 
 NEG_INF = -1e30
@@ -181,10 +181,23 @@ class _Flash(torch.autograd.Function):
     float32 scan takes it, not from the output rounded to q's dtype.  K and
     V are taken to float32 one chunk at a time, and each chunk's dK and dV
     (visited once) are rounded to K's dtype in its iteration, so that no
-    float32 copy of the whole K, V or their gradients is alive."""
+    float32 copy of the whole K, V or their gradients is alive.
+
+    Where ``act_sharding``'s local region makes its graph again in the
+    backward pass (``rebuilding_graph``), the forward pass makes no
+    product: it takes the output and the log-sum-exp from the region's run
+    in the remat unit's rerun just before (``taken_from_rerun``; that run
+    hands them over, ``hand_to_rebuild``), the same values from the same
+    inputs."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int):
+        ctx.args = (causal, window, q_offset)
+        kept = taken_from_rerun() if rebuilding_graph() else None
+        if kept is not None:
+            o, lse = kept
+            ctx.save_for_backward(q, k, v, o, lse)
+            return _unrows(o, q.dtype)
         b, sq, h, d = q.shape
         sk, kvh = k.shape[1], k.shape[2]
         ck = _check_flash(sk)
@@ -205,9 +218,9 @@ class _Flash(torch.autograd.Function):
                 l[:, :, r0:] = l[:, :, r0:] * corr + p.sum(dim=-1)
                 acc[:, :, r0:] = acc[:, :, r0:] * corr[..., None] + _pv(p, _heads(v[:, j:j + ck]))
                 m[:, :, r0:] = m_new
-        o = acc.div_(l.clamp(min=1e-30)[..., None])
-        ctx.save_for_backward(q, k, v, o, m + torch.log(l))
-        ctx.args = (causal, window, q_offset)
+        o, lse = acc.div_(l.clamp(min=1e-30)[..., None]), m + torch.log(l)
+        ctx.save_for_backward(q, k, v, o, lse)
+        hand_to_rebuild(o, lse)
         return _unrows(o, q.dtype)
 
     @staticmethod
@@ -455,11 +468,13 @@ def _schedule(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw) -
     "model" ranks but the query heads split over them (TinyLlama's 4 and 32
     on 16), each KV head is repeated until they split too (``_repeat_kv``),
     so that each rank attends its own query heads, as GSPMD splits them.
-    Where the heads do not split, flash attention in a train step
-    (Whisper's: 12 heads on 16 ranks) takes each rank's block of the
-    residual stream's query rows, at its offset in the sequence for the
-    causal and window masks (``q_offset``), against every key, as GSPMD
-    splits it, instead of every query on every rank."""
+    Where the heads do not split, flash attention on the residual stream's
+    sequence split (``sequence_parallel``: a train step, or a sharded
+    prefill's encoder; Whisper's 12 heads on 16 ranks) takes each rank's
+    block of the query rows, at its offset in the sequence for the causal
+    and window masks (``q_offset``; unmasked, the offset changes nothing
+    and is not taken), against every key, as GSPMD splits it, instead of
+    every query on every rank."""
     spec = active_spec(k, ("batch", "attn_seq", "kv_heads", None))
     if spec is not None and spec[2] is None and is_dtensor(k):
         k, v = _repeat_kv(q, k), _repeat_kv(q, v)
@@ -468,7 +483,9 @@ def _schedule(attend, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw) -
     if (spec is not None and heads is None and is_dtensor(q) and attend is flash_attend
             and sequence_parallel()):
         rows = ("batch", "seq", None, None)
-        attend = functools.partial(attend, q_offset=block_start(q, rows, 1), **kw)
+        masked = kw["causal"] or kw["window"]
+        attend = functools.partial(attend, q_offset=block_start(q, rows, 1) if masked else 0,
+                                   **kw)
         return local_call(attend, (q, rows), (k, ("batch", None, None, None)),
                           (v, ("batch", None, None, None)))
     return local_call(functools.partial(attend, **kw),

@@ -29,7 +29,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..act_sharding import (RESIDUAL, block_input, fsdp_gather, local_sum, sequence_parallel,
-                            shard_act)
+                            shard_act, split_sequence)
 from . import config as C
 from .attention import (attention_decode, attention_train, cross_attention_decode,
                         init_attention, project_kv, valid_slots)
@@ -106,19 +106,22 @@ def _enc_layer(lp: Dict, cfg: C.ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def encode(params: Dict, embeds: torch.Tensor, cfg: C.ModelConfig,
            remat: str = "none") -> torch.Tensor:
     """Frame embeddings (B, S_enc, d) -> encoder states (B, S_enc, d) in the
-    compute dtype: in a train step under a mesh split along the sequence as
-    the residual stream is, else with their sequence whole."""
+    compute dtype.  Under a mesh the encoder runs on the residual stream's
+    sequence split, in a train step and in a prefill alike
+    (``act_sharding.split_sequence``), as the reference's GSPMD splits it,
+    and the states stay split along the sequence; else they are whole."""
     policy = _layer_remat(remat)
     b, s, d = embeds.shape
     x = embeds.to(getattr(torch, cfg.compute_dtype))
     x = x + sinusoidal_positions(s, d, device=x.device).to(x.dtype)[None]
-    for lp in _layers(params["enc_scan"], cfg.encoder_layers, cfg):
-        x = remat_call(functools.partial(_enc_layer, lp, cfg), policy, x)
-    x = rms_norm(x, fsdp_gather(params["enc_final_ln"]), cfg.norm_eps)
-    # a train step under a mesh keeps the states split along the sequence
-    # (each decoder layer projects its cross K/V on each rank's block, then
-    # gathers them); else the cross-attention takes them whole
-    return x if sequence_parallel() else sequence_whole(x)
+    with split_sequence():
+        for lp in _layers(params["enc_scan"], cfg.encoder_layers, cfg):
+            x = remat_call(functools.partial(_enc_layer, lp, cfg), policy, x)
+        x = rms_norm(x, fsdp_gather(params["enc_final_ln"]), cfg.norm_eps)
+        # on the split, each decoder layer projects its cross K/V on each
+        # rank's block, then gathers them; off it, the cross-attention takes
+        # them whole
+        return x if sequence_parallel() else sequence_whole(x)
 
 
 def _embed(params: Dict, tokens: torch.Tensor, cfg: C.ModelConfig) -> torch.Tensor:
@@ -210,13 +213,18 @@ def encode_prefill(params: Dict, embeds: torch.Tensor, cfg: C.ModelConfig,
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Encode and compute every decoder layer's cross-attention K/V once:
     (encoder states, a cache with ``self_slots`` empty self-attention
-    slots; ``cache``: a zeroed one of that shape to fill instead)."""
+    slots; ``cache``: a zeroed one of that shape to fill instead).  Under a
+    mesh the states stay split along the sequence (``encode``) and each
+    layer's K/V is projected on each rank's block, then placed as the
+    cache is, as ``_dec_layer`` takes them in a train step."""
     enc = encode(params, embeds, cfg)
     if cache is None:
         cache = init_dec_cache(cfg, embeds.shape[0], self_slots, embeds.shape[1],
                                device=embeds.device)
-    for i, lp in enumerate(_layers(params["dec_scan"], cfg.num_layers, cfg)):
-        cache["cross_k"][i], cache["cross_v"][i] = project_kv(lp["cross_attn"], enc)
+    with split_sequence():
+        for i, lp in enumerate(_layers(params["dec_scan"], cfg.num_layers, cfg)):
+            cache["cross_k"][i], cache["cross_v"][i] = project_kv(lp["cross_attn"],
+                                                                  block_input(enc))
     return enc, cache
 
 

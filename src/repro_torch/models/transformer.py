@@ -280,13 +280,13 @@ def remat_call(fn: Callable, remat: str, *args):
         return fn(*args)
     check_remat(remat)
     rules = current_rules()
-    runs = []
+    runs, handed = [], {}
 
     def unit(*a):
-        # a "dots" unit's later runs are the backward pass's reruns
-        replay = remat == "dots" and bool(runs)
+        # the unit's later runs are the backward pass's reruns
+        rerun = bool(runs)
         runs.append(None)
-        with remat_unit(rules, replay):
+        with remat_unit(rules, remat == "dots" and rerun, handed, rerun):
             return fn(*a)
 
     if remat == "full":

@@ -31,7 +31,15 @@ reference, run here in this process:
   branch's capacity and aux loss are each batch shard's);
 * sharded prefill into a cache placed by ``cache_pspecs`` and 4 sharded
   decode steps against the one-process ones (float32 logits within 1e-4)
-  on four smoke block kinds;
+  on four smoke block kinds and on Whisper (4 heads and 3: its encoder
+  states, then the logits), whose sharded prefill encodes on the
+  sequence split: every encoder layer hands on its states split over
+  "model" along the sequence;
+* flash attention's local region under remat "dots" and "full" (heads
+  split over "model", and not): its graph rebuild in the backward pass
+  makes no product, the loss and gradients bit for bit those of a
+  rebuild that computes flash's forward itself and within 1e-5 of
+  "none"'s;
 * one attention layer (forward and gradients, float32, within 1e-5 of
   each tensor's largest) with 4 KV heads on "model" = 4 (the (1, 4) mesh)
   and with KV heads that do not divide "model": 2 on 4 (repeated until they
@@ -312,47 +320,133 @@ def _remat_cases(rank, mesh22, out):
     out["steps_moe_2"] = dict(losses=losses, dlosses=dlosses, plain=plain, sharded=sharded)
 
 
-SERVE_ARCHS = ("tinyllama-1.1b", "mixtral-8x7b", "recurrentgemma-2b", "rwkv6-1.6b")
+# (name, arch, config changes): the decoder-only block kinds, and Whisper
+# with 4 heads (split over "model" = 2) and 3 (not split: each rank's query
+# rows against every frame)
+SERVE_CASES = (("tinyllama-1.1b", "tinyllama-1.1b", {}), ("mixtral-8x7b", "mixtral-8x7b", {}),
+               ("recurrentgemma-2b", "recurrentgemma-2b", {}), ("rwkv6-1.6b", "rwkv6-1.6b", {}),
+               ("whisper-small", "whisper-small", {}),
+               ("whisper-3h", "whisper-small", {"num_heads": 3, "num_kv_heads": 3}))
 SERVE_DECODE = 4
 
 
 def _serve_cases(rank, mesh22, out):
-    """Prefill (SEQ tokens into SEQ + SERVE_DECODE slots) and SERVE_DECODE
-    decode steps, on one process and sharded on (2, 2)."""
+    """Prefill (SEQ tokens into SEQ + SERVE_DECODE slots; Whisper: SEQ frames
+    and SERVE_DECODE decoder slots) and SERVE_DECODE decode steps, on one
+    process and sharded on (2, 2).  Whisper's first result is its encoder
+    states; the placements of the states each encoder layer hands on inside
+    the sharded prefill are kept."""
     from torch.distributed.tensor import distribute_tensor
 
+    from repro_torch.models import encdec
     from repro_torch.models.model import build_model
     from repro_torch.sharding import batch_pspecs, distribute_tree, param_pspecs
     from repro_torch.train.train_step import (make_serve_step, make_sharded_prefill_step,
                                               make_sharded_serve_step)
 
-    for arch in SERVE_ARCHS:
-        cfg = _smoke_f32(arch)
+    for name, arch, changes in SERVE_CASES:
+        cfg = _smoke_f32(arch).replace(**changes)
         model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(2))
         g = torch.Generator().manual_seed(3)
-        prompt = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=g)
+        if cfg.is_encdec:
+            batch = {"encoder_embeds": torch.randn(BATCH, SEQ, cfg.d_model, generator=g)}
+            start, slots = 0, SERVE_DECODE
+        else:
+            batch = {"inputs": torch.randint(0, cfg.vocab_size, (BATCH, SEQ), generator=g)}
+            start, slots = SEQ, SEQ + SERVE_DECODE
         steps = torch.randint(0, cfg.vocab_size, (SERVE_DECODE, BATCH, 1), generator=g)
-        slots = SEQ + SERVE_DECODE
-        logits, cache = model.prefill(params, {"inputs": prompt}, slots)
+        logits, cache = model.prefill(params, batch, slots)
         want = [logits]
         serve = make_serve_step(model)
         for i in range(SERVE_DECODE):
-            logits, cache = serve(params, cache, steps[i], SEQ + i)
+            logits, cache = serve(params, cache, steps[i], start + i)
             want.append(logits)
         sds, axes = model.abstract_params()
         dparams = distribute_tree(params, param_pspecs(sds, axes, mesh22, mode="serve",
                                                        fsdp=False), mesh22)
-        dlogits, dcache = make_sharded_prefill_step(model, mesh22, slots)(
-            dparams, distribute_tree({"inputs": prompt},
-                                     batch_pspecs(cfg, "prefill", BATCH, mesh22), mesh22))
+        enc_layer, seen = encdec._enc_layer, []
+
+        def spy(*args):
+            y = enc_layer(*args)
+            seen.append(str(y.placements))
+            return y
+
+        encdec._enc_layer = spy
+        try:
+            dlogits, dcache = make_sharded_prefill_step(model, mesh22, slots)(
+                dparams, distribute_tree(batch, batch_pspecs(cfg, "prefill", BATCH, mesh22),
+                                         mesh22))
+        finally:
+            encdec._enc_layer = enc_layer
         got = [dlogits.full_tensor()]
+        first = str(dlogits.placements)
         dserve = make_sharded_serve_step(model, mesh22)
         for i in range(SERVE_DECODE):
             tok = distribute_tensor(steps[i], mesh22, placements_of((), mesh22))
-            dlogits, dcache = dserve(dparams, dcache, tok, SEQ + i)
+            dlogits, dcache = dserve(dparams, dcache, tok, start + i)
             got.append(dlogits.full_tensor())
-        out[f"serve_{arch}"] = dict(want=torch.stack(want), got=torch.stack(got))
+        out[f"serve_{name}"] = dict(want=want, got=got, first=first,
+                                    encoder_layers=sorted(set(seen)))
+
+
+# Flash attention in a local region on (2, 2) (TinyLlama's smoke config, one
+# flash chunk a layer): 4 heads, split over "model", and 3 heads on 1 KV
+# head, which do not split it (each rank's query rows at their offset)
+FLASH_REBUILD_HEADS = ((4, 2), (3, 1))
+FLASH_PRODUCTS = ("_logits", "_pv", "_tp")
+
+
+def _flash_rebuild_cases(rank, mesh22, out):
+    """One sharded ``train_loss`` and its gradients under remat "none",
+    "dots" and "full", and under "dots" again with the local region's graph
+    rebuild computing flash's forward itself (``taken_from_rerun`` giving
+    nothing back); flash's products by call (``FLASH_PRODUCTS``), those
+    made while a region rebuilds its graph apart."""
+    from repro_torch import act_sharding
+    from repro_torch.models import attention
+    from repro_torch.models.model import build_model
+    from repro_torch.pytree import leaves, tree_map
+    from repro_torch.sharding import batch_pspecs, distribute_tree, param_pspecs
+    from repro_torch.train.train_step import _value_and_grad, trainable
+
+    originals = {name: getattr(attention, name) for name in FLASH_PRODUCTS}
+    taken = attention.taken_from_rerun
+
+    def counted(calls, f):
+        def call(*a, **kw):
+            calls["rebuild" if act_sharding.rebuilding_graph() else "products"] += 1
+            return f(*a, **kw)
+        return call
+
+    for heads, kvh in FLASH_REBUILD_HEADS:
+        cfg = _smoke_f32("tinyllama-1.1b").replace(num_heads=heads, num_kv_heads=kvh)
+        params = build_model(cfg).init(torch.Generator().manual_seed(14))
+        batch = _batches(cfg, 15)[0]
+        runs = {}
+        for name, remat in (("none", "none"), ("dots", "dots"), ("full", "full"),
+                            ("dots_computing", "dots")):
+            model = build_model(cfg, remat=remat)
+            sds, axes = model.abstract_params()
+            p = trainable(distribute_tree(tree_map(torch.clone, params),
+                                          param_pspecs(sds, axes, mesh22, mode="train",
+                                                       fsdp=True), mesh22))
+            placed = distribute_tree(batch, batch_pspecs(cfg, "train", BATCH, mesh22), mesh22)
+            calls = {"products": 0, "rebuild": 0}
+            for fn_name, f in originals.items():
+                setattr(attention, fn_name, counted(calls, f))
+            if name == "dots_computing":
+                attention.taken_from_rerun = lambda: None
+            try:
+                with act_sharding.activation_rules(mesh22):
+                    loss, _, grads = _value_and_grad(model, p, placed)
+            finally:
+                for fn_name, f in originals.items():
+                    setattr(attention, fn_name, f)
+                attention.taken_from_rerun = taken
+            runs[name] = dict(loss=loss, grads=[g.full_tensor() for g in leaves(grads)],
+                              calls=calls)
+        out[f"flash_{heads}_{kvh}"] = runs
 
 
 def placements_of(spec, mesh):
@@ -602,6 +696,7 @@ def _worker(rank, store_path, out_dir, inputs):
         _train_case(rank, mesh22, mesh14, ckpt_dir, "float32", out)
         _train_case(rank, mesh22, mesh14, ckpt_dir, "bfloat16", out)
         _remat_cases(rank, mesh22, out)
+        _flash_rebuild_cases(rank, mesh22, out)
         _serve_cases(rank, mesh22, out)
         _attention_cases(rank, {"mesh22": mesh22, "mesh14": mesh14}, out)
         _vocab_cases(rank, mesh22, out)
@@ -896,16 +991,55 @@ def test_remat_policies_agree_on_one_process(ranks):
             assert torch.allclose(a, b, rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mixtral-8x7b", "recurrentgemma-2b",
-                                  "rwkv6-1.6b"])
+@pytest.mark.parametrize("heads,kvh", FLASH_REBUILD_HEADS, ids=["4-heads", "3-heads-1-kv"])
+def test_flash_graph_rebuild_makes_no_products(ranks, heads, kvh):
+    """Under remat "dots" and "full", flash attention's local region makes
+    its graph again in the backward pass without a product: it takes the
+    float32 output and log-sum-exp from the region's run in the unit's
+    rerun.  So "dots" makes 9 products a key chunk where "none" makes 7
+    (the rerun's forward two), and a rebuild that computes flash's forward
+    itself makes two more; the loss and every gradient are equal to that
+    rebuild's bit for bit, and within 1e-5 relative of "none"'s."""
+    for out in ranks["out"]:
+        runs = out[f"flash_{heads}_{kvh}"]
+        computing = runs["dots_computing"]
+        assert computing["calls"]["rebuild"] * 9 == computing["calls"]["products"] * 2 > 0
+        assert runs["dots"]["calls"]["products"] * 7 == runs["none"]["calls"]["products"] * 9
+        for remat in ("dots", "full"):
+            got = runs[remat]
+            assert got["calls"] == {"products": computing["calls"]["products"], "rebuild": 0}
+            assert abs(float(got["loss"] - runs["none"]["loss"])) <= 1e-5 * abs(
+                float(runs["none"]["loss"]))
+            for g, n in zip(got["grads"], runs["none"]["grads"]):
+                assert float((g - n).abs().max()) <= 1e-5 * float(n.abs().max())
+        assert torch.equal(runs["dots"]["loss"], computing["loss"])
+        assert all(torch.equal(g, c) for g, c in zip(runs["dots"]["grads"], computing["grads"]))
+
+
+@pytest.mark.parametrize("arch", [c[0] for c in SERVE_CASES])
 def test_sharded_prefill_and_decode_match_one_process(ranks, arch):
     """Sharded prefill into a cache placed by ``cache_pspecs`` and 4 sharded
-    decode steps (tokens replicated) give the one-process logits within
-    1e-4 (float32)."""
+    decode steps (tokens replicated) give the one-process logits (Whisper:
+    its encoder states, then the logits) within 1e-4 (float32)."""
     for out in ranks["out"]:
         got = out[f"serve_{arch}"]
-        assert got["got"].shape == got["want"].shape
-        assert float((got["got"] - got["want"]).abs().max()) < 1e-4
+        assert len(got["got"]) == len(got["want"]) == 1 + SERVE_DECODE
+        for a, b in zip(got["got"], got["want"]):
+            assert a.shape == b.shape
+            assert float((a - b).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("name", ["whisper-small", "whisper-3h"])
+def test_sharded_prefill_encodes_on_the_sequence_split(ranks, name):
+    """Whisper's sharded prefill runs its encoder on the residual stream's
+    sequence split, as the reference's GSPMD does: every encoder layer
+    hands on states split over "model" along the sequence and over "data"
+    along the rows, and the prefill returns them so (4 heads, split over
+    "model", and 3, each rank's query rows against every frame)."""
+    for out in ranks["out"]:
+        got = out[f"serve_{name}"]
+        assert got["encoder_layers"] == ["(Shard(dim=0), Shard(dim=1))"]
+        assert got["first"] == "(Shard(dim=0), Shard(dim=1))"
 
 
 @pytest.mark.parametrize("heads,kvh,mesh", ATTN_CASES,

@@ -15,8 +15,10 @@ Run: PYTHONPATH=src python -m pytest -q tests/test_torch_dryrun_trace.py
 * On a fake 4 x 4 mesh, a smoke config whose heads do not split "model":
   the last rank (15) attends its query rows against their whole causal
   key range, rank 0 its own shorter one (``FLASH_PASSES_DOTS`` products a
-  key chunk), the rest of their work equal; the record traces both and
-  reports the heavier; where the heads split, it traces rank 0 alone.
+  key chunk, under remat "dots" and "full": the local region's graph
+  rebuild makes none), the rest of their work equal; the record traces
+  both and reports the heavier; where the heads split, it traces rank 0
+  alone.
 * At smoke widths, the straight-line extrapolation from one and two periods
   of ``block_pattern`` (and the remainder) equals a trace at the full
   depth: collective counts and bytes and FLOPs exactly, the peak within
@@ -28,13 +30,14 @@ Run: PYTHONPATH=src python -m pytest -q tests/test_torch_dryrun_trace.py
 * Against the reference's own dry run (``repro.launch.dryrun.run_cell``,
   512 forced host devices, its layers unrolled so the compiled module
   holds the whole step): on TinyLlama's and Mixtral's smoke prefill and
-  decode cells on both meshes, the traced FLOPs per device equal the
-  matrix-product FLOPs of the reference's compiled SPMD module
-  (``tools/reference_buffers.py``'s ``hlo_dots``: 2 x result elements x
-  contracted size over its ``dot`` instructions, what
-  ``FlopCounterMode`` counts; XLA's
-  ``cost_analysis`` adds every elementwise operation); every collective
-  kind the reference's module issues, the trace issues.
+  decode cells and Whisper's smoke prefill on both meshes, the traced
+  FLOPs per device equal the matrix-product FLOPs of the reference's
+  compiled SPMD module (``tools/reference_buffers.py``'s ``hlo_dots``: 2 x
+  result elements x contracted size over its ``dot`` instructions, what
+  ``FlopCounterMode`` counts; XLA's ``cost_analysis`` adds every
+  elementwise operation), but where ``FLOPS_APART`` pins them; every
+  collective kind the reference's module issues, the trace issues, but
+  those ``KINDS_APART`` pins.
 * The train cells (TinyLlama's, Mixtral's and RWKV6's), at a smoke batch
   that splits over the batch axes (32 rows: ``TRAIN_SMOKE``), against the
   reference's compiled module with its loss head chunked under
@@ -55,6 +58,12 @@ Run: PYTHONPATH=src python -m pytest -q tests/test_torch_dryrun_trace.py
   token shift a collective-permute); TinyLlama's loss head traces
   ``TINYLLAMA_LOSS_HEAD_FLOPS`` a device (the vocabulary split over 16
   "model" ranks) and its step at most ``TINYLLAMA_MAX_FLOPS``.
+* Full size: Whisper-small's ``prefill_32k`` on both meshes, its encoder
+  on the sequence split: the traced FLOPs a device at most
+  ``FLOPS_OVER_REFERENCE`` times the reference's compiled matrix products
+  (``REFERENCE_PREFILL_DOT_FLOPS``), its peak at most
+  ``PEAK_OVER_REFERENCE`` times the reference's, the reference's
+  collective kinds in the trace.
 * ``act_rules`` reaches the traced step as it reaches ``analytic_terms``.
 
 A process has one default process group, so every part that makes the fake
@@ -121,9 +130,11 @@ class _Child:
         return json.loads(run.stdout.strip().splitlines()[-1])
 
 
-# The cells held against the reference's compiled module.
+# The cells held against the reference's compiled module: REF_ARCHS x
+# REF_SHAPES, and REF_EXTRA's (arch, shape) pairs.
 REF_ARCHS = ("tinyllama-1.1b", "mixtral-8x7b")
 REF_SHAPES = ("prefill_32k", "decode_32k")
+REF_EXTRA = (("whisper-small", "prefill_32k"),)
 
 # The reference's side: ``tools/reference_buffers.py``'s counter of the
 # compiled module's matrix products (``hlo_dots``), run from the repo's root.
@@ -142,13 +153,12 @@ R.SHAPES = SMOKE_SHAPES
 R.get_config = lambda arch: get_config(arch, smoke=True)
 out = []
 for multi_pod in (False, True):
-    for arch in ARCHS:
-        for shape in SHAPES:
-            with scan_mode.unrolled():
-                rec = R.run_cell(arch, shape, multi_pod=multi_pod, verbose=False)
-            out.append(dict(arch=arch, shape=shape, mesh=rec["mesh"],
-                            dot_flops=hlo_dot_flops(texts[-1]), cost_flops=rec["hlo_body_flops"],
-                            loops=texts[-1].count(" while("), counts=rec["collectives"]["counts"]))
+    for arch, shape in [(a, s) for a in ARCHS for s in SHAPES] + EXTRA:
+        with scan_mode.unrolled():
+            rec = R.run_cell(arch, shape, multi_pod=multi_pod, verbose=False)
+        out.append(dict(arch=arch, shape=shape, mesh=rec["mesh"],
+                        dot_flops=hlo_dot_flops(texts[-1]), cost_flops=rec["hlo_body_flops"],
+                        loops=texts[-1].count(" while("), counts=rec["collectives"]["counts"]))
 print(json.dumps(out))
 """
 
@@ -156,6 +166,8 @@ _PORT_CELLS = r"""
 import json
 from repro_torch.launch import dryrun
 cells = dryrun.run_all((False, True), ARCHS, SHAPES, verbose=False, smoke=True)
+for arch, shape in EXTRA:
+    cells += dryrun.run_all((False, True), [arch], [shape], verbose=False, smoke=True)
 print(json.dumps(cells))
 """
 
@@ -212,11 +224,11 @@ smoke = dryrun.run_all((False, True), ARCHS, ["train_4k"], verbose=False, smoke=
 print(json.dumps(dict(smoke=smoke)))
 """
 
-# one full-size train cell (ARCH, on 2 x 16 x 16 if MULTI_POD)
+# one full-size cell (ARCH's SHAPE, on 2 x 16 x 16 if MULTI_POD)
 _PORT_FULL = r"""
 import json
 from repro_torch.launch import dryrun
-rec = dryrun.run_cell(ARCH, "train_4k", multi_pod=MULTI_POD, verbose=False)
+rec = dryrun.run_cell(ARCH, SHAPE, multi_pod=MULTI_POD, verbose=False)
 dryrun.close_fake_mesh()
 print(json.dumps(dict(peak=rec["bytes_per_device"]["peak"], flops=rec["traced_flops_per_device"],
                       by_op=rec["traced_flops_by_op"], counts=rec["collectives"]["counts"])))
@@ -253,6 +265,27 @@ for name, cfg in configs.items():
     out[f"{name}_record"] = {k: rec[k] for k in (
         "traced_flops_per_device", "traced_flops_rank0", "traced_flops_last_rank",
         "last_rank_traced", "peak_rank", "bytes_per_device")}
+# flash's products by call in rank 0's trace under "dots" and "full", those
+# made while a local region rebuilds its graph apart
+from repro_torch import act_sharding
+from repro_torch.models import attention
+originals = {n: getattr(attention, n) for n in ("_logits", "_pv", "_tp")}
+def counted(calls, f):
+    def call(*a, **kw):
+        calls["rebuild" if act_sharding.rebuilding_graph() else "products"] += 1
+        return f(*a, **kw)
+    return call
+for remat in ("dots", "full"):
+    calls = {"products": 0, "rebuild": 0}
+    for n, f in originals.items():
+        setattr(attention, n, counted(calls, f))
+    try:
+        r = dryrun.trace_step(configs["apart"], shape, dryrun.fake_mesh(MESH, 0), remat=remat)
+    finally:
+        for n, f in originals.items():
+            setattr(attention, n, f)
+    out[f"calls_{remat}"] = dict(calls, attention=sum(
+        n for k, n in r["flops_by_op"].items() if k.startswith("attention/")))
 dryrun.close_fake_mesh()
 print(json.dumps(out))
 """
@@ -274,10 +307,12 @@ print(json.dumps(out))
 def children(tmp_path_factory):
     """The file's slower subprocesses, started together: the CLI on
     TinyLlama's smoke cells on both meshes, the port's and the reference's
-    prefill and decode cells of REF_ARCHS, their train cells and full-size
-    peaks (one child a cell), and the ``act_rules`` pair."""
+    prefill and decode cells of REF_ARCHS (and REF_EXTRA's), their train
+    cells and full-size peaks (one child a cell), the full-size prefill
+    cells of REFERENCE_PREFILL_DOT_FLOPS, and the ``act_rules`` pair."""
     cli_out = tmp_path_factory.mktemp("cli") / "dry.json"
-    consts = f"ARCHS = {list(REF_ARCHS)!r}\nSHAPES = {list(REF_SHAPES)!r}\n"
+    consts = f"ARCHS = {list(REF_ARCHS)!r}\nSHAPES = {list(REF_SHAPES)!r}\n" \
+             f"EXTRA = {[list(c) for c in REF_EXTRA]!r}\n"
     train = f"ARCHS = {list(TRAIN_ARCHS)!r}\nTRAIN_SMOKE = {TRAIN_SMOKE!r}\n" \
             f"LIVE_PEAK_ARCHS = {list(LIVE_PEAK_ARCHS)!r}\n"
     kids = {
@@ -291,8 +326,13 @@ def children(tmp_path_factory):
         "ref_train": _Child([sys.executable, "-c", train + _REF_TRAIN], 240),
         "port_train": _Child([sys.executable, "-c", train + _PORT_TRAIN], 240),
         **{f"full_{arch}_{mesh}": _Child([sys.executable, "-c", f"ARCH = {arch!r}\nMULTI_POD = "
-                                          f"{mesh != MESHES[0]}\n" + _PORT_FULL], 240)
+                                          f"{mesh != MESHES[0]}\nSHAPE = 'train_4k'\n"
+                                          + _PORT_FULL], 240)
            for arch in PEAK_ARCHS for mesh in MESHES},
+        **{f"full_prefill_{arch}_{mesh}": _Child(
+            [sys.executable, "-c", f"ARCH = {arch!r}\nMULTI_POD = {mesh != MESHES[0]}\n"
+             f"SHAPE = 'prefill_32k'\n" + _PORT_FULL], 240)
+           for arch, mesh in REFERENCE_PREFILL_DOT_FLOPS},
     }
     kids["cli_out"] = cli_out
     yield kids
@@ -514,14 +554,27 @@ def test_cli_records_a_failing_cell_and_exits_1(tmp_path):
 # prefill: the banded schedule makes no product against the chunk before
 # position 0 (window 32, 4 chunks of 32 tokens: 7 of the reference's 8
 # chunk pairs), which the reference's compiled module multiplies as zeros.
-FLOPS_APART = {("tinyllama-1.1b", "train_4k", "16x16"): (17_039_360, 15_466_496),
-               ("tinyllama-1.1b", "train_4k", "2x16x16"): (8_519_680, 7_733_248),
+# Whisper's smoke prefill: see KINDS_APART.
+FLOPS_APART = {("tinyllama-1.1b", "train_4k", "16x16"): (15_990_784, 15_466_496),
+               ("tinyllama-1.1b", "train_4k", "2x16x16"): (7_995_392, 7_733_248),
                ("mixtral-8x7b", "train_4k", "16x16"): (52_953_088, 31_457_280),
                ("mixtral-8x7b", "train_4k", "2x16x16"): (26_476_544, 15_728_640),
                ("mixtral-8x7b", "prefill_32k", "16x16"): (24_125_440, 25_174_016),
                ("mixtral-8x7b", "prefill_32k", "2x16x16"): (14_159_872, 14_684_160),
                ("rwkv6-1.6b", "train_4k", "16x16"): (48_234_496, 14_438_400),
-               ("rwkv6-1.6b", "train_4k", "2x16x16"): (24_117_248, 7_225_344)}
+               ("rwkv6-1.6b", "train_4k", "2x16x16"): (24_117_248, 7_225_344),
+               ("whisper-small", "prefill_32k", "16x16"): (3_670_016, 2_686_976),
+               ("whisper-small", "prefill_32k", "2x16x16"): (1_835_008, 1_343_488)}
+# Whisper's smoke prefill (4 heads, 128 frames, 2 rows): both encode on the
+# sequence split over "model", and their projections and QK^T agree; GSPMD
+# also splits the PV product over the keys and the MLP's output product over
+# its width, each rank multiplying its share and the partial sums
+# all-reduced, and moves sequence blocks between ranks with
+# collective-permutes, where the port multiplies each rank's query rows
+# against every value and reduce-scatters the MLP's output.  The reference's
+# collective kinds that such a cell lacks, by (arch, shape); at full size
+# the reference issues all-gathers alone there (REFERENCE_PREFILL_KINDS).
+KINDS_APART = {("whisper-small", "prefill_32k"): {"all-reduce", "collective-permute"}}
 # The full-size train cells: the port's traced peak at most this many times
 # the reference's compiled peak; TinyLlama's loss head (4 products, the
 # forward, its recompute and two backward, over 16 x 512-token chunks a
@@ -561,12 +614,24 @@ REFERENCE_DOT_FLOPS = {
     ("rwkv6-1.6b", "2x16x16"): 18_511_913_025_536,
 }
 FLOPS_OVER_REFERENCE = 1.3
+# The reference's compiled prefill a device, Whisper-small's prefill_32k
+# (its encoder on the sequence split): the FLOPs of its matrix products,
+# as REFERENCE_DOT_FLOPS (``tools/reference_buffers.py --arch whisper-small
+# --shape prefill_32k --mesh both --measure flops``), its peak
+# (``memory_analysis``, ``--measure peak``) and the collective kinds it
+# issues (``PYTHONPATH=src python -m repro.launch.dryrun --arch
+# whisper-small --shape prefill_32k --mesh both``: 7 all-gathers).
+REFERENCE_PREFILL_DOT_FLOPS = {("whisper-small", "16x16"): 5_759_551_143_936,
+                               ("whisper-small", "2x16x16"): 2_879_775_571_968}
+REFERENCE_PREFILL_PEAKS = {("whisper-small", "16x16"): 1_732_229_192,
+                           ("whisper-small", "2x16x16"): 1_279_146_056}
+REFERENCE_PREFILL_KINDS = {"whisper-small": {"all-gather"}}
 
 
 def test_flops_and_collective_kinds_against_reference_compiled_module(children):
     ref = children["ref"].json()
     port = {(c["arch"], c["shape"], c["mesh"]): c for c in children["port"].json()}
-    assert len(ref) == len(port) == 2 * len(REF_ARCHS) * len(REF_SHAPES)
+    assert len(ref) == len(port) == 2 * (len(REF_ARCHS) * len(REF_SHAPES) + len(REF_EXTRA))
     for r in ref:
         key = (r["arch"], r["shape"], r["mesh"])
         c = port[key]
@@ -577,15 +642,22 @@ def test_flops_and_collective_kinds_against_reference_compiled_module(children):
         want = FLOPS_APART.get(key, (r["dot_flops"], r["dot_flops"]))
         assert (c["traced_flops_per_device"], r["dot_flops"]) == want, key
         kinds = lambda counts: {k for k, n in counts.items() if n}
-        assert kinds(r["counts"]) <= kinds(c["collectives"]["counts"]), (key, r["counts"])
+        apart = KINDS_APART.get(key[:2], set())
+        assert kinds(r["counts"]) - kinds(c["collectives"]["counts"]) == apart, \
+            (key, r["counts"])
         assert not kinds(c["collectives"]["counts"]) & {"all-to-all", "collective-permute"}
 
 
 # flash attention's products a key chunk under remat "dots" on a mesh:
-# the forward's two (QK^T, PV) in the local region, again in the unit's
-# rerun and again where the region makes its graph in the backward pass,
-# and the backward's five (the probabilities, dV, dP, dQ, dK)
-FLASH_PASSES_DOTS = 11
+# the forward's two (QK^T, PV) in the local region and again in the unit's
+# rerun, and the backward's five (the probabilities, dV, dP, dQ, dK); where
+# the region makes its graph again in the backward pass, flash takes its
+# output from the rerun and makes none.  The reference's
+# Mixtral-8x7B step makes 8 a block of query rows, each over its whole key
+# range: its forward's two, their recompute under ``jax.checkpoint`` and
+# its backward's four, which read the recomputed probabilities
+# (``tools/reference_buffers.py --arch mixtral-8x7b --dots 30``).
+FLASH_PASSES_DOTS = 9
 
 
 def test_last_rank_attends_its_whole_causal_key_range(children):
@@ -617,6 +689,21 @@ def test_last_rank_attends_its_whole_causal_key_range(children):
     assert split["last_rank_traced"] is False and split["peak_rank"] == 0
     assert split["traced_flops_per_device"] == split["traced_flops_rank0"] == \
         split["traced_flops_last_rank"] == got["split_0"]["flops"]
+
+
+def test_flash_graph_rebuild_in_the_trace_makes_no_products(children):
+    """Rank 0's trace of the config whose heads do not split "model", under
+    remat "dots" and "full": flash's local region rebuilds its graph in the
+    backward pass without a product (it takes its output from the unit's
+    rerun), so both make FLASH_PASSES_DOTS products a key chunk."""
+    got = children["ranks"].json()
+    _, _, s, b = RANKS_SHAPE
+    rows = s // RANKS_MESH["model"]
+    unit = 2 * (b // RANKS_MESH["data"]) * RANKS_HEADS[0] * 16 * rows
+    for remat in ("dots", "full"):
+        calls = got[f"calls_{remat}"]
+        assert calls["rebuild"] == 0 and calls["products"] > 0, (remat, calls)
+        assert calls["attention"] == FLASH_PASSES_DOTS * unit * rows, (remat, calls)
 
 
 def test_act_rules_reach_the_traced_step(children):
@@ -698,6 +785,23 @@ def test_train_flops_against_reference_compiled_dots(children, arch):
         flops = children[f"full_{arch}_{mesh}"].json()["flops"]
         ref = REFERENCE_DOT_FLOPS[(arch, mesh)]
         assert 0 < flops <= FLOPS_OVER_REFERENCE * ref, (arch, mesh, flops, ref, flops / ref)
+
+
+@pytest.mark.parametrize("arch,mesh", list(REFERENCE_PREFILL_DOT_FLOPS))
+def test_prefill_against_reference_compiled_step(children, arch, mesh):
+    """Full-size ``prefill_32k`` of an encoder-decoder model: its encoder
+    runs on the sequence split, each rank's query rows against every frame
+    and every projection on each rank's block, as the reference's GSPMD
+    splits it, so the traced FLOPs a device are at most
+    FLOPS_OVER_REFERENCE times the reference's compiled matrix products,
+    its peak at most PEAK_OVER_REFERENCE times the reference's, and it
+    issues every collective kind the reference's step issues."""
+    rec = children[f"full_prefill_{arch}_{mesh}"].json()
+    ref = REFERENCE_PREFILL_DOT_FLOPS[(arch, mesh)]
+    assert 0 < rec["flops"] <= FLOPS_OVER_REFERENCE * ref, (rec["flops"], ref, rec["flops"] / ref)
+    peak = REFERENCE_PREFILL_PEAKS[(arch, mesh)]
+    assert 0 < rec["peak"] <= PEAK_OVER_REFERENCE * peak, (rec["peak"], peak)
+    assert REFERENCE_PREFILL_KINDS[arch] <= {k for k, n in rec["counts"].items() if n}
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "rwkv6-1.6b"])
